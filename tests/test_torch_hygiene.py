@@ -1,0 +1,30 @@
+"""The port and chip_smoke.py import neither JAX nor the JAX package."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
+assert not bad, bad
+assert len(mods) >= 15, mods
+print("ok", len(mods))
+"""
+
+
+def test_port_imports_no_jax_and_no_repro():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(REPO / "src"), str(REPO)])
+    proc = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
