@@ -1,9 +1,15 @@
-"""Carry datasets and solver states between the JAX package and the port.
+"""Carry datasets, solver states and model weights between the JAX package
+and the port.
 
 The port never imports JAX: the caller turns a JAX ``DSBAState`` into
 numpy (``{field: np.asarray(leaf)}``) and hands it here, so both packages
 can start from one state. ``dataset_to_torch`` moves a ``SparseDataset``
 (numpy, from either package's ``data.synthetic``) onto a device once.
+``model_params_from_numpy`` does the same for a model's weights: the JAX
+``model_defs`` tree with numpy leaves (layers stacked on axis 0 under
+``blocks``) becomes the port's parameters, each leaf in the dtype the port
+holds it in (``transformer.storage_dtype``); ``model_params_to_numpy``
+goes back.
 """
 from __future__ import annotations
 
@@ -15,6 +21,8 @@ import torch
 
 from repro_torch.core.dsba import DSBAState
 from repro_torch.device import resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.models.params import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,3 +64,44 @@ def state_to_numpy(state: DSBAState) -> dict[str, np.ndarray]:
         f.name: getattr(state, f.name).detach().cpu().numpy()
         for f in dataclasses.fields(state)
     }
+
+
+def model_params_from_numpy(cfg, tree: Mapping, device=None) -> dict:
+    """The port's parameters from a nested dict of numpy arrays.
+
+    The tree must have exactly the leaves of ``transformer.model_defs(cfg)``
+    with their shapes. Each leaf is cast as the JAX package casts it at use:
+    a float32 leaf becomes ``param_dtype`` (as ``tree_materialize`` stored
+    it), then the dtype the port holds it in.
+    """
+    dev = resolve_device(device)
+    store = T.storage_dtype(cfg)
+
+    def one(path, d, arr):
+        arr = np.asarray(arr)
+        if arr.shape != d.shape:
+            raise ValueError(f"{'/'.join(path)}: shape {arr.shape} != {d.shape}")
+        t = torch.as_tensor(np.require(arr, requirements="W"), device=dev).to(cfg.param_dtype)
+        return t.to(store(path))
+
+    defs = T.model_defs(cfg)
+    _same_keys(defs, tree)
+    return tree_map(one, defs, tree)
+
+
+def model_params_to_numpy(params: Mapping) -> dict:
+    """Nested dict of numpy arrays (float32 for bf16 leaves) of port parameters."""
+    def one(_, t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return tree_map(one, dict(params))
+
+
+def _same_keys(defs, tree, path=()):
+    if isinstance(defs, dict):
+        if not isinstance(tree, Mapping) or set(defs) != set(tree):
+            got = sorted(tree) if isinstance(tree, Mapping) else type(tree).__name__
+            raise ValueError(f"{'/'.join(path) or 'params'}: keys {got} != {sorted(defs)}")
+        for k in defs:
+            _same_keys(defs[k], tree[k], (*path, k))

@@ -2,7 +2,8 @@
 
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface; no PyTorch headers are included, so a
-build takes seconds. Libraries go into ``kernels/build/`` (listed in
+build takes seconds; ``build_all`` starts one ``nvcc`` per source at once.
+Libraries go into ``kernels/build/`` (listed in
 ``.gitignore``), named by a hash of the source and the flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is. Nothing here
 runs at import time: ``load_library`` is called by the kernel wrappers (and
@@ -29,6 +30,14 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+# decode_attention_<dt>(q, k_pool, v_pool, table, lengths, out, B, Hq, Hkv, D,
+#   n_blocks, block_size, n_pages, has_window, window, has_softcap, softcap,
+#   scale, device, stream)
+_DECODE = [_P] * 6 + [_I] * 10 + [_F, _F, _I, _P]
+# flash_attention_fwd_<dt>(q, k, v, o, lse, B, Hq, Hkv, S, Sk, D, causal,
+#   has_window, window, has_softcap, softcap, scale, device, stream)
+_FLASH = [_P] * 5 + [_I] * 10 + [_F, _F, _I, _P]
 # C signatures of each library's entry points: name -> argtypes (restype int)
 SIGNATURES = {
     "sparse_saga": {
@@ -37,6 +46,8 @@ SIGNATURES = {
         "sparse_dot_f64": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
         "sparse_dot_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
+    "decode_attention": {"decode_attention_bf16": _DECODE, "decode_attention_f32": _DECODE},
+    "flash_attention": {"flash_attention_fwd_bf16": _FLASH, "flash_attention_fwd_f32": _FLASH},
 }
 
 
@@ -61,22 +72,41 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` into the build directory (if not built)."""
+def _start(name: str):
+    """Start nvcc on ``csrc/<name>.cu``; (output path, temp path, process)."""
     out = _library_path(name)
-    if out.exists():
-        return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return out, tmp, proc
+
+
+def _finish(name: str, out: Path, tmp: Path, proc) -> str:
+    """Wait for one nvcc; raise on failure; returns its output."""
+    stdout, stderr = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}) building {name}.cu:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
+            f"{' '.join(proc.args)}\n{stdout}\n{stderr}"
         )
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return stdout + stderr
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` into the build directory (if not built)."""
+    out = _library_path(name)
+    if not out.exists():
+        _finish(name, *_start(name))
     return out
+
+
+def build_all() -> dict[str, str]:
+    """Build every library with one nvcc each, all started together.
+    Returns {name: nvcc output} for the ones that were not built yet."""
+    running = [(n, *_start(n)) for n in SIGNATURES if not _library_path(n).exists()]
+    return {n: _finish(n, out, tmp, proc) for n, out, tmp, proc in running}
 
 
 @functools.cache
@@ -91,6 +121,23 @@ def load_library(name: str = "sparse_saga") -> ctypes.CDLL:
     lib.error_string.argtypes = [ctypes.c_int]
     lib.error_string.restype = ctypes.c_char_p
     return lib
+
+
+def stream(t) -> int:
+    """The handle of the current CUDA stream of tensor t's device."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def plain_or_raise(t) -> bool:
+    """True for a CPU tensor (the wrapper uses the plain version), False for
+    a CUDA tensor (it launches the kernel); any other device raises."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}: CPU or CUDA only")
+    return False
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

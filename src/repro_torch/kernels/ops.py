@@ -17,10 +17,14 @@ compiled TPU kernels accumulate in float32 (``ops._resolve_compute_dtype``);
 the card has native float64, so the port does not.
 
 Tolerances are those of ``repro.kernels.ops``: ``sparse_dot`` 1e-5 (f32) and
-1e-12 (f64); ``sparse_axpy`` 1e-5 (f32) and bit-exact (f64).
+1e-12 (f64); ``sparse_axpy`` 1e-5 (f32) and bit-exact (f64);
+``flash_attention`` and ``decode_attention`` 2e-5 (f32) and 2e-2 (bf16).
+The attention kernels take bf16 or f32 inputs and accumulate in float32,
+as the JAX kernels do.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable
 
@@ -28,6 +32,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ref as R
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.sparse_saga import sparse_axpy, sparse_dot
 
 MODES = ("auto", "on", "off")
@@ -42,6 +48,7 @@ class Tolerance:
 
 
 _F32_TOL = Tolerance(2e-5, 2e-5)
+_BF16_TOL = Tolerance(2e-2, 2e-2)
 
 
 def dtype_name(dtype) -> str:
@@ -111,9 +118,41 @@ def _resolve(name: str, mode: str, *args) -> Callable:
     return spec.kernel  # the wrapper itself takes the plain version on CPU
 
 
-def dispatch(name: str, *args, mode: str = "auto"):
-    """Run kernel `name` on `args` under `mode`."""
-    return _resolve(name, mode, *args)(*args)
+# kernel name -> the error list of an open held_to_plain context
+_HELD: dict[str, list[float]] = {}
+
+
+@contextlib.contextmanager
+def held_to_plain(name: str):
+    """Hold every kernel call of `name` made through ``dispatch`` to its
+    plain version while the context is open.
+
+    Each call that runs the wrapper (modes ``auto`` and ``on``) also runs
+    the plain version on the same inputs, and the two must agree within the
+    registry tolerance (``AssertionError`` otherwise). Yields the list that
+    collects each call's max abs error. It costs one plain call per kernel
+    call: a check of a real path's own inputs, not for timed runs.
+    """
+    get_kernel(name)
+    if name in _HELD:
+        raise RuntimeError(f"{name!r} is already held to its plain version")
+    errs: list[float] = []
+    _HELD[name] = errs
+    try:
+        yield errs
+    finally:
+        del _HELD[name]
+
+
+def dispatch(name: str, *args, mode: str = "auto", **kwargs):
+    """Run kernel `name` on `args` (and keyword options) under `mode`."""
+    fn = _resolve(name, mode, *args)
+    out = fn(*args, **kwargs)
+    held = _HELD.get(name)
+    spec = get_kernel(name)
+    if held is not None and fn is not spec.ref:
+        held.append(_compare(spec, args, out, spec.ref(*args, **kwargs)))
+    return out
 
 
 def _max_err(got, want) -> float:
@@ -134,22 +173,31 @@ def assert_close(got: torch.Tensor, want: torch.Tensor, tol: Tolerance) -> float
     return _max_err(got, want)
 
 
-def parity_check(name: str, *args, mode: str = "on") -> float:
+def parity_check(name: str, *args, mode: str = "on", **kwargs) -> float:
     """Assert kernel-vs-plain agreement within the declared tolerance.
 
-    Runs `name` under `mode` and under 'off' on the same inputs and
-    returns the max abs error. The tolerance is the one for the dtype of
-    the first floating-point argument.
+    Runs `name` under `mode` and under 'off' on the same inputs (and
+    keyword options) and returns the max abs error. The tolerance is the
+    one for the dtype of the first floating-point argument; a kernel that
+    returns a tuple (flash attention's o and lse) is held to it output by
+    output.
     """
-    spec = get_kernel(name)
+    got = dispatch(name, *args, mode=mode, **kwargs)
+    want = dispatch(name, *args, mode="off", **kwargs)
+    return _compare(get_kernel(name), args, got, want)
+
+
+def _compare(spec: KernelSpec, args, got, want) -> float:
+    """Hold `got` to `want` within spec's tolerance for the dtype of the
+    first floating-point argument; max abs error."""
     dtype = next(
         a.dtype for a in args if isinstance(a, torch.Tensor) and a.is_floating_point()
     )
     tol = spec.tolerance(dtype)
-    got = dispatch(name, *args, mode=mode)
-    want = dispatch(name, *args, mode="off")
     if spec.compare is not None:
         return spec.compare(args, got, want, tol)
+    if isinstance(got, tuple):
+        return max(assert_close(g, w, tol) for g, w in zip(got, want))
     return assert_close(got, want, tol)
 
 
@@ -167,4 +215,18 @@ register_kernel(KernelSpec(
     # the CUDA kernel rounds every product and sum explicitly (no FMA) and
     # folds duplicates in k order, so f64 is bit-exact for any rho
     tol={"float32": Tolerance(1e-5, 1e-5), "float64": Tolerance(0.0, 0.0)},
+))
+
+register_kernel(KernelSpec(
+    name="flash_attention",
+    kernel=flash_attention,
+    ref=R.attention_ref,
+    tol={"float32": _F32_TOL, "bfloat16": _BF16_TOL},
+))
+
+register_kernel(KernelSpec(
+    name="decode_attention",
+    kernel=decode_attention,
+    ref=R.decode_attention_ref,
+    tol={"float32": _F32_TOL, "bfloat16": _BF16_TOL},
 ))

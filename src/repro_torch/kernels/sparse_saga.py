@@ -69,29 +69,16 @@ def _check_inputs(psi, idx, val, vectors=()):
     return n, d, idx.shape[1]
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _plain_or_raise(t: torch.Tensor) -> bool:
-    """True for a CPU tensor (use the plain version), False for CUDA."""
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise ValueError(f"unsupported device {t.device}: CPU or CUDA only")
-    return False
-
-
 def sparse_dot(psi: torch.Tensor, idx: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
     """out[n] = sum_k val[n,k] * psi[n, idx[n,k]]  ->  (N,), dtype of psi."""
-    if _plain_or_raise(psi):
+    if _build.plain_or_raise(psi):
         return sparse_dot_ref(psi, idx, val)
     n, d, k = _check_inputs(psi, idx, val)
     out = torch.empty((n,), dtype=psi.dtype, device=psi.device)
     lib = _build.load_library()
     fn = getattr(lib, f"sparse_dot_{_DTYPES[psi.dtype]}")
     code = fn(psi.data_ptr(), idx.data_ptr(), val.data_ptr(), out.data_ptr(),
-              n, d, k, psi.device.index or 0, _stream(psi))
+              n, d, k, psi.device.index or 0, _build.stream(psi))
     _build.check(lib, code, "sparse_dot launch")
     sparse_dot.launches += 1
     return out
@@ -108,7 +95,7 @@ def sparse_axpy(
     rho: torch.Tensor,
 ) -> torch.Tensor:
     """out[n] = rho[n] * psi[n] + coef[n] * scatter(val[n] at idx[n])  ->  (N, D)."""
-    if _plain_or_raise(psi):
+    if _build.plain_or_raise(psi):
         return sparse_axpy_ref(psi, idx, val, coef, rho)
     n, d, k = _check_inputs(psi, idx, val, (("coef", coef), ("rho", rho)))
     out = torch.empty_like(psi)
@@ -116,7 +103,7 @@ def sparse_axpy(
     fn = getattr(lib, f"sparse_axpy_{_DTYPES[psi.dtype]}")
     code = fn(psi.data_ptr(), idx.data_ptr(), val.data_ptr(), coef.data_ptr(),
               rho.data_ptr(), out.data_ptr(), n, d, k, psi.device.index or 0,
-              _stream(psi))
+              _build.stream(psi))
     _build.check(lib, code, "sparse_axpy launch")
     sparse_axpy.launches += 2 if k > 0 else 1
     return out
