@@ -66,6 +66,32 @@ printed with its seconds:
    contiguous ``generate``, within the bf16 bar times the layer count
    (the reference's own paged-vs-contiguous rule, tests/test_serve.py);
    forward at S=2048, attention_kernel "on" vs "off" within the bf16 bar.
+11. train -- the serve weights are freed; minitron-8b at full width
+   (d 4096, 32/8 heads, head_dim 128, d_ff 16384, vocab 256,000) cut to 4
+   layers (its float32 train state at 32 layers, 158 GB, fits no card)
+   trains 5 steps at B=2, S=2048 through ``batch_at``,
+   ``TrainConfig``/``AdamConfig`` and ``train_step``, wired as
+   ``launch/train.py`` wires them (remat "full"). Step 0 holds every
+   flash_attention forward and flash_attention_bwd call to its plain
+   version on its own inputs (bf16 bars 2e-2 and 5e-2; the backward's
+   gradients are small, a mean loss over 4,096 tokens, so each of dq, dk,
+   dv is also held to 5e-2 in relative norm, and their size is logged);
+   steps 1-4 report
+   wall time, device-busy time (profiler, step 4), idle share, launches
+   per step by kernel (2 forward launches a layer: forward and recompute;
+   2 backward launches a layer: dq and dk/dv) and peak memory. Then, on the
+   same parameters rescaled by ``condition_attention``, one ``local_grads``
+   with attention_kernel "on" against "off": loss within 1e-3 relative,
+   every gradient leaf within the bf16 gradient bar (5e-2) in relative
+   Frobenius norm, reported layer by layer.
+12. launcher -- ``python -m repro_torch.launch.train --reduced`` on the
+   card in a subprocess: 6 steps with --ckpt-every 3; the final checkpoint
+   is dropped (a crash after step 3's) and a second run resumes from it; its
+   final train state must be bit-equal to the uninterrupted run's.
+Before phase 9, flash_attention_bwd is held to its plain version at the
+train shape and at ragged small shapes (every head dim, GQA, MQA, window,
+softcap), bf16 and f32 (bars 5e-2, 2e-4), and timed beside its bound, the
+plain version and SDPA's backward.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: no phase catches its
@@ -74,10 +100,14 @@ own failure.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -94,17 +124,22 @@ from repro_torch.core.sparse_comm import sparse_doubles_per_iter  # noqa: E402
 from repro_torch.data.synthetic import (  # noqa: E402
     DATASET_PRESETS, make_classification, make_regression,
 )
+from repro_torch.ckpt.checkpoint import committed_steps, load_checkpoint  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data.sharded_loader import LoaderConfig, batch_at  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
-    attention_ref, decode_attention_ref, sparse_axpy_ref, sparse_dot_ref,
+    attention_ref, decode_attention_ref, flash_attention_bwd_ref, sparse_axpy_ref,
+    sparse_dot_ref,
 )
 from repro_torch.kernels.sparse_saga import sparse_axpy, sparse_dot  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.params import tree_leaves  # noqa: E402
+from repro_torch.optim.adam import AdamConfig  # noqa: E402
 from repro_torch.serve import PoolConfig, Request, Scheduler, generate  # noqa: E402
+from repro_torch.train.step import TrainConfig, init_train_state, local_grads, train_step  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate; float32 and float64
 # (non-tensor-core) arithmetic rates and the dense bf16 tensor-core rate
@@ -116,15 +151,18 @@ SOURCES = {
     "sparse_axpy": "src/repro_torch/kernels/csrc/sparse_saga.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
+    "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
 }
 REPLACES = {
     "sparse_dot": "src/repro/kernels/sparse_saga.py:56",
     "sparse_axpy": "src/repro/kernels/sparse_saga.py:122",
     "flash_attention": "src/repro/kernels/flash_attention.py:123",
     "decode_attention": "src/repro/kernels/decode_attention.py:116",
+    "flash_attention_bwd": "src/repro/kernels/flash_attention.py:314",
 }
 WRAPPERS = {"sparse_dot": sparse_dot, "sparse_axpy": sparse_axpy,
-            "flash_attention": flash_attention, "decode_attention": decode_attention}
+            "flash_attention": flash_attention, "decode_attention": decode_attention,
+            "flash_attention_bwd": flash_attention_bwd}
 DENSE_TOL_CPU = 1e-10  # card vs CPU: cuBLAS mixing-product summation order
 SPARSE_TOL = 1e-12  # relay vs dense (tests/test_sparse_comm.py's bar)
 
@@ -241,21 +279,21 @@ def kernel_device_ms(fn, names, iters=50, windows=3):
     """Device milliseconds per call of ``fn``: for each CUDA kernel whose
     name contains one of `names`, its mean time per launch in a profiled
     window of `iters` calls, summed over those kernels (each is launched
-    once per call). None when no window records any of them.
+    once per call). None when no window records every one of them.
 
     Late in a long process the profiler has come back with fewer kernel
     events than calls, or none: the mean is over the launches it recorded,
-    and a window without any is profiled again, up to `windows` times (each
-    shortfall is logged)."""
+    and a window that misses one of the kernels is profiled again, up to
+    `windows` times (each shortfall is logged)."""
     fn()
     torch.cuda.synchronize()
     for _ in range(windows):
         _, kern = device_profile(fn, iters)
         hits = [(t, c) for key, (t, c) in kern.items() if any(n in key for n in names)]
-        if any(c != iters for _, c in hits) or not hits:
+        if any(c != iters for _, c in hits) or len(hits) != len(names):
             log("profile", f"{names}: {[c for _, c in hits]} kernel events for "
                 f"{iters} calls ({len(kern)} kernel names in the window)")
-        if hits:
+        if len(hits) == len(names):
             return sum(t / c for t, c in hits) / 1e3
     return None
 
@@ -860,6 +898,260 @@ def conditioned_phase(device, cfg, params, s=2048) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 11-12: training (flash_attention_bwd, the train step, the launcher)
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2, 2048, 5
+GRAD_BAR = ops.get_kernel("flash_attention").grad_tolerance(torch.bfloat16).atol  # 5e-2
+
+
+def flash_bwd_parity(device) -> float:
+    """flash_attention_bwd against its plain version (raises on a miss);
+    returns the bf16 error at the train step's shape."""
+    cases = [  # (B, Hq, Hkv, S, Sk, D, causal, window, softcap)
+        (TRAIN_B, 32, 8, TRAIN_S, TRAIN_S, 128, True, None, None),  # the train step's shape
+        (2, 32, 8, 1000, 1000, 128, True, None, None),  # S not a tile multiple
+        (1, 8, 2, 333, 333, 128, False, None, None),
+        (1, 4, 4, 300, 300, 64, True, 100, None),
+        (1, 4, 2, 257, 257, 128, True, None, 50.0),
+        (2, 4, 1, 77, 129, 64, False, 40, 30.0),  # S < Sk, window without causal
+        (1, 4, 2, 130, 130, 256, True, None, None),
+        (2, 4, 2, 64, 64, 16, True, 7, None),  # the launcher's reduced head_dim
+    ]
+    worst = None
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, (b, hq, hkv, s, sk, d, causal, window, cap) in enumerate(cases):
+            q, k, v = flash_inputs(b, hq, hkv, s, sk, d, dtype, device, seed=10 + i)
+            do = flash_inputs(b, hq, hq, s, s, d, dtype, device, seed=30 + i)[0]
+            o, lse = flash_attention(q, k, v, causal, window, cap, return_lse=True)
+            err = ops.parity_check("flash_attention_bwd", q, k, v, o, lse, do, causal=causal,
+                                   window=window, softcap=cap)
+            torch.cuda.synchronize()
+            log("attention", f"flash_bwd {dtype} B={b} Hq={hq} Hkv={hkv} S={s} Sk={sk} D={d} "
+                f"causal={causal} window={window} softcap={cap}: max_abs_err={err!r}")
+            if i == 0 and dtype == torch.bfloat16:
+                worst = err
+    return worst
+
+
+def time_flash_bwd(device) -> dict:
+    """flash_attention_bwd at the train step's shape (bf16): kernel, plain
+    version and SDPA's backward, beside the bound."""
+    b, hq, hkv, s, d = TRAIN_B, 32, 8, TRAIN_S, 128
+    q, k, v = flash_inputs(b, hq, hkv, s, s, d, torch.bfloat16, device)
+    do = flash_inputs(b, hq, hq, s, s, d, torch.bfloat16, device, seed=1)[0]
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    pairs = b * hq * s * (s + 1) // 2  # causal: what this run's mask keeps
+    # five products of the causal band (s, dp, dq, dk, dv), 2 ops a multiply-add;
+    # reads q, k, v, o, do, lse once, writes dq, dk, dv once
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + o.numel() + do.numel()) \
+        + 4 * lse.numel()
+    bound_b = bound(nbytes, 10 * pairs * d, torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = sdpa(*leaves, is_causal=True, enable_gqa=True)
+    lib = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)  # noqa: E731
+    plain = flash_attention_bwd_ref(q, k, v, o, lse, do)
+    for got, want in zip(lib(), plain):
+        if not same_function(got, want):
+            raise AssertionError("SDPA backward yardstick disagrees with the plain version: "
+                                 f"{(got.float() - want.float()).abs().max().item()}")
+    del plain
+    kern = lambda: flash_attention_bwd(q, k, v, o, lse, do)  # noqa: E731
+    out_t = {
+        "ms": cuda_ms(kern, iters=10, warmup=2),
+        "device_ms": kernel_device_ms(kern, ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
+                                      iters=3),
+        "plain_ms": cuda_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do), iters=3,
+                            warmup=1),
+        "bound_ms": bound_b[0], "bound_by": bound_b[1],
+        "library_ms": cuda_ms(lib, iters=20, warmup=3),
+    }
+    split = {n: kernel_device_ms(kern, (n,), iters=3)
+             for n in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")}
+    log("attention", f"flash_attention_bwd: {json.dumps(out_t)}; device ms by kernel "
+        f"{json.dumps(split)}")
+    return out_t
+
+
+def train_config():
+    """minitron-8b at full width, cut to TRAIN_LAYERS layers."""
+    return dataclasses.replace(get_config("minitron-8b"), n_layers=TRAIN_LAYERS)
+
+
+def expected_train_launches(cfg) -> dict[str, int]:
+    """Kernel launches of one train step with remat 'full': the forward
+    kernel twice a layer (forward, recompute), the backward's two kernels
+    once a layer, and no other kernel."""
+    want = dict.fromkeys(WRAPPERS, 0)
+    want.update(flash_attention=2 * cfg.n_layers, flash_attention_bwd=2 * cfg.n_layers)
+    return want
+
+
+def train_phase(device) -> tuple[dict, dict, dict]:
+    """TRAIN_STEPS steps of the launcher's wiring at full width.
+
+    Returns (summary, launches over every step, the train state)."""
+    cfg = train_config()
+    tc = TrainConfig(optimizer=AdamConfig())  # launch/train.py's defaults
+    ld = LoaderConfig(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, tc, 0, device)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in tree_leaves({"p": state["params"], "o": state["opt"]})) / 1e9
+    log("train", f"{cfg.name} x{cfg.n_layers} layers, {cfg.param_count()} params, "
+        f"train state (params, mu, nu) {state_gb:.2f} GB, drawn in {t_init:.1f} s")
+    want = expected_train_launches(cfg)
+    total = dict.fromkeys(WRAPPERS, 0)
+    losses, gnorms, walls, per_step = [], [], [], []
+
+    def one_step(i):
+        nonlocal state
+        before = launches()
+        state, m = train_step(cfg, tc, state, batch_at(ld, i))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        got = {n: c - before[n] for n, c in launches().items()}
+        if got != want:
+            raise AssertionError(f"train step {i}: launches {got} != {want}")
+        for n, c in got.items():
+            total[n] += c
+        per_step.append({n: c for n, c in got.items() if c})
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with ops.held_to_plain("flash_attention") as fwd_errs, \
+            ops.held_to_plain("flash_attention_bwd") as bwd_errs:
+        one_step(0)
+    torch.cuda.synchronize()
+    t_held = time.perf_counter() - t0
+    if len(fwd_errs) != 2 * cfg.n_layers or len(bwd_errs) != cfg.n_layers:
+        raise AssertionError(f"step 0 held {len(fwd_errs)} forward and {len(bwd_errs)} "
+                             "backward calls to the plain version")
+    peak_step0 = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(1, TRAIN_STEPS - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step(i)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    busy_us, kern = device_profile(lambda: one_step(TRAIN_STEPS - 1), 1)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"train losses {losses} grad norms {gnorms}")
+    wall_ms = float(np.median(walls)) * 1e3
+    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
+    summary = {
+        "layers": cfg.n_layers, "B": TRAIN_B, "S": TRAIN_S, "tokens_per_step": TRAIN_B * TRAIN_S,
+        "train_state_gb": state_gb, "losses": losses, "grad_norms": gnorms,
+        "step0_s_held_to_plain": t_held,
+        "step0_flash_fwd_vs_plain_max_abs": fwd_errs, "step0_flash_bwd_vs_plain_max_abs": bwd_errs,
+        # the gradients' own size beside their errors (a mean loss over
+        # 4,096 tokens makes them small), and the scale-free error held to
+        # the same bar
+        "step0_flash_bwd_plain_max_abs_grad": bwd_errs.scale,
+        "step0_flash_bwd_vs_plain_rel_norm": bwd_errs.rel,
+        "step0_flash_fwd_vs_plain_rel_norm": fwd_errs.rel,
+        "step_wall_ms": [w * 1e3 for w in walls], "step_wall_ms_median": wall_ms,
+        "tokens_per_s": TRAIN_B * TRAIN_S / (wall_ms / 1e3),
+        "step_device_busy_ms": busy_us / 1e3, "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+        "kernel_launches_per_step_profiled": sum(c for _, c in kern.values()),
+        # the profiler has dropped kernel events late in long runs: these
+        # counts, against port_kernel_launches_per_step, say whether it did
+        "profiled_port_kernels": {key[:40]: c for key, (_, c) in kern.items()
+                                  if "flash_" in key and "_kernel" in key},
+        "port_kernel_launches_per_step": per_step[-1],
+        "peak_gb_steps_1_4": peak / 1e9, "peak_gb_step0_held": peak_step0 / 1e9,
+        "top_kernels_us_per_step": {key[:60]: t for key, (t, _) in top},
+    }
+    log("train", json.dumps(summary))
+    return summary, total, state
+
+
+def train_on_off(state) -> dict:
+    """One local_grads with attention_kernel "on" against "off" on the train
+    parameters after ``condition_attention`` (hard checks: loss within 1e-3
+    relative, every gradient leaf within the bf16 gradient bar in relative
+    Frobenius norm; per-layer norms reported)."""
+    cfg = train_config()
+    del state["opt"]  # the moments are not needed here: room for two gradients
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = state["params"]
+    condition_attention(cfg, params)
+    tc = TrainConfig(optimizer=AdamConfig())
+    batch = batch_at(LoaderConfig(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=0), 0)
+    l_on, g_on = local_grads(dataclasses.replace(cfg, attention_kernel="on"), tc, params, batch)
+    l_off, g_off = local_grads(dataclasses.replace(cfg, attention_kernel="off"), tc, params,
+                               batch)
+    loss_rel = abs(float(l_on) - float(l_off)) / abs(float(l_off))
+    rel, per_layer = {}, {}
+
+    def walk(a, b, path=()):
+        if isinstance(a, dict):
+            for key in a:
+                walk(a[key], b[key], (*path, key))
+            return
+        name = "/".join(path)
+        rel[name] = ((a - b).norm() / b.norm()).item()
+        if path[0] == "blocks":
+            per_layer[name] = [((a[i] - b[i]).norm() / b[i].norm()).item()
+                               for i in range(a.shape[0])]
+
+    walk(g_on, g_off)
+    out = {"loss_on": float(l_on), "loss_off": float(l_off), "loss_rel": loss_rel,
+           "grad_rel_norm": rel, "grad_rel_norm_per_layer": per_layer}
+    log("train", f"on vs off: {json.dumps(out)}")
+    if loss_rel > 1e-3 or max(rel.values()) > GRAD_BAR:
+        raise AssertionError(f"train on vs off: loss {loss_rel}, worst leaf "
+                             f"{max(rel, key=rel.get)} {max(rel.values())}")
+    return out
+
+
+def launcher_phase() -> dict:
+    """``launch/train.py --reduced`` on the card in subprocesses: an
+    uninterrupted 6-step run, then a run resumed from its step-3 checkpoint
+    (the final one dropped) must end bit-equal."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    with tempfile.TemporaryDirectory() as d:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--reduced", "--steps", "6",
+               "--ckpt-every", "3", "--batch", "2", "--seq", "64", "--ckpt-dir", d]
+
+        def run(tag):
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                               timeout=600)
+            log("launcher", f"{tag}: rc={r.returncode} in {time.perf_counter() - t0:.1f} s\n"
+                f"{r.stdout.strip()}")
+            if r.returncode != 0:
+                raise AssertionError(f"launcher {tag} failed:\n{r.stderr[-4000:]}")
+            return r.stdout
+
+        run("uninterrupted")
+        if committed_steps(d) != [3, 6]:
+            raise AssertionError(f"checkpoints {committed_steps(d)}")
+        _, _, full = load_checkpoint(d, 6)
+        shutil.rmtree(Path(d) / "step_6")  # a crash after the step-3 checkpoint
+        stdout = run("resumed")
+        if "resumed from step 3" not in stdout:
+            raise AssertionError("the second run did not resume from step 3")
+        _, _, resumed = load_checkpoint(d, 6)
+        if set(full) != set(resumed):
+            raise AssertionError("resumed checkpoint has other leaves")
+        differ = [p for p in full if full[p].tobytes() != resumed[p].tobytes()]
+        if differ:
+            raise AssertionError(f"resume is not bit-equal at {differ[:5]}")
+        out = {"leaves": len(full), "bit_equal": True, "final_step": int(full["['step']"])}
+    log("launcher", json.dumps(out))
+    return out
+
+
 def main() -> int:
     """Run every phase; the last stdout line is the result object."""
     if not torch.cuda.is_available():
@@ -920,6 +1212,9 @@ def main() -> int:
     t0 = time.perf_counter()
     errs.update(attention_parity(dev, decode_main))
     times.update(time_attention(dev, decode_main))
+    errs["flash_attention_bwd"] = flash_bwd_parity(dev)
+    times["flash_attention_bwd"] = time_flash_bwd(dev)
+    del decode_main  # holds views of the serve pool
     log("attention", f"done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -930,13 +1225,35 @@ def main() -> int:
     conditioned_phase(dev, cfg, params)
     log("conditioned", f"done in {time.perf_counter() - t0:.1f} s")
 
+    # the 22 GB of serve weights and the serve phases' pools: the Schedulers
+    # and their decode_fn closures form reference cycles, so collect them
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("train", f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before the train state")
+    t0 = time.perf_counter()
+    _, train_launches, state = train_phase(dev)
+    log("train", f"launches {train_launches}; steps done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_on_off(state)
+    del state
+    torch.cuda.empty_cache()
+    log("train", f"on vs off done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    launcher_phase()
+    log("launcher", f"done in {time.perf_counter() - t0:.1f} s")
+
     total["decode_attention"] = serve_launches["decode_attention"]
-    total["flash_attention"] = score_launches["flash_attention"]
+    # flash_attention runs on two main paths: the score phase and the train steps
+    total["flash_attention"] = score_launches["flash_attention"] + train_launches["flash_attention"]
+    total["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": total[name],
          "max_abs_err": errs[name], **times[name]}
-        for name in ("sparse_dot", "sparse_axpy", "flash_attention", "decode_attention")
+        for name in ("sparse_dot", "sparse_axpy", "flash_attention", "decode_attention",
+                     "flash_attention_bwd")
     ]
     log("all", f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

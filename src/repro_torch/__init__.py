@@ -1,10 +1,11 @@
 """PyTorch/CUDA port of the DSBA reproduction (the JAX package ``repro``).
 
 Module names mirror ``repro``'s so each counterpart is easy to find:
-``data.synthetic``, ``configs.dsba_paper``, ``core.{mixing, operators,
-reference, comm, dsba, sparse_comm, solvers}`` and ``kernels.{ref,
-sparse_saga, ops}``; ``convert`` carries states and datasets between the
-two packages. Importing the package has no side effects: no device is
+``data.{synthetic, sharded_loader}``, ``configs``, ``core.{mixing,
+operators, reference, comm, dsba, sparse_comm, solvers}``, ``kernels``,
+``models``, ``serve``, ``optim.adam``, ``train.step``, ``ckpt`` and
+``launch.{serve, train}``; ``convert`` carries states, datasets and model
+weights between the two packages. Importing the package has no side effects: no device is
 probed and nothing is compiled until a kernel is first launched.
 
 Entry points (``core.solvers.solve``, ``core.reference.solve_root``,

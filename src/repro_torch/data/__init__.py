@@ -1,1 +1,2 @@
-"""Synthetic datasets (a copy of ``repro.data.synthetic``)."""
+"""Synthetic datasets and the LM token loader (copies of ``repro.data.synthetic``
+and ``repro.data.sharded_loader``)."""

@@ -38,6 +38,10 @@ _DECODE = [_P] * 6 + [_I] * 10 + [_F, _F, _I, _P]
 # flash_attention_fwd_<dt>(q, k, v, o, lse, B, Hq, Hkv, S, Sk, D, causal,
 #   has_window, window, has_softcap, softcap, scale, device, stream)
 _FLASH = [_P] * 5 + [_I] * 10 + [_F, _F, _I, _P]
+# flash_attention_bwd_<dt>(q, k, v, o, lse, do, delta, dq, dk, dv, B, Hq, Hkv,
+#   S, Sk, D, causal, has_window, window, has_softcap, softcap, scale, device,
+#   stream)
+_FLASH_BWD = [_P] * 10 + [_I] * 10 + [_F, _F, _I, _P]
 # C signatures of each library's entry points: name -> argtypes (restype int)
 SIGNATURES = {
     "sparse_saga": {
@@ -48,6 +52,8 @@ SIGNATURES = {
     },
     "decode_attention": {"decode_attention_bf16": _DECODE, "decode_attention_f32": _DECODE},
     "flash_attention": {"flash_attention_fwd_bf16": _FLASH, "flash_attention_fwd_f32": _FLASH},
+    "flash_attention_bwd": {"flash_attention_bwd_bf16": _FLASH_BWD,
+                            "flash_attention_bwd_f32": _FLASH_BWD},
 }
 
 

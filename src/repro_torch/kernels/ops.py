@@ -18,7 +18,12 @@ the card has native float64, so the port does not.
 
 Tolerances are those of ``repro.kernels.ops``: ``sparse_dot`` 1e-5 (f32) and
 1e-12 (f64); ``sparse_axpy`` 1e-5 (f32) and bit-exact (f64);
-``flash_attention`` and ``decode_attention`` 2e-5 (f32) and 2e-2 (bf16).
+``flash_attention`` and ``decode_attention`` 2e-5 (f32) and 2e-2 (bf16);
+gradients (``grad_tol``, and the ``flash_attention_bwd`` kernel's ``tol``)
+2e-4 (f32) and 5e-2 (bf16), one recompute deeper than the forward. A
+gradient's scale is the loss's, so an elementwise bar alone can pass a
+wrong gradient that is small: ``flash_attention_bwd`` is held to the same
+numbers in relative Frobenius norm as well, output by output.
 The attention kernels take bf16 or f32 inputs and accumulate in float32,
 as the JAX kernels do.
 """
@@ -33,7 +38,7 @@ import torch
 
 from repro_torch.kernels import ref as R
 from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
 from repro_torch.kernels.sparse_saga import sparse_axpy, sparse_dot
 
 MODES = ("auto", "on", "off")
@@ -49,6 +54,8 @@ class Tolerance:
 
 _F32_TOL = Tolerance(2e-5, 2e-5)
 _BF16_TOL = Tolerance(2e-2, 2e-2)
+_F32_GRAD_TOL = Tolerance(2e-4, 2e-4)
+_BF16_GRAD_TOL = Tolerance(5e-2, 5e-2)
 
 
 def dtype_name(dtype) -> str:
@@ -65,6 +72,8 @@ class KernelSpec:
     tol: {dtype name: Tolerance}; a missing dtype falls back to float32's.
     compare: optional (args, got, want, tol) -> max_err comparator for
         outputs that match by another rule than elementwise.
+    grad_tol: {dtype name: Tolerance} for gradients through the kernel;
+        None falls back to `tol`.
     """
 
     name: str
@@ -72,10 +81,17 @@ class KernelSpec:
     ref: Callable
     tol: dict[str, Tolerance]
     compare: Callable | None = None
+    grad_tol: dict[str, Tolerance] | None = None
 
     def tolerance(self, dtype) -> Tolerance:
         """Parity tolerance for `dtype` (float32's entry as fallback)."""
         return self.tol.get(dtype_name(dtype), self.tol.get("float32", _F32_TOL))
+
+    def grad_tolerance(self, dtype) -> Tolerance:
+        """Gradient tolerance for `dtype` (falls back to `tol`)."""
+        if self.grad_tol is None:
+            return self.tolerance(dtype)
+        return self.grad_tol.get(dtype_name(dtype), self.grad_tol.get("float32", _F32_GRAD_TOL))
 
 
 _REGISTRY: dict[str, KernelSpec] = {}
@@ -118,8 +134,20 @@ def _resolve(name: str, mode: str, *args) -> Callable:
     return spec.kernel  # the wrapper itself takes the plain version on CPU
 
 
-# kernel name -> the error list of an open held_to_plain context
-_HELD: dict[str, list[float]] = {}
+class HeldCalls(list):
+    """The max abs error of each held call (the list itself), beside the
+    largest magnitude of the plain version's output (``scale``) and the
+    relative Frobenius error (``rel``) of the same call; a tuple output
+    reports its worst member."""
+
+    def __init__(self):
+        super().__init__()
+        self.scale: list[float] = []
+        self.rel: list[float] = []
+
+
+# kernel name -> the record of an open held_to_plain context
+_HELD: dict[str, HeldCalls] = {}
 
 
 @contextlib.contextmanager
@@ -128,15 +156,17 @@ def held_to_plain(name: str):
     plain version while the context is open.
 
     Each call that runs the wrapper (modes ``auto`` and ``on``) also runs
-    the plain version on the same inputs, and the two must agree within the
-    registry tolerance (``AssertionError`` otherwise). Yields the list that
-    collects each call's max abs error. It costs one plain call per kernel
-    call: a check of a real path's own inputs, not for timed runs.
+    the plain version on the same inputs (without autograd), and the two
+    must agree within the registry tolerance (``AssertionError``
+    otherwise). Yields a :class:`HeldCalls` list of each call's max abs
+    error, with each call's output scale and relative error beside it.
+    It costs one plain call per kernel call: a check of a real path's own
+    inputs, not for timed runs.
     """
     get_kernel(name)
     if name in _HELD:
         raise RuntimeError(f"{name!r} is already held to its plain version")
-    errs: list[float] = []
+    errs = HeldCalls()
     _HELD[name] = errs
     try:
         yield errs
@@ -151,7 +181,12 @@ def dispatch(name: str, *args, mode: str = "auto", **kwargs):
     held = _HELD.get(name)
     spec = get_kernel(name)
     if held is not None and fn is not spec.ref:
-        held.append(_compare(spec, args, out, spec.ref(*args, **kwargs)))
+        with torch.no_grad():
+            want = spec.ref(*args, **kwargs)
+            held.append(_compare(spec, args, out, want))
+            pairs = list(zip(out, want)) if isinstance(out, tuple) else [(out, want)]
+            held.scale.append(max(_max_abs(w) for _, w in pairs))
+            held.rel.append(max(rel_err(g, w) for g, w in pairs))
     return out
 
 
@@ -159,6 +194,19 @@ def _max_err(got, want) -> float:
     g = got.detach().double().cpu().numpy()
     w = want.detach().double().cpu().numpy()
     return float(np.max(np.abs(g - w))) if g.size else 0.0
+
+
+def _max_abs(t: torch.Tensor) -> float:
+    return float(t.detach().abs().max()) if t.numel() else 0.0
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """||got - want|| / ||want|| (Frobenius, in float64); the absolute
+    norm of the difference where `want` is all zero."""
+    w = want.detach().double()
+    diff = float((got.detach().double() - w).norm())
+    norm = float(w.norm())
+    return diff / norm if norm > 0 else diff
 
 
 def assert_close(got: torch.Tensor, want: torch.Tensor, tol: Tolerance) -> float:
@@ -187,6 +235,17 @@ def parity_check(name: str, *args, mode: str = "on", **kwargs) -> float:
     return _compare(get_kernel(name), args, got, want)
 
 
+def _grad_compare(args, got, want, tol: Tolerance) -> float:
+    """(dq, dk, dv) each within `tol` elementwise and within ``tol.rtol`` in
+    relative Frobenius norm (scale-free, so a small wrong gradient fails
+    too); max abs error."""
+    for what, g, w in zip(("dq", "dk", "dv"), got, want):
+        rel = rel_err(g, w)
+        if not rel <= tol.rtol:
+            raise AssertionError(f"{what}: relative error {rel!r} > {tol.rtol}")
+    return max(assert_close(g.detach(), w.detach(), tol) for g, w in zip(got, want))
+
+
 def _compare(spec: KernelSpec, args, got, want) -> float:
     """Hold `got` to `want` within spec's tolerance for the dtype of the
     first floating-point argument; max abs error."""
@@ -197,8 +256,8 @@ def _compare(spec: KernelSpec, args, got, want) -> float:
     if spec.compare is not None:
         return spec.compare(args, got, want, tol)
     if isinstance(got, tuple):
-        return max(assert_close(g, w, tol) for g, w in zip(got, want))
-    return assert_close(got, want, tol)
+        return max(assert_close(g.detach(), w.detach(), tol) for g, w in zip(got, want))
+    return assert_close(got.detach(), want.detach(), tol)
 
 
 register_kernel(KernelSpec(
@@ -222,6 +281,16 @@ register_kernel(KernelSpec(
     kernel=flash_attention,
     ref=R.attention_ref,
     tol={"float32": _F32_TOL, "bfloat16": _BF16_TOL},
+    grad_tol={"float32": _F32_GRAD_TOL, "bfloat16": _BF16_GRAD_TOL},
+))
+
+register_kernel(KernelSpec(
+    name="flash_attention_bwd",
+    kernel=flash_attention_bwd,
+    ref=R.flash_attention_bwd_ref,
+    # its outputs are gradients: the grad bars, elementwise and by norm
+    tol={"float32": _F32_GRAD_TOL, "bfloat16": _BF16_GRAD_TOL},
+    compare=_grad_compare,
 ))
 
 register_kernel(KernelSpec(

@@ -4,9 +4,11 @@ They are the CPU path of every kernel wrapper and the oracle the kernels are
 held to on the card. The sparse pair computes in the input dtype (the JAX
 oracles do the same for float64 inputs); the attention pair computes in
 float32 from bf16 or float32 inputs and returns the input dtype, as the JAX
-oracles do. The scatter runs column by column in k order with
-no atomics, so it is deterministic on the CPU and on the card and folds
-duplicate indices in the same order as the JAX oracle's sequential scatter.
+oracles do; ``flash_attention_bwd_ref`` is the dense counterpart of the
+blocked gradient kernels, computing in float32. The scatter runs column by
+column in k order with no atomics, so it is deterministic on the CPU and on
+the card and folds duplicate indices in the same order as the JAX oracle's
+sequential scatter.
 """
 from __future__ import annotations
 
@@ -77,6 +79,36 @@ def attention_ref(q, k, v, causal=True, window=None, softcap=None, return_lse=Fa
     if return_lse:
         return o, torch.logsumexp(s, dim=-1).reshape(B, Hq, S)
     return o
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True, window=None, softcap=None):
+    """The attention gradient (dq, dk, dv) from the saved (q, k, v, o, lse)
+    and the output cotangent do, densely: the per-tile math of the JAX
+    ``_bwd_tile`` over the whole (S, Sk) at once.
+
+    p = exp(s - lse) with masked scores at -1e30 (so p = 0 there),
+    ds = p (dp - delta) with dp = do v^T and delta = rowsum(do * o), times
+    the softcap's 1 - (s / cap)^2 on masked-in entries. Computes in float32;
+    returns each gradient in its input's dtype, dk and dv summed over the
+    GQA group.
+    """
+    B, Hq, S, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    s, mask = attention_scores(q, k, causal=causal, window=window, softcap=softcap)
+    qg = q.reshape(B, Hkv, g, S, D).float() / math.sqrt(D)
+    dog = do.reshape(B, Hkv, g, S, D).float()
+    kf, vf = k.float(), v.float()
+    p = torch.exp(torch.where(mask, s, NEG_INF) - lse.reshape(B, Hkv, g, S, 1))
+    delta = (do.float() * o.float()).sum(-1).reshape(B, Hkv, g, S, 1)
+    dp = torch.einsum("bkgsd,bktd->bkgst", dog, vf)
+    ds = p * (dp - delta)
+    if softcap is not None:
+        ds = ds * torch.where(mask, 1.0 - torch.square(s / softcap), 0.0)
+    dq = torch.einsum("bkgst,bktd->bkgsd", ds, kf) / math.sqrt(D)
+    dk = torch.einsum("bkgst,bkgsd->bktd", ds, qg)
+    dv = torch.einsum("bkgst,bkgsd->bktd", p, dog)
+    return dq.reshape(B, Hq, S, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention_ref(q, k_pool, v_pool, table, lengths, window=None, softcap=None):

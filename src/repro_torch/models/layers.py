@@ -1,14 +1,18 @@
 """Transformer layers of the dense family (counterpart of ``repro.models.layers``).
 
 Every layer is ``(cfg, params, activations) -> out``, as in the JAX package:
-matrix products run in ``cfg.compute_dtype`` (weights are stored in it, see
+matrix products run in ``cfg.compute_dtype`` (each weight is cast to it at
+use, a no-op for serving weights stored in it, see
 ``transformer.storage_dtype``), norm statistics and softmax in float32.
 ``shard_act`` has no counterpart: it is the identity on one card.
 
 Attention routes as the JAX package routes it:
   * full-sequence self-attention with no cache and
     ``cfg.attention_kernel != "jnp"``: the registry's ``flash_attention``
-    (the CUDA kernel on the card, its plain version on the CPU);
+    (the CUDA kernel on the card, its plain version on the CPU); when a
+    gradient is needed it runs as the ``FlashAttention`` autograd Function,
+    whose backward is ``flash_attention_bwd`` (mode ``off`` differentiates
+    the plain version densely, as the JAX ``ref`` backend does);
   * with a contiguous cache (``prefill``, ``decode_step``) or under
     ``"jnp"``: the inline einsum/softmax path below, which the JAX package
     computes outside any Pallas kernel;
@@ -88,12 +92,13 @@ def attention_defs(cfg: ModelConfig) -> dict:
 
 def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
     """q (B, S, H, Dh), k and v (B, S, KV, Dh) in the compute dtype."""
-    xc = x.to(cfg.compute_dtype)
-    q = torch.einsum("bsd,dhq->bshq", xc, p["wq"])
-    k = torch.einsum("bsd,dhq->bshq", xc, p["wk"])
-    v = torch.einsum("bsd,dhq->bshq", xc, p["wv"])
+    dt = cfg.compute_dtype
+    xc = x.to(dt)
+    q = torch.einsum("bsd,dhq->bshq", xc, p["wq"].to(dt))
+    k = torch.einsum("bsd,dhq->bshq", xc, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhq->bshq", xc, p["wv"].to(dt))
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q, k, v = q + p["bq"].to(dt), k + p["bk"].to(dt), v + p["bv"].to(dt)
     return q, k, v
 
 
@@ -166,7 +171,7 @@ def multi_head_attention(
         probs = torch.softmax(scores, dim=-1).to(dt)
         out = torch.einsum("bkgst,btkh->bskgh", probs, v)
         out = out.reshape(B, S, cfg.n_heads, cfg.head_dim)
-    y = torch.einsum("bshq,hqd->bsd", out, p["wo"])
+    y = torch.einsum("bshq,hqd->bsd", out, p["wo"].to(dt))
     return y, new_cache
 
 
@@ -211,7 +216,7 @@ def paged_attention(
         "decode_attention", q[:, 0].contiguous(), pool_k, pool_v, table,
         lengths + 1, window=window, softcap=cfg.attn_softcap, mode=mode,
     )  # (B, Hq, Dh)
-    y = torch.einsum("bhq,hqd->bd", o.to(dt), p["wo"])
+    y = torch.einsum("bhq,hqd->bd", o.to(dt), p["wo"].to(dt))
     return y[:, None]
 
 
@@ -231,5 +236,6 @@ def mlp_defs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
 
 def mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     """silu(x @ wg) * (x @ wu) @ wd in the compute dtype."""
-    h = F.silu(x @ p["wg"]) * (x @ p["wu"])
-    return h @ p["wd"]
+    dt = cfg.compute_dtype
+    h = F.silu(x @ p["wg"].to(dt)) * (x @ p["wu"].to(dt))
+    return h @ p["wd"].to(dt)

@@ -2,8 +2,9 @@
 
 Public API, as in the JAX package:
   model_defs(cfg)                      -> ParamDef tree
-  init_params(cfg, seed, device)       -> parameters drawn on the device
-  forward(cfg, params, tokens)         -> logits            (scoring)
+  init_params(cfg, seed, device)       -> serving parameters drawn on the device
+  init_train_params(cfg, seed, device) -> training (float32 master) parameters
+  forward(cfg, params, tokens)         -> logits            (train / scoring)
   cache_defs / init_cache              -> contiguous decode cache
   prefill(cfg, params, tok, cache)     -> (cache, logits at valid_len - 1)
   decode_step(cfg, params, tok, cache) -> (cache, logits)
@@ -14,11 +15,21 @@ Serving API (the paged twin, driven by ``repro_torch.serve``):
 
 Parameters are a nested dict of tensors laid out as the JAX tree: layers
 stacked on axis 0 under ``blocks``; a Python loop over layers takes the
-place of ``lax.scan`` (each layer reads views ``blocks[...][i]``). The
-matrix weights are stored in ``cfg.compute_dtype``, which the JAX package
-casts them to at every use (the same bits); ``embed`` and the norm scales
-stay in ``cfg.param_dtype`` (the embedding is scaled in that dtype before
-its cast, and norms read float32). See ``storage_dtype``.
+place of ``lax.scan`` (each layer reads views ``blocks[...][i]``). Every
+layer casts a weight to ``cfg.compute_dtype`` where it uses it, as the JAX
+package does. ``init_params`` (serving) stores the matrix weights in
+``cfg.compute_dtype`` at once, so the cast is free and the bits are the
+same; ``embed`` and the norm scales stay in ``cfg.param_dtype`` (see
+``storage_dtype``). ``init_train_params`` holds every leaf in
+``cfg.param_dtype``, as the JAX train state does, and the gradient flows
+back through the casts to those master weights.
+
+Training runs each layer of ``forward`` under activation checkpointing
+(``torch.utils.checkpoint``, non-reentrant) unless ``cfg.remat`` is
+``"none"``: ``"full"`` saves each layer's input and recomputes the layer in
+the backward pass. The JAX ``"dots"`` policy (also save the matmul
+outputs) runs as ``"full"`` here: the gradients are the same, only the
+memory/recompute trade differs.
 
 Caches are updated in place: the contiguous cache's K/V tensors and the
 paged pools are allocated once and written by indexed assignment, where the
@@ -33,6 +44,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -105,12 +117,24 @@ def storage_dtype(cfg: ModelConfig):
     return rule
 
 
+def _generator(dev, seed):
+    return torch.Generator(device=dev).manual_seed(seed) if dev.type != "meta" else None
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
-    """Random parameters drawn on `device` (the card unless told otherwise)."""
+    """Random serving parameters drawn on `device` (the card unless told
+    otherwise), each leaf held in ``storage_dtype(cfg)``."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed) if dev.type != "meta" else None
-    return tree_materialize(model_defs(cfg), gen, cfg.param_dtype, dev,
+    return tree_materialize(model_defs(cfg), _generator(dev, seed), cfg.param_dtype, dev,
                             storage_dtype(cfg))
+
+
+def init_train_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
+    """Random training parameters: every leaf in ``cfg.param_dtype`` (the JAX
+    ``tree_materialize(defs, key, cfg.param_dtype)``), the same draws as
+    ``init_params`` before its storage cast."""
+    dev = resolve_device(device)
+    return tree_materialize(model_defs(cfg), _generator(dev, seed), cfg.param_dtype, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -143,11 +167,8 @@ def _embed(cfg: ModelConfig, params, tokens):
 
 def _unembed(cfg: ModelConfig, params, x):
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if cfg.tie_embeddings:
-        head = params["embed"].T.to(cfg.compute_dtype)
-    else:
-        head = params["lm_head"]
-    logits = (x @ head).float()
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = (x @ head.to(cfg.compute_dtype)).float()
     return L.softcap(logits, cfg.final_softcap)
 
 
@@ -161,16 +182,30 @@ def _dense_block(cfg: ModelConfig, p, x, positions, window, cache):
     return x, new_cache
 
 
+def _remat_block(cfg, p, x, positions, window):
+    """One cache-free layer under activation checkpointing (``cfg.remat``)."""
+    def fn(x_in):
+        return _dense_block(cfg, p, x_in, positions, window, None)[0]
+
+    return torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False)
+
+
 def _run_stack(cfg, blocks, x, positions, caches):
-    """The layer loop (``_scan_stack``), with an optional contiguous cache."""
+    """The layer loop (``_scan_stack``), with an optional contiguous cache.
+    Without a cache and with grad mode on, each layer is checkpointed
+    unless ``cfg.remat == "none"``."""
     windows = _layer_windows(cfg)
     pos = caches["pos"] if caches is not None else None
+    remat = caches is None and cfg.remat != "none" and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
+        window = windows[i % len(windows)]
+        if remat:
+            x = _remat_block(cfg, _layer(blocks, i), x, positions, window)
+            continue
         cache = None
         if caches is not None:
             cache = {"k": caches["k"][i], "v": caches["v"][i], "pos": pos}
-        x, _ = _dense_block(cfg, _layer(blocks, i), x, positions,
-                            windows[i % len(windows)], cache)
+        x, _ = _dense_block(cfg, _layer(blocks, i), x, positions, window, cache)
     if caches is None:
         return x, None
     return x, {"k": caches["k"], "v": caches["v"], "pos": pos + positions.shape[1]}

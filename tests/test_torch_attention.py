@@ -176,12 +176,23 @@ def test_attention_registry_modes_on_cpu():
 
 
 def test_flash_needs_no_gradient_yet():
+    """A call that needs no gradient (grad mode off, or no input that
+    requires one) runs the forward alone: no autograd node."""
     q, k, v = map(torch.as_tensor, _flash_inputs(FLASH_CASES["window"]))
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="Queue 2 row 5"):
-        FA.flash_attention(q, k, v)
     with torch.no_grad():
-        FA.flash_attention(q, k, v)
+        assert FA.flash_attention(q, k, v).grad_fn is None
+    assert FA.flash_attention(q.detach(), k, v).grad_fn is None
+
+
+def test_flash_gradient_runs_the_function():
+    """A call that needs a gradient runs the FlashAttention Function (its
+    backward: tests/test_torch_flash_bwd.py); lse carries no gradient."""
+    q, k, v = map(torch.as_tensor, _flash_inputs(FLASH_CASES["window"]))
+    q.requires_grad_(True)
+    o, lse = FA.flash_attention(q, k, v, return_lse=True)
+    assert "FlashAttention" in type(o.grad_fn).__name__
+    assert not lse.requires_grad
 
 
 def test_wrapper_input_checks():

@@ -99,3 +99,34 @@ def test_cuda_attention_kernels_match_plain(card, dtype):
                          window=window, softcap=cap)
         assert decode_attention.launches == before + 1
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_bwd_matches_plain(card, dtype):
+    """The backward kernels against their plain version (every head dim, GQA
+    and MQA, ragged lengths, window and softcap), two launches a call, and
+    the autograd Function's gradients against the dense version's."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.ref import attention_ref
+
+    g = torch.Generator(device=card).manual_seed(1)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=card).to(dtype)
+
+    for b, hq, hkv, s, sk, d, causal, window, cap in FLASH:
+        q, k, v, do = rnd(b, hq, s, d), rnd(b, hkv, sk, d), rnd(b, hkv, sk, d), rnd(b, hq, s, d)
+        o, lse = flash_attention(q, k, v, causal, window, cap, return_lse=True)
+        before = flash_attention_bwd.launches
+        ops.parity_check("flash_attention_bwd", q, k, v, o, lse, do, causal=causal,
+                         window=window, softcap=cap)
+        assert flash_attention_bwd.launches == before + 2  # dq, then dk/dv
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        got = torch.autograd.grad(flash_attention(*leaves, causal, window, cap), leaves, do)
+        dense = [t.clone().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(attention_ref(*dense, causal, window, cap), dense, do)
+        tol = ops.get_kernel("flash_attention").grad_tolerance(dtype)
+        for x, y in zip(got, want):
+            ops.assert_close(x, y, tol)
+    torch.cuda.synchronize()

@@ -17,6 +17,9 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
 assert not bad, bad
 assert len(mods) >= 15, mods
+new = {"repro_torch.data.sharded_loader", "repro_torch.optim.adam", "repro_torch.train.step",
+       "repro_torch.ckpt.checkpoint", "repro_torch.launch.train"}
+assert new <= set(mods), sorted(new - set(mods))
 print("ok", len(mods))
 """
 

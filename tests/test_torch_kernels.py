@@ -120,7 +120,8 @@ def test_registry_modes_on_cpu():
     with pytest.raises(ValueError, match="mode"):
         ops.dispatch("sparse_dot", psi, idx, val, mode="interpret")
     assert ops.registered_kernels() == (
-        "decode_attention", "flash_attention", "sparse_axpy", "sparse_dot")
+        "decode_attention", "flash_attention", "flash_attention_bwd", "sparse_axpy",
+        "sparse_dot")
 
 
 def test_wrapper_input_checks():
