@@ -8,7 +8,9 @@ no result then. Imports nothing of JAX or of the JAX package. Phases, each
 printed with its seconds:
 
 1. device  -- ``nvidia-smi`` name and power limit, torch's device name/count.
-2. build   -- compiles ``src/repro_torch/kernels/csrc/*.cu`` (first use).
+2. build   -- compiles ``src/repro_torch/kernels/csrc/*.cu`` (first use);
+   logs ptxas' registers and spills of the head_dim 256 flash kernels and
+   of block_topk, and the flash kernels' dynamic shared memory at 256.
 3. kernels -- every kernel of the main path against its plain PyTorch
    version on the card, at the main path's shapes (rcv1 preset: N=10,
    D=47,236, k=74 for a step; D=47,239, k=7,400 for init_state's phibar
@@ -17,6 +19,12 @@ printed with its seconds:
    sparse_axpy must be bit-exact, sparse_dot within 1e-12 (float32: 1e-5).
    Times per call from CUDA events after warm-up, beside the plain
    version's time and the least time the card could take (bound).
+   block_topk against its plain version, bit for bit and by the
+   registry's comparator, at (nb, block, k) = (288000, 4096, 40) (the
+   gossip step's embedding leaf: 2 pods x 144,000 blocks), (7, 2304, 23),
+   (5, 64, 1), (3, 16, 16) and (4, 4096, 4096), on random rows, rows with
+   many ties and constant rows; timed at the first beside its bound, the
+   plain version and torch.topk + gather.
 4. slice   -- the main path: ``solve()`` on the paper's Section-7 setup
    (rcv1 preset, N=10, q=100, Erdos-Renyi(0.4) seed 0, Laplacian W,
    lam = 1/(10 Q)) for dsba and dsa on ridge, logistic and AUC:
@@ -54,6 +62,10 @@ printed with its seconds:
    small sizes. Times by CUDA events and by profiler device time, beside
    the bound, the plain version and the library call (SDPA; for decode,
    SDPA over the gathered pages), which only the timing table uses.
+   gemma2-2b's attention is held too (8/4 heads, D=256, causal, window
+   4096, softcap 50, at S=2048 and at S=4608, where the window bites),
+   forward and backward, bf16 and f32, and the D=256 forward and backward
+   are timed at S=2048 beside their bound and plain version.
 9. score   -- ``transformer.forward`` at full width, B=1, S=2048: 32
    flash_attention launches, each held to the plain version on its own
    inputs; finite logits of the expected shape.
@@ -84,10 +96,28 @@ printed with its seconds:
    with attention_kernel "on" against "off": loss within 1e-3 relative,
    every gradient leaf within the bf16 gradient bar (5e-2) in relative
    Frobenius norm, reported layer by layer.
-12. launcher -- ``python -m repro_torch.launch.train --reduced`` on the
+12. gossip -- the train state is freed; gemma2-2b at full width (d 2304,
+   8/4 heads, head_dim 256, d_ff 9216, vocab 256,000, tied embedding,
+   softcaps 50/30, window 4096 on the local layer) cut 26 -> 2 layers (the
+   gossip state is 8 float32 copies a pod: 2 pods x 8 x 2.98 GB = 47.7 GB
+   at 2 layers, 167 GB at 26) trains 6 DSBA steps (``core/gossip.py``,
+   ``mode="dsba"``, ``compression="block_topk"``, ring of 2 pods, B=1 and
+   S=2048 a pod from ``batch_at``, lr 1e-3 constant, bf16 compute, remat
+   "full"). Step 0 holds every block_topk call bit for bit and every flash
+   forward and backward call within its bar to the plain version; steps
+   1-4 are timed (wall, peak memory), step 5 profiled (device busy, idle
+   share, top kernels, the update half's elementwise share). Every step:
+   launches (11 block_topk, 8 flash forward, 8 flash backward), finite
+   loss, grad norm and consensus distance, wire bytes per pod equal to the
+   closed form sum of nb * k_b * 8 (58.2 MB against 2.98 GB dense).
+13. launcher -- ``python -m repro_torch.launch.train --reduced`` on the
    card in a subprocess: 6 steps with --ckpt-every 3; the final checkpoint
    is dropped (a crash after step 3's) and a second run resumes from it; its
    final train state must be bit-equal to the uninterrupted run's.
+14. gossip example -- ``python -m repro_torch.examples.train_lm_gossip``
+   (tiny, 4 pods, topk, a pod killed at step 5, 12 steps, checkpoints every
+   4) on the card: the pods shrink to 3, the loss is finite, and a run
+   resumed from step 8's checkpoint ends bit-equal.
 Before phase 9, flash_attention_bwd is held to its plain version at the
 train shape and at ragged small shapes (every head dim, GQA, MQA, window,
 softcap), bf16 and f32 (bars 5e-2, 2e-4), and timed beside its bound, the
@@ -104,6 +134,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -127,16 +158,21 @@ from repro_torch.data.synthetic import (  # noqa: E402
 from repro_torch.ckpt.checkpoint import committed_steps, load_checkpoint  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.sharded_loader import LoaderConfig, batch_at  # noqa: E402
+from repro_torch.core.gossip import (  # noqa: E402
+    GossipConfig, consensus_distance, init_gossip_state, make_gossip_train_step,
+    wire_bytes_per_pod,
+)
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
-    attention_ref, decode_attention_ref, flash_attention_bwd_ref, sparse_axpy_ref,
-    sparse_dot_ref,
+    attention_ref, block_topk_ref, decode_attention_ref, flash_attention_bwd_ref,
+    sparse_axpy_ref, sparse_dot_ref,
 )
 from repro_torch.kernels.sparse_saga import sparse_axpy, sparse_dot  # noqa: E402
+from repro_torch.kernels.topk_compress import block_topk  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
-from repro_torch.models.params import tree_leaves  # noqa: E402
+from repro_torch.models.params import tree_leaves, tree_num_params  # noqa: E402
 from repro_torch.optim.adam import AdamConfig  # noqa: E402
 from repro_torch.serve import PoolConfig, Request, Scheduler, generate  # noqa: E402
 from repro_torch.train.step import TrainConfig, init_train_state, local_grads, train_step  # noqa: E402
@@ -152,6 +188,7 @@ SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
     "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    "block_topk": "src/repro_torch/kernels/csrc/topk_compress.cu",
 }
 REPLACES = {
     "sparse_dot": "src/repro/kernels/sparse_saga.py:56",
@@ -159,10 +196,11 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:123",
     "decode_attention": "src/repro/kernels/decode_attention.py:116",
     "flash_attention_bwd": "src/repro/kernels/flash_attention.py:314",
+    "block_topk": "src/repro/kernels/topk_compress.py:37",
 }
 WRAPPERS = {"sparse_dot": sparse_dot, "sparse_axpy": sparse_axpy,
             "flash_attention": flash_attention, "decode_attention": decode_attention,
-            "flash_attention_bwd": flash_attention_bwd}
+            "flash_attention_bwd": flash_attention_bwd, "block_topk": block_topk}
 DENSE_TOL_CPU = 1e-10  # card vs CPU: cuBLAS mixing-product summation order
 SPARSE_TOL = 1e-12  # relay vs dense (tests/test_sparse_comm.py's bar)
 
@@ -343,6 +381,80 @@ def time_kernels(device, n, d, k, dtype=torch.float64) -> dict[str, dict]:
     }
     for name, r in out.items():
         log("kernels", f"{name} N={n} D={d} k={k} {dtype}: {r}")
+    return out
+
+
+# the gossip step's largest selection: gemma2-2b's embedding leaf, 2 pods x
+# 144,000 blocks of 4,096, k_b = 40 (1% of a block)
+TOPK_MAIN = (2 * 144_000, 4096, 40)
+# + final_norm (one block of 2304, k_b 23), the reduced configs' leaves
+# (blocks of 64 and 16, k_b 1), k = block
+TOPK_CASES = [TOPK_MAIN, (7, 2304, 23), (5, 64, 1), (3, 16, 16), (4, 4096, 4096)]
+
+
+def topk_rows(nb, block, kind, device, seed=0):
+    """Seeded float32 rows: normal ('random'), rounded to halves ('ties':
+    |x| in {0, 0.5, 1, ...}) or constant ('constant': 1.0, odd rows -0.25)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(nb, block, generator=g, device=device)
+    if kind == "ties":
+        x = torch.round(x * 2) / 2
+    elif kind == "constant":
+        x = torch.full_like(x, 1.0)
+        x[1::2] = -0.25
+    return x
+
+
+def topk_parity(device) -> float:
+    """block_topk against its plain version at every case and kind: within
+    the registry's comparator (1e-6) and bit-equal in values and indices
+    (both take the lower index first among ties). Returns the error at
+    the main shape on random rows."""
+    spec = ops.get_kernel("block_topk")
+    worst = None
+    for i, (nb, block, k) in enumerate(TOPK_CASES):
+        for kind in ("random", "ties", "constant"):
+            x = topk_rows(nb, block, kind, device, seed=i)
+            got = ops.dispatch("block_topk", x, k, mode="on")
+            want = ops.dispatch("block_topk", x, k, mode="off")
+            torch.cuda.synchronize()
+            err = spec.compare((x, k), got, want, spec.tolerance(x.dtype))
+            exact = all(torch.equal(g, w) for g, w in zip(got, want))
+            log("kernels", f"block_topk nb={nb} block={block} k={k} {kind}: "
+                f"max_abs_err={err!r} bit_equal={exact}")
+            if not exact:
+                raise AssertionError(f"block_topk ({nb}, {block}, {k}) {kind}: not bit-equal")
+            if i == 0 and kind == "random":
+                worst = err
+            del x, got, want
+    return worst
+
+
+def time_topk(device) -> dict:
+    """block_topk at the gossip step's embedding leaf: kernel, plain version
+    and torch.topk + gather (the same selection; its tie order may differ,
+    so it is held by the registry's comparator, not bit for bit)."""
+    nb, block, k = TOPK_MAIN
+    x = topk_rows(nb, block, "random", device)
+    # each input read once, each output written once; one comparison an
+    # element is the least work a selection does
+    b = bound(4 * nb * block + 8 * nb * k, nb * block, torch.float32)
+    kern = lambda: block_topk(x, k)  # noqa: E731
+
+    def lib():
+        i = torch.topk(x.abs(), k, dim=1).indices
+        return torch.gather(x, 1, i), i.int()
+
+    spec = ops.get_kernel("block_topk")
+    spec.compare((x, k), lib(), kern(), spec.tolerance(x.dtype))
+    out = {
+        "ms": cuda_ms(kern, iters=20, warmup=3),
+        "device_ms": kernel_device_ms(kern, ("block_topk_kernel",), iters=5),
+        "plain_ms": cuda_ms(lambda: block_topk_ref(x, k), iters=3, warmup=1),
+        "bound_ms": b[0], "bound_by": b[1],
+        "library_ms": cuda_ms(lib, iters=10, warmup=2),
+    }
+    log("kernels", f"block_topk nb={nb} block={block} k={k} float32: {json.dumps(out)}")
     return out
 
 
@@ -562,6 +674,12 @@ def decode_inputs(lengths, hq, hkv, d, n_blocks, bs, n_pages, dtype, device, see
             torch.as_tensor(np.asarray(lengths, np.int32), device=device))
 
 
+# gemma2-2b's attention (8/4 heads, head_dim 256, causal, window 4096,
+# softcap 50): the gossip step's shape, and one where the window bites
+GEMMA2_ATTENTION = [(1, 8, 4, 2048, 2048, 256, True, 4096, 50.0),
+                    (1, 8, 4, 4608, 4608, 256, True, 4096, 50.0)]
+
+
 def attention_parity(device, decode_main) -> dict[str, float]:
     """Both attention kernels against their plain versions (raises on a
     miss); returns the bf16 error at the main path's shape per kernel."""
@@ -572,6 +690,7 @@ def attention_parity(device, decode_main) -> dict[str, float]:
         (1, 4, 4, 300, 300, 64, True, 100, None),
         (1, 4, 2, 257, 257, 128, True, None, 50.0),
         (2, 4, 1, 77, 129, 64, False, 40, 30.0),  # S < Sk, window without causal
+        *GEMMA2_ATTENTION,
     ]
     worst = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -918,6 +1037,7 @@ def flash_bwd_parity(device) -> float:
         (2, 4, 1, 77, 129, 64, False, 40, 30.0),  # S < Sk, window without causal
         (1, 4, 2, 130, 130, 256, True, None, None),
         (2, 4, 2, 64, 64, 16, True, 7, None),  # the launcher's reduced head_dim
+        *GEMMA2_ATTENTION,
     ]
     worst = None
     for dtype in (torch.bfloat16, torch.float32):
@@ -1113,26 +1233,38 @@ def train_on_off(state) -> dict:
     return out
 
 
+def run_module(phase, tag, cmd) -> str:
+    """Run `cmd` (a ``python -m`` of the port) from the repo root with the
+    port on the path; raise on a non-zero exit; returns its stdout."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    log(phase, f"{tag}: rc={r.returncode} in {time.perf_counter() - t0:.1f} s\n"
+        f"{r.stdout.strip()}")
+    if r.returncode != 0:
+        raise AssertionError(f"{phase} {tag} failed:\n{r.stderr[-4000:]}")
+    return r.stdout
+
+
+def bit_equal_checkpoints(d, step, full) -> None:
+    """The committed checkpoint `step` in `d` has `full`'s leaves, bit for bit."""
+    _, _, resumed = load_checkpoint(d, step)
+    if set(full) != set(resumed):
+        raise AssertionError("resumed checkpoint has other leaves")
+    differ = [p for p in full if full[p].tobytes() != resumed[p].tobytes()]
+    if differ:
+        raise AssertionError(f"resume is not bit-equal at {differ[:5]}")
+
+
 def launcher_phase() -> dict:
     """``launch/train.py --reduced`` on the card in subprocesses: an
     uninterrupted 6-step run, then a run resumed from its step-3 checkpoint
     (the final one dropped) must end bit-equal."""
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(ROOT / "src")
     with tempfile.TemporaryDirectory() as d:
         cmd = [sys.executable, "-m", "repro_torch.launch.train", "--reduced", "--steps", "6",
                "--ckpt-every", "3", "--batch", "2", "--seq", "64", "--ckpt-dir", d]
-
-        def run(tag):
-            t0 = time.perf_counter()
-            r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
-                               timeout=600)
-            log("launcher", f"{tag}: rc={r.returncode} in {time.perf_counter() - t0:.1f} s\n"
-                f"{r.stdout.strip()}")
-            if r.returncode != 0:
-                raise AssertionError(f"launcher {tag} failed:\n{r.stderr[-4000:]}")
-            return r.stdout
-
+        run = lambda tag: run_module("launcher", tag, cmd)  # noqa: E731
         run("uninterrupted")
         if committed_steps(d) != [3, 6]:
             raise AssertionError(f"checkpoints {committed_steps(d)}")
@@ -1141,14 +1273,305 @@ def launcher_phase() -> dict:
         stdout = run("resumed")
         if "resumed from step 3" not in stdout:
             raise AssertionError("the second run did not resume from step 3")
-        _, _, resumed = load_checkpoint(d, 6)
-        if set(full) != set(resumed):
-            raise AssertionError("resumed checkpoint has other leaves")
-        differ = [p for p in full if full[p].tobytes() != resumed[p].tobytes()]
-        if differ:
-            raise AssertionError(f"resume is not bit-equal at {differ[:5]}")
+        bit_equal_checkpoints(d, 6, full)
         out = {"leaves": len(full), "bit_equal": True, "final_step": int(full["['step']"])}
     log("launcher", json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 13-14: DSBA gossip training (block_topk, flash at head_dim 256)
+# ---------------------------------------------------------------------------
+
+GOSSIP_LAYERS, GOSSIP_S, GOSSIP_STEPS = 2, 2048, 6
+# dsba's constant step size here (the gossip example's 0.5 is for its tiny
+# model): at 1e-3, 6 steps of gemma2-2b at full width stay finite
+GOSSIP_LR = 1e-3
+
+
+def gossip_setup():
+    """(model config, TrainConfig, GossipConfig) of the gossip phase:
+    gemma2-2b at full width cut to one local/global layer pair, 2 pods on a
+    ring, dsba with block_topk compression through the kernel."""
+    cfg = dataclasses.replace(get_config("gemma2-2b"), n_layers=GOSSIP_LAYERS,
+                              attention_kernel="on")
+    gcfg = GossipConfig(n_pods=2, topology="ring", mode="dsba", compression="block_topk",
+                        topk_ratio=0.01, block_size=4096, kernel_mode="on")
+    return cfg, TrainConfig(optimizer=AdamConfig(lr=GOSSIP_LR)), gcfg
+
+
+def expected_gossip_launches(cfg, gcfg) -> dict[str, int]:
+    """Kernel launches of one gossip step: one block_topk a leaf (both pods
+    in one call), per pod the flash forward twice a layer (forward and remat
+    recompute) and the backward's two kernels once a layer."""
+    want = dict.fromkeys(WRAPPERS, 0)
+    per_pods = 2 * cfg.n_layers * gcfg.n_pods
+    want.update(block_topk=len(tree_leaves(T.model_defs(cfg))), flash_attention=per_pods,
+                flash_attention_bwd=per_pods)
+    return want
+
+
+GOSSIP_RANGES = ("gossip_grads", "gossip_update")
+
+
+def top_by_prefix(times: dict[str, float], n: int, width: int = 90) -> dict[str, float]:
+    """The `n` largest of {kernel name: us}, names cut to `width` characters
+    and the times of names that then coincide summed."""
+    out: dict[str, float] = {}
+    for name, t in times.items():
+        out[name[:width]] = out.get(name[:width], 0.0) + t
+    return dict(sorted(out.items(), key=lambda kv: -kv[1])[:n])
+
+
+def profile_ranges(fn):
+    """One call of ``fn`` under torch.profiler: (device busy us, {kernel:
+    (us, count)}, {range: (span us, busy us)}, {range: {kernel: us}}). The
+    ranges are the gossip step's record_function halves; a range's span is
+    its extent on the device timeline, its busy time the summed durations
+    of the kernels that start inside it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = {e.key: (e.device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == cuda and e.key not in GOSSIP_RANGES}
+    events = [e for e in prof.events() if e.device_type == cuda]
+    kernels = [e for e in events if e.name not in GOSSIP_RANGES]
+    ranges, by_range = {}, {}
+    for r in (e for e in events if e.name in GOSSIP_RANGES):
+        lo, hi = r.time_range.start, r.time_range.end
+        inside = [e for e in kernels if lo <= e.time_range.start < hi]
+        ranges[r.name] = (hi - lo, sum(e.time_range.elapsed_us() for e in inside))
+        per = by_range.setdefault(r.name, {})
+        for e in inside:
+            per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return sum(t for t, _ in kern.values()), kern, ranges, by_range
+
+
+def gossip_phase(device) -> tuple[dict, dict]:
+    """GOSSIP_STEPS dsba steps of gemma2-2b at full width on 2 pods.
+
+    Step 0 holds every block_topk (bit for bit), flash forward and flash
+    backward call to its plain version; steps 1-4 are timed; step 5 is
+    profiled. Every step: launches per kernel as predicted, finite loss,
+    grad norm and consensus distance, wire bytes equal to the closed form.
+    Returns (summary, launches over every step)."""
+    cfg, tc, gcfg = gossip_setup()
+    full = get_config("gemma2-2b")
+    n = tree_num_params(T.model_defs(cfg))
+    n_full = tree_num_params(T.model_defs(full))
+    copies = 2 * gcfg.n_pods + 6 * gcfg.n_pods  # params, mu, nu, prev, g_prev, 3 streams
+    log("gossip", f"{cfg.name} cut {full.n_layers} -> {cfg.n_layers} layers: {n} params, "
+        f"{4 * n / 1e9:.2f} GB a float32 copy ({4 * n_full / 1e9:.2f} GB at {full.n_layers}); "
+        f"the state of {gcfg.n_pods} pods is {copies} copies, {copies * 4 * n / 1e9:.1f} GB "
+        f"({copies * 4 * n_full / 1e9:.1f} GB at {full.n_layers} layers)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_gossip_state(cfg, tc, gcfg, 0, device)
+    torch.cuda.synchronize()
+    state_gb = sum(t.numel() * t.element_size() for t in tree_leaves(state)) / 1e9
+    log("gossip", f"state {state_gb:.2f} GB drawn in {time.perf_counter() - t0:.2f} s")
+    step_fn = make_gossip_train_step(None, cfg, tc, gcfg)
+    ld = LoaderConfig(cfg.vocab_size, gcfg.n_pods * 1, GOSSIP_S, n_shards=gcfg.n_pods)
+    shapes = [d.shape for d in tree_leaves(T.model_defs(cfg))]
+    wire = wire_bytes_per_pod(shapes, gcfg)
+    want = expected_gossip_launches(cfg, gcfg)
+    total = dict.fromkeys(WRAPPERS, 0)
+    rows, walls, per_step = [], [], []
+
+    def one_step(i):
+        nonlocal state
+        before = launches()
+        b = {k: np.asarray(v).reshape(gcfg.n_pods, 1, GOSSIP_S)
+             for k, v in batch_at(ld, i).items()}
+        state, m = step_fn(state, b)
+        got = {k: c - before[k] for k, c in launches().items()}
+        if got != want:
+            raise AssertionError(f"gossip step {i}: launches {got} != {want}")
+        for k, c in got.items():
+            total[k] += c
+        per_step.append(m)
+
+    def record(i):
+        m = per_step[i]
+        row = {"step": i, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "consensus_distance": float(consensus_distance(state["params"])),
+               "wire_bytes_per_pod": int(m["wire_bytes_per_pod"])}
+        log("gossip", json.dumps(row))
+        if not all(math.isfinite(row[k]) for k in ("loss", "grad_norm", "consensus_distance")):
+            raise AssertionError(f"gossip step {i}: not finite {row}")
+        if row["wire_bytes_per_pod"] != wire:
+            raise AssertionError(f"gossip step {i}: wire bytes {row['wire_bytes_per_pod']} "
+                                 f"!= the closed form {wire}")
+        rows.append(row)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with ops.held_to_plain("block_topk") as tk, ops.held_to_plain("flash_attention") as fwd, \
+            ops.held_to_plain("flash_attention_bwd") as bwd:
+        one_step(0)
+    torch.cuda.synchronize()
+    t_held = time.perf_counter() - t0
+    record(0)
+    held = (len(tk), len(fwd), len(bwd))
+    if held != (want["block_topk"], want["flash_attention"], want["flash_attention_bwd"] // 2):
+        raise AssertionError(f"step 0 held {held} block_topk, flash, flash_bwd calls")
+    if not all(tk.exact):
+        raise AssertionError(f"block_topk calls not bit-equal to the plain version: {tk.exact}")
+    peak_step0 = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(1, GOSSIP_STEPS - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step(i)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        record(i)
+    peak = torch.cuda.max_memory_allocated()
+    busy_us, kern, ranges, by_range = profile_ranges(lambda: one_step(GOSSIP_STEPS - 1))
+    record(GOSSIP_STEPS - 1)
+    wall_ms = float(np.median(walls)) * 1e3
+    busy_ms = busy_us / 1e3
+    topk_us = sum(t for k, (t, _) in kern.items() if "block_topk_kernel" in k)
+    update_us = ranges["gossip_update"][1] if "gossip_update" in ranges else None
+    top = top_by_prefix({k: t for k, (t, _) in kern.items()}, 10)
+    top_update = top_by_prefix(by_range.get("gossip_update", {}), 8)
+    summary = {
+        "layers": cfg.n_layers, "pods": gcfg.n_pods, "B_per_pod": 1, "S": GOSSIP_S,
+        "tokens_per_step": gcfg.n_pods * GOSSIP_S, "lr": GOSSIP_LR, "state_gb": state_gb,
+        "steps": rows, "step0_s_held_to_plain": t_held,
+        "step0_block_topk_vs_plain_max_abs": list(tk), "step0_block_topk_bit_equal": tk.exact,
+        "step0_flash_fwd_vs_plain_max_abs": list(fwd), "step0_flash_fwd_rel_norm": fwd.rel,
+        "step0_flash_bwd_vs_plain_max_abs": list(bwd), "step0_flash_bwd_rel_norm": bwd.rel,
+        "step0_flash_bwd_plain_max_abs_grad": bwd.scale,
+        "wire_bytes_per_pod_closed_form": wire,
+        "dense_bytes_per_pod": 4 * n, "wire_share_of_dense": wire / (4 * n),
+        "step_wall_ms": [w * 1e3 for w in walls], "step_wall_ms_median": wall_ms,
+        "step_device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
+        "tokens_per_s": gcfg.n_pods * GOSSIP_S / (wall_ms / 1e3),
+        "port_kernel_launches_per_step": {k: c for k, c in want.items() if c},
+        "kernel_launches_per_step_profiled": sum(c for _, c in kern.values()),
+        "range_span_and_busy_ms": {k: [v / 1e3 for v in t] for k, t in ranges.items()},
+        "block_topk_device_ms": topk_us / 1e3,
+        # the update half's kernels without the selection: the exchange's
+        # and the update's elementwise passes, index_add_ included
+        "update_elementwise_device_ms": (update_us - topk_us) / 1e3 if update_us else None,
+        "update_elementwise_share": (update_us - topk_us) / busy_us if update_us else None,
+        "top_update_kernels_us": top_update,
+        "peak_gb_steps_1_4": peak / 1e9, "peak_gb_step0_held": peak_step0 / 1e9,
+        "top_kernels_us_per_step": top,
+    }
+    log("gossip", json.dumps(summary))
+    del state
+    return summary, total
+
+
+def gossip_launcher_phase() -> dict:
+    """The gossip example on the card (tiny model, 4 pods, topk, a pod
+    killed at step 5, checkpoints every 4 steps): the pods shrink to 3; a
+    second run, from step 8's checkpoint after the final one is dropped,
+    ends bit-equal."""
+    with tempfile.TemporaryDirectory() as d:
+        cmd = [sys.executable, "-m", "repro_torch.examples.train_lm_gossip", "--model", "tiny",
+               "--pods", "4", "--compression", "topk", "--kill-pod-at", "5", "--steps", "12",
+               "--ckpt-every", "4", "--ckpt-dir", d]
+        out = run_module("gossip-example", "uninterrupted", cmd)
+        if "[ft] pod killed at step 5: continuing with 3 pods" not in out:
+            raise AssertionError("the example did not shrink to 3 pods")
+        if committed_steps(d) != [4, 8, 12]:
+            raise AssertionError(f"checkpoints {committed_steps(d)}")
+        _, meta, full = load_checkpoint(d, 12)
+        if meta != {"n_pods": 3} or full["['params']/['embed']"].shape[0] != 3:
+            raise AssertionError(f"final checkpoint: {meta}")
+        losses = [float(line.split()[3]) for line in out.splitlines()
+                  if line.startswith("step")]
+        if not losses or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"example losses {losses}")
+        shutil.rmtree(Path(d) / "step_12")  # a crash after the step-8 checkpoint
+        out = run_module("gossip-example", "resumed", cmd)
+        if "resumed from step 8" not in out or "pods=3" not in out:
+            raise AssertionError("the second run did not resume from step 8 with 3 pods")
+        bit_equal_checkpoints(d, 12, full)
+        summary = {"leaves": len(full), "bit_equal": True, "pods_after_kill": 3,
+                   "losses": losses}
+    log("gossip-example", json.dumps(summary))
+    return summary
+
+
+def ptxas_report(outputs) -> dict:
+    """{kernel<dtype,template ints>: registers, spills, static smem} from
+    the nvcc -Xptxas -v output of each library (``_build.build_all``)."""
+    rep, name = {}, None
+    for text in outputs.values():
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                mangled = m.group(1)
+                base = re.search(r"([a-z_]+_kernel)I", mangled)
+                dt = "bf16" if "nv_bfloat16" in mangled else ("f32" if "_kernelIf" in mangled
+                                                             else "")
+                ints = ",".join(re.findall(r"Li(\d+)E", mangled))
+                name = f"{base.group(1) if base else mangled}<{','.join(filter(None, (dt, ints)))}>"
+                rep[name] = {}
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and name:
+                rep[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                smem = re.search(r"(\d+) bytes smem", line)
+                rep[name].update(registers=int(m.group(1)),
+                                 static_smem=int(smem.group(1)) if smem else 0)
+    return rep
+
+
+def flash_smem_bytes(d: int) -> dict[str, int]:
+    """Dynamic shared memory a block of each flash kernel asks for at head
+    dim `d` (the formulas of csrc/flash_attention.cu and
+    flash_attention_bwd.cu: 64-row q tiles, 32-row k/v tiles, padded rows)."""
+    bq, bk = 64, 32
+    fwd = 4 * (bq * (d + 1) + bk * (d + 1) + bk * d + bq * (bk + 1))
+    dq = 4 * (2 * bq * (d + 1) + 2 * bk * (d + 1) + bq * (bk + 1) + 2 * bq)
+    dkv_f = 4 * (2 * bk * (d + 1) + 2 * bk * (bq + 1) + 2 * bq)
+    return {"flash_fwd": fwd, "flash_bwd_dq": dq,
+            "flash_bwd_dkv_bf16": dkv_f + 2 * bq * (d + 2) * 2,
+            "flash_bwd_dkv_f32": dkv_f + 2 * bq * (d + 1) * 4}
+
+
+def time_flash_d256(device) -> dict:
+    """The flash forward and backward at the gossip step's attention shape
+    (bf16, B=1, 8/4 heads, S=2048, D=256, causal, window 4096, softcap 50):
+    kernel, plain version and bound. No single PyTorch call computes a
+    softcapped attention (SDPA has no softcap): no library time."""
+    b, hq, hkv, s, _, d, causal, window, cap = GEMMA2_ATTENTION[0]
+    q, k, v = flash_inputs(b, hq, hkv, s, s, d, torch.bfloat16, device)
+    do = flash_inputs(b, hq, hq, s, s, d, torch.bfloat16, device, seed=1)[0]
+    o, lse = flash_attention(q, k, v, causal, window, cap, return_lse=True)
+    pairs = b * hq * s * (s + 1) // 2  # causal; the window (4096 > S) keeps every pair
+    kw = dict(causal=causal, window=window, softcap=cap)
+    b_f = bound(2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel(),
+                4 * pairs * d, torch.bfloat16)
+    b_b = bound(2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + o.numel() + do.numel())
+                + 4 * lse.numel(), 10 * pairs * d, torch.bfloat16)
+    fwd = lambda: flash_attention(q, k, v, causal, window, cap)  # noqa: E731
+    bwd = lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw)  # noqa: E731
+    out = {
+        "flash_attention": {
+            "ms": cuda_ms(fwd, iters=20, warmup=3),
+            "device_ms": kernel_device_ms(fwd, ("flash_fwd_kernel",), iters=5),
+            "plain_ms": cuda_ms(lambda: attention_ref(q, k, v, **kw), iters=5, warmup=1),
+            "bound_ms": b_f[0], "bound_by": b_f[1], "library_ms": None},
+        "flash_attention_bwd": {
+            "ms": cuda_ms(bwd, iters=10, warmup=2),
+            "device_ms": kernel_device_ms(bwd, ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
+                                          iters=3),
+            "plain_ms": cuda_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, **kw),
+                                iters=3, warmup=1),
+            "bound_ms": b_b[0], "bound_by": b_b[1], "library_ms": None},
+    }
+    log("attention", f"D=256 (gemma2-2b gossip shape): {json.dumps(out)}")
     return out
 
 
@@ -1173,6 +1596,10 @@ def main() -> int:
         _build.load_library(name)
     log("build", f"{sorted(built)} built, {len(_build.SIGNATURES)} loaded in "
         f"{time.perf_counter() - t0:.1f} s")
+    ptxas = ptxas_report(built)
+    log("build", "ptxas (head_dim 256 flash kernels, block_topk): " + json.dumps(
+        {k: v for k, v in ptxas.items() if k.endswith(",256>") or k.startswith("block_topk")}))
+    log("build", f"dynamic shared memory at head_dim 256, bytes: {json.dumps(flash_smem_bytes(256))}")
 
     t0 = time.perf_counter()
     rcv1, news20 = DATASET_PRESETS["rcv1"], DATASET_PRESETS["news20"]
@@ -1182,6 +1609,8 @@ def main() -> int:
     init_shape = (10, rcv1["d"] + 3, 100 * rcv1["k"])
     errs = kernel_parity(dev, [main_shape, init_shape, (3, 1003, 9), (10, 2000, 1200)])
     times = time_kernels(dev, *main_shape)
+    errs["block_topk"] = topk_parity(dev)
+    times["block_topk"] = time_topk(dev)
     log("kernels", f"done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1214,6 +1643,7 @@ def main() -> int:
     times.update(time_attention(dev, decode_main))
     errs["flash_attention_bwd"] = flash_bwd_parity(dev)
     times["flash_attention_bwd"] = time_flash_bwd(dev)
+    time_flash_d256(dev)
     del decode_main  # holds views of the serve pool
     log("attention", f"done in {time.perf_counter() - t0:.1f} s")
 
@@ -1237,23 +1667,40 @@ def main() -> int:
     t0 = time.perf_counter()
     train_on_off(state)
     del state
+    gc.collect()
     torch.cuda.empty_cache()
     log("train", f"on vs off done in {time.perf_counter() - t0:.1f} s")
+
+    log("gossip", f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before the gossip "
+        "state")
+    t0 = time.perf_counter()
+    _, gossip_launches = gossip_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("gossip", f"launches {gossip_launches}; done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     launcher_phase()
     log("launcher", f"done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gossip_launcher_phase()
+    log("gossip-example", f"done in {time.perf_counter() - t0:.1f} s")
 
     total["decode_attention"] = serve_launches["decode_attention"]
-    # flash_attention runs on two main paths: the score phase and the train steps
-    total["flash_attention"] = score_launches["flash_attention"] + train_launches["flash_attention"]
-    total["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
+    # flash_attention runs on three main paths: the score phase, the train
+    # steps and the gossip steps; its backward on the last two
+    total["flash_attention"] = (score_launches["flash_attention"]
+                                + train_launches["flash_attention"]
+                                + gossip_launches["flash_attention"])
+    total["flash_attention_bwd"] = (train_launches["flash_attention_bwd"]
+                                    + gossip_launches["flash_attention_bwd"])
+    total["block_topk"] = gossip_launches["block_topk"]
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": total[name],
          "max_abs_err": errs[name], **times[name]}
         for name in ("sparse_dot", "sparse_axpy", "flash_attention", "decode_attention",
-                     "flash_attention_bwd")
+                     "flash_attention_bwd", "block_topk")
     ]
     log("all", f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

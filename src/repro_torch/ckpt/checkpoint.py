@@ -180,6 +180,18 @@ def load_checkpoint(directory, step: int | None = None):
     return step, manifest.get("metadata", {}), leaves
 
 
+def committed_metadata(directory, step: int | None = None) -> dict | None:
+    """The metadata of the newest (or requested) committed checkpoint, read
+    from its manifest alone; None when the directory holds none."""
+    directory = pathlib.Path(directory)
+    steps = committed_steps(directory)
+    if not steps:
+        return None
+    step = steps[-1] if step is None else step
+    manifest = json.loads((directory / f"step_{step}" / "manifest.json").read_text())
+    return manifest.get("metadata", {})
+
+
 class CheckpointManager:
     """Async checkpointing: save() stages a host copy and writes on a
     background thread; wait() joins before exit/next save."""

@@ -4,7 +4,7 @@
 registry mirrors ``repro.configs``: ``--arch <id>`` (or an alias with
 dashes and dots) selects a module exposing ``CONFIG`` (the assigned
 configuration) and ``reduced()`` (a small same-family configuration for CPU
-tests). Only ``minitron_8b`` is ported; every other id raises
+tests). ``minitron_8b`` and ``gemma2_2b`` are ported; every other id raises
 ``NotImplementedError`` naming the ROADMAP item that ports its family, and
 never falls back to another model.
 """
@@ -38,12 +38,10 @@ ALIASES = {
     "mamba2-1.3b": "mamba2_1p3b",
 }
 
-PORTED = ("minitron_8b",)
+PORTED = ("minitron_8b", "gemma2_2b")
 
 # where each unported arch id waits (ROADMAP Queue 1 item 12: models)
 NOT_PORTED = {
-    "gemma2_2b": "dense family with local/global windows, softcaps and tied "
-                 "embeddings: the config is not ported yet",
     "qwen2_72b": "dense family with qkv bias: the config is not ported yet",
     "llama3_405b": "dense family at 405B: the config is not ported yet",
     "chameleon_34b": "dense family (fused VLM vocab): the config is not ported yet",

@@ -9,7 +9,9 @@ can start from one state. ``dataset_to_torch`` moves a ``SparseDataset``
 ``model_defs`` tree with numpy leaves (layers stacked on axis 0 under
 ``blocks``) becomes the port's parameters, each leaf in the dtype the port
 holds it in (``transformer.storage_dtype``); ``model_params_to_numpy``
-goes back.
+goes back. ``gossip_state_from_numpy`` / ``gossip_state_to_numpy`` carry a
+whole pod-axis gossip state (params, opt, params_prev, g_prev, recon,
+step) across, every leaf a fresh copy.
 """
 from __future__ import annotations
 
@@ -96,6 +98,42 @@ def model_params_to_numpy(params: Mapping) -> dict:
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
     return tree_map(one, dict(params))
+
+
+def gossip_state_from_numpy(cfg, gc, tree: Mapping, device=None) -> dict:
+    """A port gossip state (``core.gossip``) from a nested dict of numpy
+    arrays, e.g. a JAX ``init_gossip_state`` tree through ``np.asarray``.
+
+    The tree must have exactly the leaves of
+    ``gossip_state_defs(cfg, tc, gc)`` for some optimizer (``opt`` holds
+    ``mu`` and, unless sgdm, ``nu``) and their shapes. Every leaf is
+    copied (so leaves that are one array in the JAX tree, params and
+    params_prev at init, become separate tensors: the dsba step writes in
+    place) and held in the spec's dtype; ``step`` becomes a 0-d int32
+    tensor on the host, as ``init_gossip_state`` makes it.
+    """
+    from repro_torch.core.gossip import gossip_state_defs
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.train.step import TrainConfig
+
+    dev = resolve_device(device)
+    kind = "adamw" if "nu" in tree.get("opt", {}) else "sgdm"
+    defs = gossip_state_defs(cfg, TrainConfig(optimizer=AdamConfig(kind=kind)), gc)
+    _same_keys(defs, tree)
+
+    def one(path, spec, arr):
+        arr = np.array(arr)  # a copy
+        if arr.shape != tuple(spec.shape):
+            raise ValueError(f"{'/'.join(path)}: shape {arr.shape} != {tuple(spec.shape)}")
+        t = torch.as_tensor(arr).to(spec.dtype)
+        return t if path == ("step",) else t.to(dev)
+
+    return tree_map(one, defs, tree)
+
+
+def gossip_state_to_numpy(state: Mapping) -> dict:
+    """Nested dict of numpy arrays (host copies) of a port gossip state."""
+    return tree_map(lambda _, t: t.detach().to("cpu", copy=True).numpy(), dict(state))
 
 
 def _same_keys(defs, tree, path=()):

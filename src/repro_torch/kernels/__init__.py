@@ -5,6 +5,8 @@
                     its blocked gradient (csrc/flash_attention_bwd.cu) and the
                     FlashAttention autograd Function joining them
   decode_attention  paged single-query decode attention (csrc/decode_attention.cu)
+  topk_compress     block-local top-k magnitude selection, the gossip wire
+                    format's (csrc/topk_compress.cu)
   ref          plain PyTorch versions (the CPU path and the parity oracle)
   ops          the registry: kernel, plain version and tolerance per name
   _build       builds csrc/*.cu with nvcc at first use and loads them

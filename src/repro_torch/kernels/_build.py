@@ -23,9 +23,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
+# -Xptxas -v: ptxas reports each kernel's registers, spills and static
+# shared memory; build_all returns that report (chip_smoke.py logs it)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -54,6 +56,8 @@ SIGNATURES = {
     "flash_attention": {"flash_attention_fwd_bf16": _FLASH, "flash_attention_fwd_f32": _FLASH},
     "flash_attention_bwd": {"flash_attention_bwd_bf16": _FLASH_BWD,
                             "flash_attention_bwd_f32": _FLASH_BWD},
+    # block_topk_f32(x, vals, idx, nb, block, k, device, stream)
+    "topk_compress": {"block_topk_f32": [_P, _P, _P, _I, _I, _I, _I, _P]},
 }
 
 

@@ -25,7 +25,12 @@ gradient's scale is the loss's, so an elementwise bar alone can pass a
 wrong gradient that is small: ``flash_attention_bwd`` is held to the same
 numbers in relative Frobenius norm as well, output by output.
 The attention kernels take bf16 or f32 inputs and accumulate in float32,
-as the JAX kernels do.
+as the JAX kernels do. ``block_topk`` (float32 only) is held as the JAX
+registry holds it, 1e-6, by ``_topk_compare``: the selected magnitudes
+match as sets and every returned (value, index) pair is the input's entry
+at that index. The CUDA kernel also breaks ties as its plain version does
+(lower index first), so on the card its output is bit-equal to the plain
+version's; ``HeldCalls.exact`` records that per held call.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from repro_torch.kernels import ref as R
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
 from repro_torch.kernels.sparse_saga import sparse_axpy, sparse_dot
+from repro_torch.kernels.topk_compress import block_topk
 
 MODES = ("auto", "on", "off")
 
@@ -136,14 +142,16 @@ def _resolve(name: str, mode: str, *args) -> Callable:
 
 class HeldCalls(list):
     """The max abs error of each held call (the list itself), beside the
-    largest magnitude of the plain version's output (``scale``) and the
-    relative Frobenius error (``rel``) of the same call; a tuple output
-    reports its worst member."""
+    largest magnitude of the plain version's output (``scale``), the
+    relative Frobenius error (``rel``) of the same call and whether every
+    output equals the plain version's bit for bit (``exact``); a tuple
+    output reports its worst member."""
 
     def __init__(self):
         super().__init__()
         self.scale: list[float] = []
         self.rel: list[float] = []
+        self.exact: list[bool] = []
 
 
 # kernel name -> the record of an open held_to_plain context
@@ -187,6 +195,7 @@ def dispatch(name: str, *args, mode: str = "auto", **kwargs):
             pairs = list(zip(out, want)) if isinstance(out, tuple) else [(out, want)]
             held.scale.append(max(_max_abs(w) for _, w in pairs))
             held.rel.append(max(rel_err(g, w) for g, w in pairs))
+            held.exact.append(all(torch.equal(g.detach(), w) for g, w in pairs))
     return out
 
 
@@ -246,6 +255,36 @@ def _grad_compare(args, got, want, tol: Tolerance) -> float:
     return max(assert_close(g.detach(), w.detach(), tol) for g, w in zip(got, want))
 
 
+def _close_on_device(got: torch.Tensor, want: torch.Tensor, tol: Tolerance, what: str) -> float:
+    """Assert |got - want| <= atol + rtol |want| elementwise where the
+    tensors lie (no host copy); max abs error."""
+    g, w = got.detach().double(), want.detach().double()
+    diff = (g - w).abs()
+    if not bool((diff <= tol.atol + tol.rtol * w.abs()).all()):
+        raise AssertionError(f"{what}: max abs error {diff.max().item()!r} outside {tol}")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def _topk_compare(args, got, want, tol: Tolerance) -> float:
+    """block_topk parity (the JAX ``_topk_compare``): the selected
+    magnitudes match as sets (tie order may differ), and every returned
+    (value, index) pair is the input's entry at that index: gossip builds
+    its global wire indices from these, so a value that does not live at
+    its claimed index must fail. Max abs error of the sorted magnitudes."""
+    x = args[0]
+    (vals, idx), (vals_r, idx_r) = got, want
+    for what, i in (("kernel", idx), ("plain", idx_r)):
+        if i.numel() and not bool(((i >= 0) & (i < x.shape[1])).all()):
+            raise AssertionError(f"block_topk {what} index outside [0, {x.shape[1]})")
+    gm = torch.sort(vals.detach().double().abs(), dim=1).values
+    wm = torch.sort(vals_r.detach().double().abs(), dim=1).values
+    err = _close_on_device(gm, wm, tol, "block_topk magnitudes")
+    _close_on_device(torch.gather(x, 1, idx.long()), vals, tol, "block_topk kernel (value, index)")
+    _close_on_device(torch.gather(x, 1, idx_r.long()), vals_r, tol,
+                     "block_topk plain (value, index)")
+    return err
+
+
 def _compare(spec: KernelSpec, args, got, want) -> float:
     """Hold `got` to `want` within spec's tolerance for the dtype of the
     first floating-point argument; max abs error."""
@@ -299,3 +338,17 @@ register_kernel(KernelSpec(
     ref=R.decode_attention_ref,
     tol={"float32": _F32_TOL, "bfloat16": _BF16_TOL},
 ))
+
+register_kernel(KernelSpec(
+    name="block_topk",
+    kernel=block_topk,
+    ref=R.block_topk_ref,
+    tol={"float32": Tolerance(1e-6, 1e-6)},
+    compare=_topk_compare,
+))
+
+
+def topk_blocks(x: torch.Tensor, k: int, *, mode: str = "auto"):
+    """Registry-dispatched block-local top-|value| selection (gossip):
+    (vals (nb, k), row-local idx (nb, k) int32) of x (nb, block)."""
+    return dispatch("block_topk", x, k, mode=mode)

@@ -8,7 +8,9 @@ oracles do; ``flash_attention_bwd_ref`` is the dense counterpart of the
 blocked gradient kernels, computing in float32. The scatter runs column by
 column in k order with no atomics, so it is deterministic on the CPU and on
 the card and folds duplicate indices in the same order as the JAX oracle's
-sequential scatter.
+sequential scatter. ``block_topk_ref`` selects by a stable sort, so among
+equal magnitudes the lower index comes first, as ``jax.lax.top_k`` and the
+Pallas body's first-occurrence argmax take them.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import math
 import torch
 
 NEG_INF = -1e30
+_TOPK_CHUNK = 1 << 24  # elements per sort in block_topk_ref
 
 
 def sparse_dot_ref(psi: torch.Tensor, idx: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
@@ -141,3 +144,26 @@ def decode_attention_ref(q, k_pool, v_pool, table, lengths, window=None, softcap
     p = torch.where(m4, p, 0.0)  # a fully masked row would softmax to uniform
     o = torch.einsum("bkgt,btkd->bkgd", p, v)
     return o.reshape(B, Hq, D).to(q.dtype)
+
+
+def block_topk_ref(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row top-k by |value|: (vals (nb, k) in x.dtype, idx (nb, k) int32).
+
+    Rows are ranked by a stable descending sort of ``|x|``, so equal
+    magnitudes keep their order: the lower index first (NaN ranks above
+    every number, as in ``torch.sort``). ``torch.topk`` promises no order
+    among ties and is not used. Sorted in chunks of rows, so the sort's
+    temporaries stay small whatever nb is.
+    """
+    nb, block = x.shape
+    if not 1 <= k <= block:
+        raise ValueError(f"k={k} must be in [1, {block}]")
+    vals = torch.empty((nb, k), dtype=x.dtype, device=x.device)
+    idx = torch.empty((nb, k), dtype=torch.int32, device=x.device)
+    step = max(1, _TOPK_CHUNK // block)
+    for lo in range(0, nb, step):
+        rows = x[lo:lo + step]
+        order = torch.sort(rows.abs(), dim=1, descending=True, stable=True).indices[:, :k]
+        vals[lo:lo + step] = torch.gather(rows, 1, order)
+        idx[lo:lo + step] = order.to(torch.int32)
+    return vals, idx

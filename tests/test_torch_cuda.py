@@ -130,3 +130,34 @@ def test_cuda_flash_bwd_matches_plain(card, dtype):
         for x, y in zip(got, want):
             ops.assert_close(x, y, tol)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "ties", "constant"])
+def test_cuda_block_topk_matches_plain_bit_for_bit(card, kind):
+    """block_topk against its plain version at the gossip path's block sizes
+    (4096 with k 40, 2304 with 23, 64 and 16 with 1, k = block), bit for bit
+    in values and indices (both take the lower index first among ties), one
+    launch a call; a block past the kernel's limit is refused."""
+    from repro_torch.kernels import topk_compress
+    from repro_torch.kernels.ref import block_topk_ref
+
+    g = torch.Generator(device=card).manual_seed(2)
+    for nb, block, k in [(300, 4096, 40), (7, 2304, 23), (5, 64, 1), (3, 16, 16),
+                         (2, 4096, 4096), (2, 8192, 3)]:
+        x = torch.randn(nb, block, generator=g, device=card)
+        if kind == "ties":
+            x = torch.round(x * 2) / 2
+        elif kind == "constant":
+            x = torch.full_like(x, 1.0)
+        before = topk_compress.block_topk.launches
+        got = ops.topk_blocks(x, k, mode="on")
+        assert topk_compress.block_topk.launches == before + 1
+        want = block_topk_ref(x, k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        ops.parity_check("block_topk", x, k, mode="on")
+    with pytest.raises(ValueError, match="8192"):
+        topk_compress.block_topk(torch.zeros(1, 8193, device=card), 1)
+    with pytest.raises(TypeError, match="float32"):
+        topk_compress.block_topk(torch.zeros(1, 64, device=card, dtype=torch.float64), 1)
+    torch.cuda.synchronize()

@@ -18,7 +18,9 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 assert len(mods) >= 15, mods
 new = {"repro_torch.data.sharded_loader", "repro_torch.optim.adam", "repro_torch.train.step",
-       "repro_torch.ckpt.checkpoint", "repro_torch.launch.train"}
+       "repro_torch.ckpt.checkpoint", "repro_torch.launch.train", "repro_torch.core.gossip",
+       "repro_torch.kernels.topk_compress", "repro_torch.ft.elastic",
+       "repro_torch.configs.gemma2_2b", "repro_torch.examples.train_lm_gossip"}
 assert new <= set(mods), sorted(new - set(mods))
 print("ok", len(mods))
 """

@@ -95,8 +95,9 @@ def test_registry_names_every_arch_and_ports_only_minitron():
     from repro.configs import ALIASES, ARCH_IDS
 
     assert C.ARCH_IDS == ARCH_IDS and C.ALIASES == ALIASES
+    assert C.PORTED == ("minitron_8b", "gemma2_2b")
     for arch in ARCH_IDS:
-        if arch == "minitron_8b":
+        if arch in C.PORTED:
             continue
         with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
             C.get_config(arch)
