@@ -9,8 +9,9 @@ printed with its seconds:
 
 1. device  -- ``nvidia-smi`` name and power limit, torch's device name/count.
 2. build   -- compiles ``src/repro_torch/kernels/csrc/*.cu`` (first use);
-   logs ptxas' registers and spills of the head_dim 256 flash kernels and
-   of block_topk, and the flash kernels' dynamic shared memory at 256.
+   logs ptxas' registers and spills of the head_dim 256 flash kernels, of
+   block_topk and of the ssd kernels at (hd, ds) = (64, 128), and the
+   flash kernels' dynamic shared memory at 256.
 3. kernels -- every kernel of the main path against its plain PyTorch
    version on the card, at the main path's shapes (rcv1 preset: N=10,
    D=47,236, k=74 for a step; D=47,239, k=7,400 for init_state's phibar
@@ -118,6 +119,39 @@ printed with its seconds:
    (tiny, 4 pods, topk, a pod killed at step 5, 12 steps, checkpoints every
    4) on the card: the pods shrink to 3, the loss is finite, and a run
    resumed from step 8's checkpoint ends bit-equal.
+   The gossip phase also runs the same 6 steps with compression "none"
+   and logs their consensus distance (reported, not gated).
+15. ssd -- ssd_chunk forward and backward against their plain versions in
+   float64 on the same float32 inputs (registry bars 2e-5; 2e-4 elementwise
+   and in relative norm), at the score (1, 8, 256, 64, 64, 128), train
+   (4, 8, ...) and prefill (1, 1, ...) shapes (B, nc, Q, nh, hd, ds), ragged
+   Q (1, 5, 37) and nh (3, 6), and fast decay (a_log in [-8, -6]: every
+   output and gradient finite); relative Frobenius errors logged; at unit
+   scale the kernel's and the float32 plain version's misses are reported.
+16. ssm serve -- mamba2-1.3b at full width and depth (48 layers, d 2048,
+   d_inner 4096, 64 heads of 64, state 128, vocab 50,280; random bf16
+   weights from seed 0) behind ``serve.Scheduler`` with the serve phase's
+   pool and 24 requests. Checks: token counts; no page ever allocated; the
+   state pool never reallocated; ssd_chunk launches = prefills x 48 and none
+   in decode; every ssd call of the first step's prefills held to the plain
+   version; a padded prefill's state equals a prefill of exactly valid_len
+   tokens (float32 compute, every layer, the f32 bar); request 0's first
+   decode-step logits paged vs the contiguous ``generate`` within the bf16
+   bar in relative norm. Reports decode ms, tokens/s, a replayed decode
+   step's wall vs device busy, idle share and launches.
+17. ssm score -- ``forward`` at B=1, S=2048: 48 ssd_chunk launches, each
+   held to the plain version; finite logits; ssm_kernel "on" vs "off"
+   within 2e-2 in relative norm.
+18. ssm train -- mamba2-1.3b at full width and depth, B=4, S=2048 from
+   ``batch_at``, AdamW at the launcher's defaults, remat "full", 5 steps:
+   step 0 holds every ssd forward (96) and backward (48) call to the plain
+   version; steps 1-4 timed, peak memory; launches asserted every step (96
+   forward, 3 x 48 backward); one ``local_grads`` "on" vs "off" (loss within
+   1e-3 relative, every gradient leaf within 5e-2 in relative norm). Then,
+   in a fresh process (``chip_smoke.py --ssm-profile``; late in this one
+   torch.profiler has dropped kernel events), the SSD kernels are timed at
+   the train shape (events and profiler, beside the bound and the plain
+   version) and a train step is profiled (device busy, idle share).
 Before phase 9, flash_attention_bwd is held to its plain version at the
 train shape and at ragged small shapes (every head dim, GQA, MQA, window,
 softcap), bf16 and f32 (bars 5e-2, 2e-4), and timed beside its bound, the
@@ -167,12 +201,13 @@ from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     attention_ref, block_topk_ref, decode_attention_ref, flash_attention_bwd_ref,
-    sparse_axpy_ref, sparse_dot_ref,
+    sparse_axpy_ref, sparse_dot_ref, ssd_chunk_bwd_ref, ssd_chunk_ref,
 )
 from repro_torch.kernels.sparse_saga import sparse_axpy, sparse_dot  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_chunk_bwd, ssd_chunk_fwd  # noqa: E402
 from repro_torch.kernels.topk_compress import block_topk  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
-from repro_torch.models.params import tree_leaves, tree_num_params  # noqa: E402
+from repro_torch.models.params import tree_leaves, tree_map, tree_num_params  # noqa: E402
 from repro_torch.optim.adam import AdamConfig  # noqa: E402
 from repro_torch.serve import PoolConfig, Request, Scheduler, generate  # noqa: E402
 from repro_torch.train.step import TrainConfig, init_train_state, local_grads, train_step  # noqa: E402
@@ -189,6 +224,8 @@ SOURCES = {
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
     "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
     "block_topk": "src/repro_torch/kernels/csrc/topk_compress.cu",
+    "ssd_chunk": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+    "ssd_chunk_bwd": "src/repro_torch/kernels/csrc/ssd_scan.cu",
 }
 REPLACES = {
     "sparse_dot": "src/repro/kernels/sparse_saga.py:56",
@@ -197,10 +234,13 @@ REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:116",
     "flash_attention_bwd": "src/repro/kernels/flash_attention.py:314",
     "block_topk": "src/repro/kernels/topk_compress.py:37",
+    "ssd_chunk": "src/repro/kernels/ssd_scan.py:72",
+    "ssd_chunk_bwd": "src/repro/kernels/ssd_scan.py:177",
 }
 WRAPPERS = {"sparse_dot": sparse_dot, "sparse_axpy": sparse_axpy,
             "flash_attention": flash_attention, "decode_attention": decode_attention,
-            "flash_attention_bwd": flash_attention_bwd, "block_topk": block_topk}
+            "flash_attention_bwd": flash_attention_bwd, "block_topk": block_topk,
+            "ssd_chunk": ssd_chunk_fwd, "ssd_chunk_bwd": ssd_chunk_bwd}
 DENSE_TOL_CPU = 1e-10  # card vs CPU: cuBLAS mixing-product summation order
 SPARSE_TOL = 1e-12  # relay vs dense (tests/test_sparse_comm.py's bar)
 
@@ -1465,7 +1505,33 @@ def gossip_phase(device) -> tuple[dict, dict]:
     }
     log("gossip", json.dumps(summary))
     del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["reported_consensus_without_compression"] = uncompressed_consensus(device, ld)
     return summary, total
+
+
+def uncompressed_consensus(device, ld) -> list[float]:
+    """The consensus distance of the same GOSSIP_STEPS steps with
+    compression "none" (reported, not gated): the compressed run's growth
+    comes from its cold CHOCO reconstructions, which start at zero while
+    the params sit at a nonzero consensus (the reference's init, kept for
+    parity), not from replicas drifting on their own data."""
+    cfg, tc, gcfg = gossip_setup()
+    gcfg = dataclasses.replace(gcfg, compression="none")
+    state = init_gossip_state(cfg, tc, gcfg, 0, device)
+    step_fn = make_gossip_train_step(None, cfg, tc, gcfg)
+    dist = []
+    for i in range(GOSSIP_STEPS):
+        b = {k: np.asarray(v).reshape(gcfg.n_pods, 1, GOSSIP_S)
+             for k, v in batch_at(ld, i).items()}
+        state, _ = step_fn(state, b)
+        dist.append(float(consensus_distance(state["params"])))
+    log("gossip", f"compression none, reported: consensus distance {dist}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dist
 
 
 def gossip_launcher_phase() -> dict:
@@ -1498,6 +1564,495 @@ def gossip_launcher_phase() -> dict:
                    "losses": losses}
     log("gossip-example", json.dumps(summary))
     return summary
+
+# ---------------------------------------------------------------------------
+# phases 15-18: the ssm family (mamba2-1.3b; ssd_chunk forward and backward)
+# ---------------------------------------------------------------------------
+
+# (B, nc, Q, nh, hd, ds) of the ssd calls on the main paths: the score phase
+# (B=1, S=2048), the train step (B=4, S=2048) and a serve prefill (S=256)
+SSD_MAIN = {"score": (1, 8, 256, 64, 64, 128), "train": (4, 8, 256, 64, 64, 128),
+            "prefill": (1, 1, 256, 64, 64, 128)}
+# ragged: Q of 1, 5 and 37, nh of 3 and 6; the reduced models' widths
+SSD_RAGGED = [(1, 1, 1, 3, 64, 128), (2, 1, 5, 6, 64, 128), (1, 2, 37, 3, 64, 128),
+              (1, 3, 37, 6, 16, 16)]
+# inputs at the model's scale: xdt, B and C are conv + silu outputs (std ~0.5
+# at init); at unit scale and Q = 256 even the float32 plain version misses
+# the 2e-5 bar against float64 on some elements (reported, not gated)
+SSD_SCALE = 0.5
+SSD_BAR = ops.get_kernel("ssd_chunk").tolerance(torch.float32)
+SSD_GRAD_BAR = ops.get_kernel("ssd_chunk_bwd").tolerance(torch.float32)
+SSM_TRAIN_B, SSM_TRAIN_S, SSM_TRAIN_STEPS = 4, 2048, 5
+
+
+def ssd_inputs(shape, device, seed=0, scale=SSD_SCALE, decay=(0.01, 0.2)):
+    """Seeded ((xdt, cum, Bc, Cc), (dy, dst)) float32 on `device`; cum is
+    the inclusive cumsum of -uniform(decay) log-decays within each chunk."""
+    B, nc, Q, nh, hd, ds = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*size):
+        return torch.randn(*size, generator=g, device=device) * scale
+
+    lo, hi = decay
+    cum = -torch.cumsum(torch.rand(B, nc, Q, nh, generator=g, device=device) * (hi - lo) + lo,
+                        dim=2)
+    return ((rnd(B, nc, Q, nh, hd), cum.contiguous(), rnd(B, nc, Q, ds), rnd(B, nc, Q, ds)),
+            (rnd(B, nc, Q, nh, hd), rnd(B, nc, nh, ds, hd)))
+
+
+def _outside_bar(got, want, tol) -> int:
+    """Elements of got farther from want than atol + rtol |want|."""
+    w = want.double()
+    return int(((got.double() - w).abs() > tol.atol + tol.rtol * w.abs()).sum())
+
+
+def ssd_parity(device) -> dict[str, float]:
+    """ssd_chunk forward and backward against their plain versions in
+    float64 on the same float32 inputs (the registry does the upcast), at
+    the main paths' shapes, ragged shapes and under fast decay (a_log in
+    [-8, -6]: every output and gradient finite); the relative Frobenius
+    errors are logged. Returns the train shape's max abs errors."""
+    worst = {}
+    cases = [(name, shape, (0.01, 0.2)) for name, shape in SSD_MAIN.items()]
+    cases += [(f"ragged {shape}", shape, (0.01, 0.5)) for shape in SSD_RAGGED]
+    cases.append(("fast decay", (1, 2, 256, 64, 64, 128), (6.0, 8.0)))
+    for i, (name, shape, decay) in enumerate(cases):
+        args, cts = ssd_inputs(shape, device, seed=40 + i, decay=decay)
+        e_f = ops.parity_check("ssd_chunk", *args, mode="on")
+        e_b = ops.parity_check("ssd_chunk_bwd", *args, *cts, mode="on")
+        out = ssd_chunk_fwd(*args) + ssd_chunk_bwd(*args, *cts)
+        torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(t).all()) for t in out):
+            raise AssertionError(f"ssd {name}: non-finite outputs or gradients")
+        with torch.no_grad():
+            want = (ssd_chunk_ref(*(a.double() for a in args))
+                    + ssd_chunk_bwd_ref(*(a.double() for a in args + cts)))
+        rel = [ops.rel_err(g, w) for g, w in zip(out, want)]
+        del want
+        log("ssd", f"{name} {shape}: forward max_abs_err={e_f!r} backward max_abs_err={e_b!r} "
+            f"rel_norm (y, states, dxdt, dcum, dB, dC)={rel}")
+        if name == "train":
+            worst = {"ssd_chunk": e_f, "ssd_chunk_bwd": e_b}
+    # unit-scale inputs at the train shape (reported): the kernel and the
+    # float32 plain version against float64, elements outside the bars
+    args, cts = ssd_inputs(SSD_MAIN["train"], device, seed=7, scale=1.0)
+    with torch.no_grad():
+        want = ssd_chunk_ref(*(a.double() for a in args))
+        got, plain32 = ssd_chunk_fwd(*args), ssd_chunk_ref(*args)
+        unit = {"kernel_outside_bar": [_outside_bar(g, w, SSD_BAR) for g, w in zip(got, want)],
+                "plain_f32_outside_bar": [_outside_bar(g, w, SSD_BAR)
+                                          for g, w in zip(plain32, want)],
+                "kernel_max_abs_err": [(g.double() - w).abs().max().item()
+                                       for g, w in zip(got, want)],
+                "plain_f32_max_abs_err": [(g.double() - w).abs().max().item()
+                                          for g, w in zip(plain32, want)],
+                "kernel_equals_plain_f32_bitwise": [torch.equal(g, p)
+                                                    for g, p in zip(got, plain32)],
+                "elements": [w.numel() for w in want]}
+    del want, got, plain32
+    log("ssd", f"unit-scale inputs at the train shape, forward (reported): {json.dumps(unit)}")
+    return worst
+
+
+def ssd_bounds(shape) -> dict[str, tuple[float, str]]:
+    """The least time (ms) the card could take for one forward and one
+    backward call at `shape`, float32 on CUDA cores. Operations counted for
+    the causal pairs i >= j that the function needs: the scores (2 ds a
+    pair), per head 2 hd a pair for y (forward) and for dM and dxdt
+    (backward), 2 Q ds hd for the chunk state (forward) and for each of its
+    two gradient terms (backward), and dscores -> dB, dC (4 ds a pair).
+    Bytes: each input read once, each output written once."""
+    B, nc, Q, nh, hd, ds = shape
+    bc, pairs = B * nc, Q * (Q + 1) // 2
+    fwd_ops = bc * (pairs * 2 * ds + nh * (pairs * 2 * hd + 2 * Q * ds * hd))
+    bwd_ops = bc * (3 * pairs * 2 * ds + nh * (2 * pairs * 2 * hd + 2 * 2 * Q * ds * hd))
+    x, c, bcd, st = bc * Q * nh * hd, bc * Q * nh, bc * Q * ds, bc * nh * ds * hd
+    fwd_bytes = 4 * (x + c + 2 * bcd + x + st)
+    bwd_bytes = 4 * (x + c + 2 * bcd + x + st + x + c + 2 * bcd)
+    return {"ssd_chunk": bound(fwd_bytes, fwd_ops, torch.float32),
+            "ssd_chunk_bwd": bound(bwd_bytes, bwd_ops, torch.float32)}
+
+
+def time_ssd(device) -> dict[str, dict]:
+    """Both SSD kernels at the train shape: CUDA events, profiler device
+    time, the plain version (float32, on the card) and the bound. No single
+    PyTorch call computes them: library "none"."""
+    shape = SSD_MAIN["train"]
+    args, cts = ssd_inputs(shape, device)
+    bounds = ssd_bounds(shape)
+    fwd = lambda: ssd_chunk_fwd(*args)  # noqa: E731
+    bwd = lambda: ssd_chunk_bwd(*args, *cts)  # noqa: E731
+    out = {
+        "ssd_chunk": {
+            "ms": cuda_ms(fwd, iters=20, warmup=3),
+            "device_ms": kernel_device_ms(fwd, ("ssd_fwd_kernel",), iters=5),
+            "plain_ms": cuda_ms(lambda: ssd_chunk_ref(*args), iters=5, warmup=1),
+            "bound_ms": bounds["ssd_chunk"][0], "bound_by": bounds["ssd_chunk"][1],
+            "library_ms": None},
+        "ssd_chunk_bwd": {
+            "ms": cuda_ms(bwd, iters=10, warmup=2),
+            "device_ms": kernel_device_ms(bwd, ("ssd_bwd_rows_kernel", "ssd_bwd_cols_kernel",
+                                                "ssd_bwd_finish_kernel"), iters=5),
+            "plain_ms": cuda_ms(lambda: ssd_chunk_bwd_ref(*args, *cts), iters=3, warmup=1),
+            "bound_ms": bounds["ssd_chunk_bwd"][0], "bound_by": bounds["ssd_chunk_bwd"][1],
+            "library_ms": None},
+    }
+    split = {n: kernel_device_ms(bwd, (n,), iters=5)
+             for n in ("ssd_bwd_rows_kernel", "ssd_bwd_cols_kernel", "ssd_bwd_finish_kernel")}
+    log("ssd", f"train shape {shape}: {json.dumps(out)}; backward device ms by kernel "
+        f"{json.dumps(split)}")
+    return out
+
+
+def ssm_config():
+    """mamba2-1.3b at full width and depth (48 layers, d 2048, d_inner 4096,
+    64 heads of 64, state 128, vocab 50,280), kernels on."""
+    return dataclasses.replace(get_config("mamba2-1.3b"), ssm_kernel="on")
+
+
+def ssm_serve_phase(device, cfg, params) -> tuple[dict, dict]:
+    """The Scheduler at full width and depth with mamba2-1.3b's random init.
+
+    Hard checks: every request ends with its token count; no page is ever
+    allocated; the state pool is never reallocated; ssd_chunk launches =
+    prefills x 48 and none in decode; every ssd call of the first step's
+    prefills held to the plain version; the slot state of a padded prefill
+    equals a prefill of exactly valid_len tokens (float32 compute: the f32
+    bar, every layer); request 0's first decode-step logits, paged against
+    the contiguous ``generate``, within the bf16 bar in relative norm.
+    Returns (summary, launches)."""
+    sch = Scheduler(cfg, params, SERVE_POOL, device=device)
+    ptrs = sch.pool.data_ptrs()
+    reqs = serve_requests(cfg)
+    for r in reqs:
+        sch.submit(r)
+    inner = sch.decode_fn
+    decode_ssd, pages, first, busiest = [], [], {}, {}
+
+    def decode_fn(params_, tokens, pools, table, lengths):
+        if not decode_ssd:  # request 0's slot state right after its padded prefill
+            slot = next(sl for sl, st in sch.active.items() if st.req.rid == 0)
+            first["state"] = pools["state"][:, slot].clone()
+        before = ssd_chunk_fwd.launches
+        out = inner(params_, tokens, pools, table, lengths)
+        decode_ssd.append(ssd_chunk_fwd.launches - before)
+        pages.append(sch.pool.used_page_count)
+        live = len(sch.active)
+        if live > busiest.get("live", -1):
+            busiest.update(live=live, tokens=tokens.clone(), table=table.clone(),
+                           lengths=lengths.clone())
+        for slot, st in sch.active.items():
+            if st.req.rid == 0 and len(st.generated) == 1:
+                first["logits"] = out[1][slot].float().clone()
+        return out
+
+    sch.decode_fn = decode_fn
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ops.held_to_plain("ssd_chunk") as held:
+        sch.step()  # admits the first max_batch requests
+    held_prefills = sch.stats.steps[0].admitted
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    results, stats = sch.run()
+    torch.cuda.synchronize()
+    wall, wall_unheld = time.perf_counter() - t0, time.perf_counter() - t1
+    got = launches()
+    prefills = sum(st.admitted for st in stats.steps)
+    want = {**dict.fromkeys(WRAPPERS, 0), "ssd_chunk": prefills * cfg.n_layers}
+    if got != want or any(decode_ssd):
+        raise AssertionError(f"ssm serve launches {got} != {want} (decode {set(decode_ssd)})")
+    if len(held) != held_prefills * cfg.n_layers or held_prefills == 0:
+        raise AssertionError(f"{len(held)} ssd calls held for {held_prefills} prefills")
+    for r in reqs:
+        toks = results[r.rid]
+        if toks.shape != (r.max_new_tokens,) or not np.all((0 <= toks) & (toks < cfg.vocab_size)):
+            raise AssertionError(f"ssm request {r.rid}: tokens {toks.shape}")
+    if max(pages) != 0 or stats.peak_occupancy != 0.0 or sch.pool.used_page_count != 0:
+        raise AssertionError(f"ssm serve allocated pages: {max(pages)}")
+    if sch.pool.data_ptrs() != ptrs:
+        raise AssertionError("the ssm state pool was reallocated")
+
+    r0 = reqs[0]
+    plen = len(r0.tokens)
+    prompt = torch.as_tensor(r0.tokens, device=device)[None]
+    padded = torch.zeros((1, SERVE_POOL.prompt_pad), dtype=torch.long, device=device)
+    padded[0, :plen] = prompt[0]
+    # the padded prefill's state against a prefill of exactly plen tokens:
+    # float32 compute (the f32 bar, every layer), and the served bf16 one
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    vl = torch.tensor([plen], dtype=torch.int32, device=device)
+    c_pad, _ = T.prefill(cfg32, params, padded, T.init_cache(cfg32, 1, 256, device),
+                         valid_len=vl)
+    c_ex, _ = T.prefill(cfg32, params, prompt, T.init_cache(cfg32, 1, plen, device))
+    state_f32 = {k: [ops.assert_close(c_pad[k][i], c_ex[k][i], SSD_BAR)
+                     for i in range(cfg.n_layers)] for k in ("state", "conv")}
+    del c_pad
+    c_bf, _ = T.prefill(cfg, params, prompt, T.init_cache(cfg, 1, plen, device))
+    pooled_rel = [ops.rel_err(first["state"][i], c_bf["state"][i, 0])
+                  for i in range(cfg.n_layers)]
+    del c_bf, c_ex
+    gen = generate(cfg, params, prompt, max_new_tokens=1)
+    paged_rel = ops.rel_err(first["logits"], gen.logits[1][0])
+    if paged_rel > BF16_BAR:  # whole-model bf16 logits: the bar in relative norm
+        raise AssertionError(f"request 0: paged vs contiguous logits, relative {paged_rel}")
+
+    # a decode step at the busiest state, replayed (the run is over: its
+    # state writes land in finished slots)
+    args = (params, busiest["tokens"], sch.pool.pools, busiest["table"], busiest["lengths"])
+    step = lambda: T.decode_step_paged(cfg, *args)  # noqa: E731
+    step()
+    torch.cuda.synchronize()
+    n = 10
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    step_wall = (time.perf_counter() - t0) * 1e3 / n
+    busy_us, kern = device_profile(step, n)
+    step_busy = busy_us / 1e3 / n
+    weight_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params)
+                       if t.dtype == cfg.compute_dtype)
+    state_bytes = sum(t.numel() * t.element_size() for t in sch.pool.pools.values())
+    n_tokens = int(sum(len(v) for v in results.values()))
+    summary = {
+        "requests": len(reqs), "tokens": n_tokens, "prefills": prefills,
+        "decode_steps": stats.decode_steps, "preemptions": stats.preemptions,
+        "peak_active": stats.peak_active, "pages_allocated_max": max(pages),
+        "state_pool_gb": state_bytes / 1e9,
+        "wall_s": wall, "tokens_per_s": n_tokens / wall,
+        "decode_ms_per_step_incl_admission": wall * 1e3 / stats.decode_steps,
+        # after the held first step (its plain float64 checks are not serving)
+        "wall_s_after_step0": wall_unheld,
+        "tokens_per_s_after_step0": (n_tokens - stats.steps[0].tokens_generated
+                                     - held_prefills) / wall_unheld,
+        "held_prefills": held_prefills, "ssd_vs_plain_max_abs": max(held),
+        "ssd_vs_plain_rel_norm_max": max(held.rel),
+        "padded_vs_exact_f32_state_max_abs": max(state_f32["state"]),
+        "padded_vs_exact_f32_conv_max_abs": max(state_f32["conv"]),
+        "reported_pooled_vs_exact_bf16_state_rel_per_layer": pooled_rel,
+        "paged_vs_contiguous_logits_rel": paged_rel,
+        "paged_vs_contiguous_logits_max_abs": (first["logits"] - gen.logits[1][0]).abs().max().item(),
+        "reported_paged_vs_contiguous_same_first_token": int(gen.tokens[0, 0]) == int(results[0][0]),
+        "busiest_live_slots": busiest["live"],
+        "decode_step_wall_ms": step_wall, "decode_step_device_ms": step_busy,
+        "decode_step_idle_share": 1.0 - step_busy / step_wall,
+        "decode_step_launches": sum(c for _, c in kern.values()) / n,
+        "weight_bytes_read_per_step": weight_bytes,
+        "decode_step_bound_ms": (weight_bytes + 2 * state_bytes) / HBM_BYTES_PER_S * 1e3,
+        "top_kernels_us_per_step": top_by_prefix({k: t / n for k, (t, _) in kern.items()}, 6),
+    }
+    log("ssm-serve", json.dumps(summary))
+    return summary, got
+
+
+def ssm_score_phase(device, cfg, params, s=2048) -> tuple[dict, dict]:
+    """forward() at full width and depth, B=1, S=2048: 48 ssd_chunk
+    launches, each held to the plain version on its own inputs; finite
+    logits; ssm_kernel "on" vs "off" logits within 2e-2 in relative norm."""
+    tokens = score_tokens(cfg, device, s)
+    cfg_off = dataclasses.replace(cfg, ssm_kernel="off")
+    T.forward(cfg, params, tokens[:, :256])  # warm-up (cuBLAS plans)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on = T.forward(cfg, params, tokens)
+    torch.cuda.synchronize()
+    t_on = time.perf_counter() - t0
+    got = launches()
+    if got != {**dict.fromkeys(WRAPPERS, 0), "ssd_chunk": cfg.n_layers}:
+        raise AssertionError(f"ssm score launches {got}: want {cfg.n_layers} ssd_chunk")
+    if on.shape != (1, s, cfg.vocab_size) or not torch.isfinite(on).all():
+        raise AssertionError(f"ssm score logits {tuple(on.shape)} not finite")
+    with ops.held_to_plain("ssd_chunk") as held:
+        T.forward(cfg, params, tokens)
+    if len(held) != cfg.n_layers:
+        raise AssertionError(f"{len(held)} ssd calls held to the plain version")
+    t0 = time.perf_counter()
+    off = T.forward(cfg_off, params, tokens)
+    torch.cuda.synchronize()
+    t_off = time.perf_counter() - t0
+    rel = ops.rel_err(on, off)
+    out = {"B": 1, "S": s, "seconds_on": t_on, "seconds_off": t_off,
+           "tokens_per_s_on": s / t_on, "ssd_vs_plain_per_layer_max_abs": list(held),
+           "ssd_vs_plain_per_layer_rel_norm": held.rel,
+           "on_vs_off_logits_rel_norm": rel,
+           "on_vs_off_logits_max_abs": (on - off).abs().max().item(),
+           "on_vs_off_logits_bitwise_equal": torch.equal(on, off),
+           "logits_abs_max": off.abs().max().item()}
+    log("ssm-score", json.dumps(out))
+    if rel > BF16_BAR:
+        raise AssertionError(f"ssm score on vs off: relative {rel}")
+    return out, got
+
+
+def ssm_train_setup():
+    """(cfg, TrainConfig, LoaderConfig) of the ssm train phase: mamba2-1.3b
+    at full width and depth, remat "full", AdamW at the launcher's defaults,
+    B=4 and S=2048 from batch_at."""
+    cfg = ssm_config()
+    return (cfg, TrainConfig(optimizer=AdamConfig()),
+            LoaderConfig(cfg.vocab_size, SSM_TRAIN_B, SSM_TRAIN_S, seed=0))
+
+
+def expected_ssm_train_launches(cfg) -> dict[str, int]:
+    """One ssm train step with remat 'full': the forward kernel twice a
+    layer (forward, recompute), the backward's three kernels once a layer."""
+    return {**dict.fromkeys(WRAPPERS, 0), "ssd_chunk": 2 * cfg.n_layers,
+            "ssd_chunk_bwd": 3 * cfg.n_layers}
+
+
+def ssm_train_phase(device) -> tuple[dict, dict]:
+    """SSM_TRAIN_STEPS steps of mamba2-1.3b at full width and depth.
+
+    Step 0 holds every ssd forward and backward call to the plain version
+    (float32 bars; gradients also in relative norm, their size logged);
+    steps 1-4 are timed (wall, peak memory) with launches asserted each
+    step; the device time is profiled in a fresh process (``ssm_profile``).
+    Then one local_grads "on" against "off". Returns (summary, launches
+    over every step)."""
+    cfg, tc, ld = ssm_train_setup()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, tc, 0, device)
+    torch.cuda.synchronize()
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in tree_leaves({"p": state["params"], "o": state["opt"]})) / 1e9
+    log("ssm-train", f"{cfg.name} x{cfg.n_layers} layers, {cfg.param_count()} params "
+        f"({tree_num_params(T.model_defs(cfg))} in the tree), train state (params, mu, nu) "
+        f"{state_gb:.2f} GB, drawn in {time.perf_counter() - t0:.1f} s")
+    want = expected_ssm_train_launches(cfg)
+    total = dict.fromkeys(WRAPPERS, 0)
+    losses, gnorms, walls = [], [], []
+
+    def one_step(i):
+        nonlocal state
+        before = launches()
+        state, m = train_step(cfg, tc, state, batch_at(ld, i))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        got = {n: c - before[n] for n, c in launches().items()}
+        if got != want:
+            raise AssertionError(f"ssm train step {i}: launches {got} != {want}")
+        for n, c in got.items():
+            total[n] += c
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with ops.held_to_plain("ssd_chunk") as fwd, ops.held_to_plain("ssd_chunk_bwd") as bwd:
+        one_step(0)
+    torch.cuda.synchronize()
+    t_held = time.perf_counter() - t0
+    if len(fwd) != 2 * cfg.n_layers or len(bwd) != cfg.n_layers:
+        raise AssertionError(f"step 0 held {len(fwd)} forward and {len(bwd)} backward calls")
+    peak_step0 = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(1, SSM_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step(i)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"ssm train losses {losses} grad norms {gnorms}")
+    wall_ms = float(np.median(walls)) * 1e3
+    summary = {
+        "layers": cfg.n_layers, "B": SSM_TRAIN_B, "S": SSM_TRAIN_S,
+        "tokens_per_step": SSM_TRAIN_B * SSM_TRAIN_S, "train_state_gb": state_gb,
+        "losses": losses, "grad_norms": gnorms, "step0_s_held_to_plain": t_held,
+        "step0_ssd_fwd_vs_plain_max_abs": max(fwd), "step0_ssd_fwd_rel_norm_max": max(fwd.rel),
+        "step0_ssd_bwd_vs_plain_max_abs": list(bwd), "step0_ssd_bwd_rel_norm": bwd.rel,
+        "step0_ssd_bwd_plain_max_abs_grad": bwd.scale,
+        "step_wall_ms": [w * 1e3 for w in walls], "step_wall_ms_median": wall_ms,
+        "tokens_per_s": SSM_TRAIN_B * SSM_TRAIN_S / (wall_ms / 1e3),
+        "port_kernel_launches_per_step": {k: c for k, c in want.items() if c},
+        "peak_gb_steps_1_4": peak / 1e9, "peak_gb_step0_held": peak_step0 / 1e9,
+    }
+    log("ssm-train", json.dumps(summary))
+
+    # one local_grads, ssm_kernel "on" against "off", on the trained params
+    del state["opt"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = batch_at(ld, 0)
+    l_on, g_on = local_grads(cfg, tc, state["params"], batch)
+    l_off, g_off = local_grads(dataclasses.replace(cfg, ssm_kernel="off"), tc, state["params"],
+                               batch)
+    loss_rel = abs(float(l_on) - float(l_off)) / abs(float(l_off))
+    rel = tree_map(lambda _, a, b: ops.rel_err(a, b), g_on, g_off)  # laid out as the params
+    worst = max(tree_leaves(rel))
+    on_off = {"loss_on": float(l_on), "loss_off": float(l_off), "loss_rel": loss_rel,
+              "grad_rel_norm_max": worst, "grad_rel_norm": rel}
+    log("ssm-train", f"on vs off: {json.dumps(on_off)}")
+    if loss_rel > 1e-3 or worst > GRAD_BAR:
+        raise AssertionError(f"ssm train on vs off: loss {loss_rel}, gradients {rel}")
+    summary["on_vs_off"] = {k: v for k, v in on_off.items() if k != "grad_rel_norm"}
+    del state, g_on, g_off
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary, total
+
+
+def ssm_profile(device) -> dict:
+    """Run in a fresh process (``chip_smoke.py --ssm-profile``; late in the
+    main process torch.profiler has dropped kernel events): the SSD kernels'
+    times at the train shape, then the ssm train step: 2 steps warm, 2 timed
+    without the profiler, 1 profiled (device busy, idle share, launches,
+    top kernels)."""
+    times = time_ssd(device)
+    cfg, tc, ld = ssm_train_setup()
+    state = init_train_state(cfg, tc, 0, device)
+
+    def one(i):
+        nonlocal state
+        state, _ = train_step(cfg, tc, state, batch_at(ld, i))
+
+    for i in range(2):
+        one(i)
+    walls = []
+    for i in range(2, 4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one(i)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    busy_us, kern = device_profile(lambda: one(4), 1)
+    wall_ms = float(np.median(walls)) * 1e3
+    names = ("ssd_fwd_kernel", "ssd_bwd_rows_kernel", "ssd_bwd_cols_kernel",
+             "ssd_bwd_finish_kernel")
+    ssd_us = {n: sum(t for k, (t, _) in kern.items() if n in k) for n in names}
+    ssd_n = {n: sum(c for k, (_, c) in kern.items() if n in k) for n in names}
+    train = {"step_wall_ms": [w * 1e3 for w in walls], "step_wall_ms_median": wall_ms,
+             "step_device_busy_ms": busy_us / 1e3, "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+             "kernel_launches_per_step_profiled": sum(c for _, c in kern.values()),
+             "profiled_ssd_launches": ssd_n,
+             "ssd_device_ms": {k: v / 1e3 for k, v in ssd_us.items()},
+             "top_kernels_us_per_step": top_by_prefix({k: t for k, (t, _) in kern.items()}, 10)}
+    return {"ssd": times, "train": train}
+
+
+def ssm_profile_subprocess() -> dict:
+    """``ssm_profile`` in a fresh process on the same card; its JSON result."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--ssm-profile"], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=900)
+    log("ssm-profile", f"rc={r.returncode} in {time.perf_counter() - t0:.1f} s\n"
+        f"{r.stdout.strip()}")
+    if r.returncode != 0:
+        raise AssertionError(f"ssm profile failed:\n{r.stderr[-4000:]}")
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    n = ssm_config().n_layers
+    want = {"ssd_fwd_kernel": 2 * n, "ssd_bwd_rows_kernel": n, "ssd_bwd_cols_kernel": n,
+            "ssd_bwd_finish_kernel": n}
+    if res["train"]["profiled_ssd_launches"] != want:  # the device times would be short
+        log("ssm-profile", f"the profile recorded {res['train']['profiled_ssd_launches']} ssd "
+            f"kernel events, the step launched {want}")
+    return res
 
 
 def ptxas_report(outputs) -> dict:
@@ -1597,8 +2152,10 @@ def main() -> int:
     log("build", f"{sorted(built)} built, {len(_build.SIGNATURES)} loaded in "
         f"{time.perf_counter() - t0:.1f} s")
     ptxas = ptxas_report(built)
-    log("build", "ptxas (head_dim 256 flash kernels, block_topk): " + json.dumps(
-        {k: v for k, v in ptxas.items() if k.endswith(",256>") or k.startswith("block_topk")}))
+    log("build", "ptxas (head_dim 256 flash kernels, block_topk, the ssd kernels at mamba2's "
+        "hd 64 and ds 128): " + json.dumps(
+            {k: v for k, v in ptxas.items()
+             if k.endswith(",256>") or k.startswith("block_topk") or k.endswith("<64,128>")}))
     log("build", f"dynamic shared memory at head_dim 256, bytes: {json.dumps(flash_smem_bytes(256))}")
 
     t0 = time.perf_counter()
@@ -1686,6 +2243,38 @@ def main() -> int:
     gossip_launcher_phase()
     log("gossip-example", f"done in {time.perf_counter() - t0:.1f} s")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    errs.update(ssd_parity(dev))
+    log("ssd", f"done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    scfg = ssm_config()
+    sparams = T.init_params(scfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(sparams))
+    log("ssm-model", f"{scfg.name}: {scfg.n_layers} layers, d_model {scfg.d_model}, "
+        f"{scfg.ssm_heads} heads of {scfg.ssm_head_dim}, state {scfg.ssm_state}, "
+        f"{tree_num_params(T.model_defs(scfg))} params, {nbytes / 1e9:.2f} GB on the card, "
+        f"drawn in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _, ssm_serve_launches = ssm_serve_phase(dev, scfg, sparams)
+    log("ssm-serve", f"launches {ssm_serve_launches}; done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _, ssm_score_launches = ssm_score_phase(dev, scfg, sparams)
+    log("ssm-score", f"launches {ssm_score_launches}; done in {time.perf_counter() - t0:.1f} s")
+    del sparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _, ssm_train_launches = ssm_train_phase(dev)
+    log("ssm-train", f"launches {ssm_train_launches}; done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    prof = ssm_profile_subprocess()
+    times.update(prof["ssd"])
+    log("ssm-profile", f"done in {time.perf_counter() - t0:.1f} s")
+
     total["decode_attention"] = serve_launches["decode_attention"]
     # flash_attention runs on three main paths: the score phase, the train
     # steps and the gossip steps; its backward on the last two
@@ -1695,12 +2284,17 @@ def main() -> int:
     total["flash_attention_bwd"] = (train_launches["flash_attention_bwd"]
                                     + gossip_launches["flash_attention_bwd"])
     total["block_topk"] = gossip_launches["block_topk"]
+    # ssd_chunk runs on three main paths: the ssm serve prefills, the ssm
+    # score phase and the ssm train steps; its backward on the last
+    total["ssd_chunk"] = (ssm_serve_launches["ssd_chunk"] + ssm_score_launches["ssd_chunk"]
+                          + ssm_train_launches["ssd_chunk"])
+    total["ssd_chunk_bwd"] = ssm_train_launches["ssd_chunk_bwd"]
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": total[name],
          "max_abs_err": errs[name], **times[name]}
         for name in ("sparse_dot", "sparse_axpy", "flash_attention", "decode_attention",
-                     "flash_attention_bwd", "block_topk")
+                     "flash_attention_bwd", "block_topk", "ssd_chunk", "ssd_chunk_bwd")
     ]
     log("all", f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -1711,4 +2305,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--ssm-profile"]:
+        if not torch.cuda.is_available():
+            sys.exit(1)
+        print(json.dumps(ssm_profile(torch.device("cuda"))))
+        sys.exit(0)
     sys.exit(main())

@@ -4,9 +4,9 @@
 registry mirrors ``repro.configs``: ``--arch <id>`` (or an alias with
 dashes and dots) selects a module exposing ``CONFIG`` (the assigned
 configuration) and ``reduced()`` (a small same-family configuration for CPU
-tests). ``minitron_8b`` and ``gemma2_2b`` are ported; every other id raises
-``NotImplementedError`` naming the ROADMAP item that ports its family, and
-never falls back to another model.
+tests). ``minitron_8b``, ``gemma2_2b`` and ``mamba2_1p3b`` are ported; every
+other id raises ``NotImplementedError`` naming the ROADMAP item that ports
+its family, and never falls back to another model.
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ ALIASES = {
     "mamba2-1.3b": "mamba2_1p3b",
 }
 
-PORTED = ("minitron_8b", "gemma2_2b")
+PORTED = ("minitron_8b", "gemma2_2b", "mamba2_1p3b")
 
 # where each unported arch id waits (ROADMAP Queue 1 item 12: models)
 NOT_PORTED = {
@@ -49,7 +49,6 @@ NOT_PORTED = {
     "whisper_small": "encdec family is not ported",
     "kimi_k2": "moe family is not ported",
     "qwen2_moe": "moe family is not ported",
-    "mamba2_1p3b": "ssm family (SSD kernels, Queue 2 rows 6-7) is not ported",
 }
 
 

@@ -7,6 +7,8 @@
   decode_attention  paged single-query decode attention (csrc/decode_attention.cu)
   topk_compress     block-local top-k magnitude selection, the gossip wire
                     format's (csrc/topk_compress.cu)
+  ssd_scan     Mamba2/SSD within-chunk forward and its gradient
+               (csrc/ssd_scan.cu) and the SsdChunk autograd Function
   ref          plain PyTorch versions (the CPU path and the parity oracle)
   ops          the registry: kernel, plain version and tolerance per name
   _build       builds csrc/*.cu with nvcc at first use and loads them

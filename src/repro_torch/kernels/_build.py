@@ -44,7 +44,14 @@ _FLASH = [_P] * 5 + [_I] * 10 + [_F, _F, _I, _P]
 #   S, Sk, D, causal, has_window, window, has_softcap, softcap, scale, device,
 #   stream)
 _FLASH_BWD = [_P] * 10 + [_I] * 10 + [_F, _F, _I, _P]
-# C signatures of each library's entry points: name -> argtypes (restype int)
+_I64 = ctypes.c_int64
+# ssd_chunk_fwd_f32(xdt, cum, B, C, y, st, BC, Q, nh, hd, ds, device, stream)
+_SSD_FWD = [_P] * 6 + [_I] * 6 + [_P]
+# ssd_chunk_bwd_f32(xdt, cum, B, C, dy, dst, scratch, dxdt, dcum, dB, dC, BC, Q,
+#   nh, hd, ds, device, stream)
+_SSD_BWD = [_P] * 11 + [_I] * 6 + [_P]
+# C signatures of each library's entry points: name -> argtypes (restype
+# int), or name -> (argtypes, restype)
 SIGNATURES = {
     "sparse_saga": {
         "sparse_axpy_f64": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -58,6 +65,12 @@ SIGNATURES = {
                             "flash_attention_bwd_f32": _FLASH_BWD},
     # block_topk_f32(x, vals, idx, nb, block, k, device, stream)
     "topk_compress": {"block_topk_f32": [_P, _P, _P, _I, _I, _I, _I, _P]},
+    "ssd_scan": {
+        "ssd_chunk_fwd_f32": _SSD_FWD,
+        "ssd_chunk_bwd_f32": _SSD_BWD,
+        # floats of scratch the backward needs: (BC, Q, nh, hd, ds) -> int64
+        "ssd_chunk_bwd_scratch_f32": ([_I] * 5, _I64),
+    },
 }
 
 
@@ -123,10 +136,9 @@ def build_all() -> dict[str, str]:
 def load_library(name: str = "sparse_saga") -> ctypes.CDLL:
     """Build (if needed) and load one kernel library with typed entry points."""
     lib = ctypes.CDLL(str(build(name)))
-    for fn, argtypes in SIGNATURES[name].items():
+    for fn, sig in SIGNATURES[name].items():
         f = getattr(lib, fn)
-        f.argtypes = argtypes
-        f.restype = ctypes.c_int
+        f.argtypes, f.restype = sig if isinstance(sig, tuple) else (sig, ctypes.c_int)
     # every library exports error_string(int) -> const char*
     lib.error_string.argtypes = [ctypes.c_int]
     lib.error_string.restype = ctypes.c_char_p

@@ -30,7 +30,13 @@ registry holds it, 1e-6, by ``_topk_compare``: the selected magnitudes
 match as sets and every returned (value, index) pair is the input's entry
 at that index. The CUDA kernel also breaks ties as its plain version does
 (lower index first), so on the card its output is bit-equal to the plain
-version's; ``HeldCalls.exact`` records that per held call.
+version's; ``HeldCalls.exact`` records that per held call. ``ssd_chunk``
+(float32 only on the card) is held to 2e-5 with gradients at 2e-4, the JAX
+registry's bars; its backward ``ssd_chunk_bwd`` to 2e-4 elementwise and in
+relative norm, output by output (dxdt, dcum, dB, dC). Both are checked
+against their plain version computed in float64 from the same float32
+inputs (``KernelSpec.plain_dtype``), so the plain version's own float32
+summation order cannot decide a check.
 """
 from __future__ import annotations
 
@@ -38,13 +44,13 @@ import contextlib
 import dataclasses
 from typing import Callable
 
-import numpy as np
 import torch
 
 from repro_torch.kernels import ref as R
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
 from repro_torch.kernels.sparse_saga import sparse_axpy, sparse_dot
+from repro_torch.kernels import ssd_scan as SSD
 from repro_torch.kernels.topk_compress import block_topk
 
 MODES = ("auto", "on", "off")
@@ -80,6 +86,8 @@ class KernelSpec:
         outputs that match by another rule than elementwise.
     grad_tol: {dtype name: Tolerance} for gradients through the kernel;
         None falls back to `tol`.
+    plain_dtype: the dtype ``held_to_plain`` and ``parity_check`` run the
+        plain version in (its floating inputs cast to it); None: the inputs'.
     """
 
     name: str
@@ -88,6 +96,7 @@ class KernelSpec:
     tol: dict[str, Tolerance]
     compare: Callable | None = None
     grad_tol: dict[str, Tolerance] | None = None
+    plain_dtype: torch.dtype | None = None
 
     def tolerance(self, dtype) -> Tolerance:
         """Parity tolerance for `dtype` (float32's entry as fallback)."""
@@ -190,7 +199,7 @@ def dispatch(name: str, *args, mode: str = "auto", **kwargs):
     spec = get_kernel(name)
     if held is not None and fn is not spec.ref:
         with torch.no_grad():
-            want = spec.ref(*args, **kwargs)
+            want = _plain(spec, args, kwargs)
             held.append(_compare(spec, args, out, want))
             pairs = list(zip(out, want)) if isinstance(out, tuple) else [(out, want)]
             held.scale.append(max(_max_abs(w) for _, w in pairs))
@@ -199,10 +208,13 @@ def dispatch(name: str, *args, mode: str = "auto", **kwargs):
     return out
 
 
-def _max_err(got, want) -> float:
-    g = got.detach().double().cpu().numpy()
-    w = want.detach().double().cpu().numpy()
-    return float(np.max(np.abs(g - w))) if g.size else 0.0
+def _plain(spec: KernelSpec, args, kwargs):
+    """The plain version on `args`, in ``spec.plain_dtype`` if it has one."""
+    if spec.plain_dtype is not None:
+        args = tuple(a.to(spec.plain_dtype)
+                     if isinstance(a, torch.Tensor) and a.is_floating_point() else a
+                     for a in args)
+    return spec.ref(*args, **kwargs)
 
 
 def _max_abs(t: torch.Tensor) -> float:
@@ -219,15 +231,26 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def assert_close(got: torch.Tensor, want: torch.Tensor, tol: Tolerance) -> float:
-    """Assert elementwise agreement within `tol` ((0, 0): bit-exact); max abs err."""
-    if tol.rtol == 0.0 and tol.atol == 0.0:
-        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
-    else:
-        np.testing.assert_allclose(
-            got.double().cpu().numpy(), want.double().cpu().numpy(),
-            rtol=tol.rtol, atol=tol.atol,
-        )
-    return _max_err(got, want)
+    """Assert elementwise agreement within `tol` ((0, 0): bit-exact): every
+    element within ``atol + rtol |want|``, equal, or NaN in both (the rule
+    of ``numpy.testing.assert_allclose``). Checked where `got` lies, with no
+    host copy (a held call of a train step compares ~10^8 elements); max
+    abs error, NaN positions aside."""
+    g, w = got.detach(), want.detach().to(got.device)
+    if g.shape != w.shape:
+        raise AssertionError(f"shapes differ: {tuple(g.shape)} and {tuple(w.shape)}")
+    if g.numel() == 0:
+        return 0.0
+    g, w = g.double(), w.double()
+    diff = (g - w).abs()
+    ok = (g == w) | (g.isnan() & w.isnan())
+    if tol.rtol != 0.0 or tol.atol != 0.0:
+        ok |= diff <= tol.atol + tol.rtol * w.abs()
+    if not bool(ok.all()):
+        bad = ~ok
+        raise AssertionError(f"{int(bad.sum())} of {ok.numel()} elements outside {tol}: max "
+                             f"abs error {float(diff[bad].max())!r}")
+    return float(torch.nan_to_num(diff, nan=0.0).max())
 
 
 def parity_check(name: str, *args, mode: str = "on", **kwargs) -> float:
@@ -237,22 +260,29 @@ def parity_check(name: str, *args, mode: str = "on", **kwargs) -> float:
     keyword options) and returns the max abs error. The tolerance is the
     one for the dtype of the first floating-point argument; a kernel that
     returns a tuple (flash attention's o and lse) is held to it output by
-    output.
+    output. The plain version runs in the spec's ``plain_dtype``, if any.
     """
+    spec = get_kernel(name)
     got = dispatch(name, *args, mode=mode, **kwargs)
-    want = dispatch(name, *args, mode="off", **kwargs)
-    return _compare(get_kernel(name), args, got, want)
+    with torch.no_grad():
+        want = _plain(spec, args, kwargs)
+    return _compare(spec, args, got, want)
 
 
-def _grad_compare(args, got, want, tol: Tolerance) -> float:
-    """(dq, dk, dv) each within `tol` elementwise and within ``tol.rtol`` in
-    relative Frobenius norm (scale-free, so a small wrong gradient fails
-    too); max abs error."""
-    for what, g, w in zip(("dq", "dk", "dv"), got, want):
-        rel = rel_err(g, w)
-        if not rel <= tol.rtol:
-            raise AssertionError(f"{what}: relative error {rel!r} > {tol.rtol}")
-    return max(assert_close(g.detach(), w.detach(), tol) for g, w in zip(got, want))
+def _grad_compare(names: tuple[str, ...]) -> Callable:
+    """A comparator holding each gradient output (named `names`) within
+    `tol` elementwise and within ``tol.rtol`` in relative Frobenius norm
+    (scale-free, so a small wrong gradient fails too); max abs error."""
+    def compare(args, got, want, tol: Tolerance) -> float:
+        if len(got) != len(names) or len(want) != len(names):
+            raise AssertionError(f"want {names}, got {len(got)} and {len(want)} outputs")
+        for what, g, w in zip(names, got, want):
+            rel = rel_err(g, w)
+            if not rel <= tol.rtol:
+                raise AssertionError(f"{what}: relative error {rel!r} > {tol.rtol}")
+        return max(assert_close(g.detach(), w.detach(), tol) for g, w in zip(got, want))
+
+    return compare
 
 
 def _close_on_device(got: torch.Tensor, want: torch.Tensor, tol: Tolerance, what: str) -> float:
@@ -329,7 +359,7 @@ register_kernel(KernelSpec(
     ref=R.flash_attention_bwd_ref,
     # its outputs are gradients: the grad bars, elementwise and by norm
     tol={"float32": _F32_GRAD_TOL, "bfloat16": _BF16_GRAD_TOL},
-    compare=_grad_compare,
+    compare=_grad_compare(("dq", "dk", "dv")),
 ))
 
 register_kernel(KernelSpec(
@@ -346,6 +376,37 @@ register_kernel(KernelSpec(
     tol={"float32": Tolerance(1e-6, 1e-6)},
     compare=_topk_compare,
 ))
+
+
+register_kernel(KernelSpec(
+    name="ssd_chunk",
+    kernel=SSD.ssd_chunk,
+    ref=R.ssd_chunk_ref,
+    tol={"float32": _F32_TOL, "bfloat16": _BF16_TOL},
+    # models/ssm.py always feeds float32: no bf16 gradient bar (as in JAX)
+    grad_tol={"float32": _F32_GRAD_TOL},
+    plain_dtype=torch.float64,
+))
+
+register_kernel(KernelSpec(
+    name="ssd_chunk_bwd",
+    kernel=SSD.ssd_chunk_bwd,
+    ref=R.ssd_chunk_bwd_ref,
+    # its outputs are gradients: the grad bar, elementwise and by norm
+    tol={"float32": _F32_GRAD_TOL},
+    compare=_grad_compare(("dxdt", "dcum", "dB", "dC")),
+    plain_dtype=torch.float64,
+))
+
+
+def ssd_chunk(xdt, cum, Bc, Cc, *, mode: str = "auto", head_block=None):
+    """Registry-dispatched within-chunk SSD: (y_intra (B, nc, Q, nh, hd),
+    chunk states (B, nc, nh, ds, hd)); differentiable in every mode (the
+    ``SsdChunk`` Function, or autograd through the plain version under
+    'off'). `head_block` is the JAX adapter's; the CUDA kernels group heads
+    themselves (any nh), so it has no effect."""
+    del head_block
+    return dispatch("ssd_chunk", xdt, cum, Bc, Cc, mode=mode)
 
 
 def topk_blocks(x: torch.Tensor, k: int, *, mode: str = "auto"):

@@ -10,7 +10,10 @@ column in k order with no atomics, so it is deterministic on the CPU and on
 the card and folds duplicate indices in the same order as the JAX oracle's
 sequential scatter. ``block_topk_ref`` selects by a stable sort, so among
 equal magnitudes the lower index comes first, as ``jax.lax.top_k`` and the
-Pallas body's first-occurrence argmax take them.
+Pallas body's first-occurrence argmax take them. ``ssd_chunk_ref`` is
+the within-chunk SSD of Mamba2 and ``ssd_chunk_bwd_ref`` its gradient, the
+Pallas backward's formulas written out in tensor ops; both compute in the
+input dtype, as the JAX oracle does.
 """
 from __future__ import annotations
 
@@ -167,3 +170,57 @@ def block_topk_ref(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]
         vals[lo:lo + step] = torch.gather(rows, 1, order)
         idx[lo:lo + step] = order.to(torch.int32)
     return vals, idx
+
+
+def _ssd_decay(cum: torch.Tensor) -> torch.Tensor:
+    """L (B, nc, i, j, nh) = exp(cum_i - cum_j) for i >= j, else 0.
+
+    Masked BEFORE the exp: above the diagonal cum_i - cum_j > 0 can overflow
+    exp to inf, and autograd through ``where(tri, exp(diff), 0)`` multiplies
+    the masked lanes' zero cotangent by that inf: NaN (the JAX oracle's
+    reason, ``repro/kernels/ref.py``)."""
+    Q = cum.shape[2]
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=cum.device))[None, None, :, :, None]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    return torch.where(tri, torch.exp(torch.where(tri, diff, 0.0)), 0.0)
+
+
+def ssd_chunk_ref(xdt, cum, Bc, Cc):
+    """Within-chunk SSD: (y_intra (B, nc, Q, nh, hd), chunk states
+    (B, nc, nh, ds, hd)) of xdt (B, nc, Q, nh, hd), the inclusive log-decay
+    cumsum cum (B, nc, Q, nh) and B, C (B, nc, Q, ds):
+    ``y_i = sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) xdt_j`` and
+    ``state = sum_j B_j (x) exp(cum_last - cum_j) xdt_j``."""
+    decay = _ssd_decay(cum)
+    scores = torch.einsum("bcis,bcjs->bcij", Cc, Bc)
+    y = torch.einsum("bcij,bcijh,bcjhd->bcihd", scores, decay, xdt)
+    dte = torch.exp(cum[:, :, -1:, :] - cum)
+    st = torch.einsum("bcjs,bcjh,bcjhd->bchsd", Bc, dte, xdt)
+    return y, st
+
+
+def ssd_chunk_bwd_ref(xdt, cum, Bc, Cc, dy, dst):
+    """The gradient (dxdt, dcum, dB, dC) of ``ssd_chunk_ref`` from the
+    cotangents dy (B, nc, Q, nh, hd) of y and dst (B, nc, nh, ds, hd) of the
+    states, by the Pallas backward's formulas (``repro/kernels/ssd_scan.py``
+    ``_ssd_bwd_kernel``) over every head at once. dcum is the cotangent of
+    the cumsum output; dB and dC are summed over the heads."""
+    L = _ssd_decay(cum)
+    scores = torch.einsum("bcis,bcjs->bcij", Cc, Bc)
+    SL = scores[..., None] * L  # (B, nc, i, j, nh)
+    dM = torch.einsum("bcihd,bcjhd->bcijh", dy, xdt)
+    dX = torch.einsum("bcijh,bcihd->bcjhd", SL, dy)
+    dscores = (dM * L).sum(-1)
+    dLL = dM * SL  # d cum through L = tri * exp(cum_i - cum_j)
+    dcum = dLL.sum(3) - dLL.sum(2)  # row sums (over j) minus column sums (over i)
+    dte = torch.exp(cum[:, :, -1:, :] - cum)  # decay to the end of the chunk
+    dX = dX + dte[..., None] * torch.einsum("bcjs,bchsd->bcjhd", Bc, dst)
+    dBw = torch.einsum("bcjhd,bchsd->bcjhs", xdt, dst)
+    dB = torch.einsum("bcjhs,bcjh->bcjs", dBw, dte) + torch.einsum("bcij,bcis->bcjs",
+                                                                     dscores, Cc)
+    ddte = (dBw * Bc[:, :, :, None, :]).sum(-1) * dte
+    dcum = dcum - ddte
+    # cum_last appears in every dte: its row collects the whole sum
+    dcum = torch.cat([dcum[:, :, :-1], dcum[:, :, -1:] + ddte.sum(2, keepdim=True)], dim=2)
+    dC = torch.einsum("bcij,bcjs->bcis", dscores, Bc)
+    return dX, dcum, dB, dC

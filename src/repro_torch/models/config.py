@@ -2,9 +2,10 @@
 
 Every field of the JAX ``ModelConfig`` is kept, with the same name and
 default, so a JAX configuration copies across field by field; dtypes are
-torch dtypes. Only the dense family runs in the port so far: the MoE, SSM
-and SSM options are carried but have no effect, and the families that need
-them raise in ``models.transformer`` (ROADMAP Queue 1 item 12).
+torch dtypes. The dense and ssm families run in the port so far: the MoE,
+hybrid and enc-dec options are carried but have no effect, and the
+families that need them raise in ``models.transformer`` (ROADMAP Queue 1
+item 12).
 
 Kernel routing knobs (default ``auto``, or ``REPRO_KERNEL_MODE``):
 
@@ -18,7 +19,11 @@ Kernel routing knobs (default ``auto``, or ``REPRO_KERNEL_MODE``):
                     the inline path whatever this says, as in the JAX package.
   decode_kernel     paged serving decode (``decode_step_paged``) through
                     ``decode_attention``; ``jnp`` means ``off``.
-  ssm_kernel        carried for the SSM family, which is not ported yet.
+  ssm_kernel        the SSD within-chunk part of the ssm family's train,
+                    scoring and prefill paths (``models.ssm._ssd_chunked``):
+                    ``jnp`` the inline einsums, otherwise a registry mode
+                    for ``ssd_chunk`` (forward and backward). The recurrent
+                    decode step has no chunks and never takes it.
 
 Pallas' ``interpret`` mode has no counterpart; a config naming it raises.
 """
@@ -69,7 +74,7 @@ class ModelConfig:
     capacity_factor: float = 1.25
     moe_groups: int = 0
 
-    # --- SSM (Mamba2/SSD) options (not ported) -----------------------------
+    # --- SSM (Mamba2/SSD) options ------------------------------------------
     ssm_state: int = 0
     ssm_head_dim: int = 64
     ssm_expand: int = 2

@@ -16,11 +16,18 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable
+from typing import Any, Callable, NamedTuple
 
 import torch
 
 _CHUNK_ELEMS = 1 << 27  # at most this many float32 draws in flight per leaf
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of a tensor to allocate (the ShapeDtypeStruct twin)."""
+
+    shape: tuple[int, ...]
+    dtype: Any
 
 
 @dataclasses.dataclass(frozen=True)

@@ -21,8 +21,14 @@ to recompile. What stands in for that witness: ``data_ptrs()`` does not
 change across steps (the pool is never reallocated), and the kernels'
 launch counts equal what the code predicts.
 
-Only the dense family has a pool; the slot adapters for SSM, conv and
-cross caches wait for those families (ROADMAP Queue 1 item 12).
+State whose size does not depend on the length, the ssm family's
+recurrent state and conv history, is not paged: it lives in per-slot
+tensors indexed by slot id (``transformer.paged_cache_defs``), the pool
+hands out no pages for it (``paged`` is False), and ``write_prefill``
+overwrites the slot's rows in place. A released slot keeps its stale state
+until the next prefill into it overwrites it, as in the JAX package. The
+cross caches of the encdec family wait for that family (ROADMAP Queue 1
+item 12).
 """
 from __future__ import annotations
 
@@ -107,6 +113,9 @@ class CachePool:
                 cfg, pc.max_batch, pc.n_blocks, pc.block_size, self.n_pages
             ).items()
         }
+        # an attention-free family (ssm) never takes a page; its null table
+        # still feeds decode_step_paged's (unread) arguments
+        self.paged = cfg.family != "ssm"
         self.table = np.zeros((pc.max_batch, self.n_pages), np.int32)
         self.lengths = np.zeros((pc.max_batch,), np.int32)
         self._pages_of: list[list[int]] = [[] for _ in range(pc.max_batch)]
@@ -143,7 +152,9 @@ class CachePool:
         return {name: t.data_ptr() for name, t in self.pools.items()}
 
     def pages_needed(self, n_tokens: int) -> int:
-        """Pages that cover n_tokens tokens."""
+        """Pages that cover n_tokens tokens (none for an unpaged family)."""
+        if not self.paged:
+            return 0
         return -(-n_tokens // self.pc.block_size)
 
     # -- slot / page lifecycle ----------------------------------------------
@@ -175,7 +186,10 @@ class CachePool:
         return True
 
     def release(self, slot: int) -> None:
-        """Return slot's pages to the free list and reset its table row."""
+        """Return slot's pages to the free list and reset its table row.
+
+        Per-slot state (ssm state and conv) is not zeroed: the next
+        write_prefill into this slot overwrites it entirely."""
         self._free_pages.extend(reversed(self._pages_of[slot]))
         self._pages_of[slot] = []
         self.table[slot, :] = 0
@@ -227,10 +241,16 @@ class CachePool:
         """Land a batch-1 contiguous prefill cache in the pool, in place.
 
         `cache` comes from ``transformer.prefill`` at shape (1, prompt_pad).
-        Call ``set_length`` afterwards with the TRUE prompt length (pad
-        blocks land in the null page; pad positions inside the last valid
-        block are masked by length).
+        Dense K/V slabs are scattered onto the slot's pages; ssm state and
+        conv history overwrite row `slot` (never added to it). Call
+        ``set_length`` afterwards with the TRUE prompt length (pad blocks
+        land in the null page; pad positions inside the last valid block
+        are masked by length).
         """
+        if not self.paged:
+            for name in ("state", "conv"):
+                self.pools[name][:, slot] = cache[name][:, 0].to(self.pools[name].dtype)
+            return
         ids = self._prompt_page_ids(slot)
         for name in ("k", "v"):
             _scatter_blocks(self.pools[name], cache[name][:, 0], ids)
@@ -238,7 +258,10 @@ class CachePool:
     # -- parity helper ------------------------------------------------------
 
     def gather_kv(self, slot: int, n_tokens: int) -> dict:
-        """Slot's K/V as contiguous (n_layers, n_tokens, KV, Dh) numpy arrays."""
+        """Slot's K/V as contiguous (n_layers, n_tokens, KV, Dh) numpy arrays
+        (the dense family's pages)."""
+        if not self.paged:
+            raise ValueError(f"the {self.cfg.family} family keeps no K/V pages")
         pages = self._pages_of[slot]
         out = {}
         for name, pool in self.pools.items():

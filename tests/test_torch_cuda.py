@@ -161,3 +161,44 @@ def test_cuda_block_topk_matches_plain_bit_for_bit(card, kind):
     with pytest.raises(TypeError, match="float32"):
         topk_compress.block_topk(torch.zeros(1, 64, device=card, dtype=torch.float64), 1)
     torch.cuda.synchronize()
+
+
+# (B, nc, Q, nh, hd, ds, log-decay range): mamba2's widths, ragged Q and nh,
+# the reduced models' widths, and fast decay (exp overflows above the diagonal)
+SSD = [(1, 2, 256, 64, 64, 128, (0.01, 0.2)), (2, 1, 37, 6, 16, 16, (0.01, 0.5)),
+       (1, 3, 5, 3, 4, 5, (0.01, 0.5)), (1, 1, 1, 3, 64, 128, (0.01, 0.5)),
+       (1, 2, 64, 8, 32, 64, (6.0, 8.0))]
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_chunk_matches_plain(card):
+    """ssd_chunk forward (one launch) and backward (three launches) against
+    their plain versions in float64 on the same float32 inputs, at the
+    registry bars (2e-5; 2e-4 elementwise and in relative norm); finite
+    under fast decay; the SsdChunk Function's gradients are the backward
+    kernel's; another dtype raises."""
+    from repro_torch.kernels import ssd_scan
+
+    g = torch.Generator(device=card).manual_seed(3)
+    for b, nc, q, nh, hd, ds, (lo, hi) in SSD:
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g, device=card) * 0.5
+
+        cum = -torch.cumsum(torch.rand(b, nc, q, nh, generator=g, device=card) * (hi - lo) + lo,
+                            dim=2)
+        args = (rnd(b, nc, q, nh, hd), cum.contiguous(), rnd(b, nc, q, ds), rnd(b, nc, q, ds))
+        dy, dst = rnd(b, nc, q, nh, hd), rnd(b, nc, nh, ds, hd)
+        before = ssd_scan.ssd_chunk_fwd.launches, ssd_scan.ssd_chunk_bwd.launches
+        ops.parity_check("ssd_chunk", *args, mode="on")
+        ops.parity_check("ssd_chunk_bwd", *args, dy, dst, mode="on")
+        assert (ssd_scan.ssd_chunk_fwd.launches, ssd_scan.ssd_chunk_bwd.launches) == (
+            before[0] + 1, before[1] + 3)
+        leaves = [t.clone().requires_grad_() for t in args]
+        got = torch.autograd.grad(ops.ssd_chunk(*leaves, mode="on"), leaves, (dy, dst))
+        want = ssd_scan.ssd_chunk_bwd(*args, dy, dst)
+        for x, y in zip(got, want):
+            assert torch.isfinite(x).all()
+            assert torch.equal(x, y)  # deterministic: no atomics
+    with pytest.raises(ValueError, match="float32 only"):
+        ssd_scan.ssd_chunk_fwd(*(t.double() for t in args))
+    torch.cuda.synchronize()

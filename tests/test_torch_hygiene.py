@@ -20,7 +20,9 @@ assert len(mods) >= 15, mods
 new = {"repro_torch.data.sharded_loader", "repro_torch.optim.adam", "repro_torch.train.step",
        "repro_torch.ckpt.checkpoint", "repro_torch.launch.train", "repro_torch.core.gossip",
        "repro_torch.kernels.topk_compress", "repro_torch.ft.elastic",
-       "repro_torch.configs.gemma2_2b", "repro_torch.examples.train_lm_gossip"}
+       "repro_torch.configs.gemma2_2b", "repro_torch.examples.train_lm_gossip",
+       "repro_torch.models.ssm", "repro_torch.kernels.ssd_scan",
+       "repro_torch.configs.mamba2_1p3b"}
 assert new <= set(mods), sorted(new - set(mods))
 print("ok", len(mods))
 """

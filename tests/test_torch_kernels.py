@@ -121,7 +121,7 @@ def test_registry_modes_on_cpu():
         ops.dispatch("sparse_dot", psi, idx, val, mode="interpret")
     assert ops.registered_kernels() == (
         "block_topk", "decode_attention", "flash_attention", "flash_attention_bwd",
-        "sparse_axpy", "sparse_dot")
+        "sparse_axpy", "sparse_dot", "ssd_chunk", "ssd_chunk_bwd")
 
 
 def test_wrapper_input_checks():

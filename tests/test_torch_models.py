@@ -95,7 +95,7 @@ def test_registry_names_every_arch_and_ports_only_minitron():
     from repro.configs import ALIASES, ARCH_IDS
 
     assert C.ARCH_IDS == ARCH_IDS and C.ALIASES == ALIASES
-    assert C.PORTED == ("minitron_8b", "gemma2_2b")
+    assert C.PORTED == ("minitron_8b", "gemma2_2b", "mamba2_1p3b")
     for arch in ARCH_IDS:
         if arch in C.PORTED:
             continue
@@ -180,7 +180,7 @@ def test_mlp_matches_jax():
     jcfg, jparams, pcfg, params = make()
     x = np.random.default_rng(2).standard_normal((2, 7, 64)).astype(np.float32)
     jp = jax.tree_util.tree_map(lambda a: a[0], jparams["blocks"]["mlp"])
-    got = L.mlp(pcfg, T._layer(params["blocks"], 0)["mlp"], torch.as_tensor(x))
+    got = L.mlp(pcfg, T._layers(params["blocks"], 2)[0]["mlp"], torch.as_tensor(x))
     close(got, JL.mlp(jcfg, jp, jnp.asarray(x)), LAYER_TOL)
 
 
@@ -194,7 +194,7 @@ def test_attention_layer_matches_jax(route, window):
     jp = jax.tree_util.tree_map(lambda a: a[1], jparams["blocks"]["attn"])
     want, _ = JL.multi_head_attention(jcfg, jp, jnp.asarray(x), jnp.asarray(pos),
                                       window=window)
-    got, _ = L.multi_head_attention(pcfg, T._layer(params["blocks"], 1)["attn"],
+    got, _ = L.multi_head_attention(pcfg, T._layers(params["blocks"], 2)[1]["attn"],
                                     torch.as_tensor(x), torch.as_tensor(pos), window=window)
     close(got, want, LAYER_TOL)
 
@@ -237,7 +237,7 @@ def test_bf16_layers_and_forward_match_jax():
     xb, xt = jnp.asarray(x).astype(jnp.bfloat16), torch.as_tensor(x).to(torch.bfloat16)
     pos = np.tile(np.arange(16)[None], (2, 1))
     jl = jax.tree_util.tree_map(lambda a: a[0], jparams["blocks"])
-    tl = T._layer(params["blocks"], 0)
+    tl = T._layers(params["blocks"], 2)[0]
     close(L.mlp(pcfg, tl["mlp"], xt), JL.mlp(jcfg, jl["mlp"], xb).astype(jnp.float32),
           BF16_TOL)
     got, _ = L.multi_head_attention(pcfg, tl["attn"], xt, torch.as_tensor(pos))
