@@ -9,9 +9,11 @@ printed with its seconds:
 
 1. device  -- ``nvidia-smi`` name and power limit, torch's device name/count.
 2. build   -- compiles ``src/repro_torch/kernels/csrc/*.cu`` (first use);
-   logs ptxas' registers and spills of the head_dim 256 flash kernels, of
-   block_topk and of the ssd kernels at (hd, ds) = (64, 128), and the
-   flash kernels' dynamic shared memory at 256.
+   logs ptxas' registers and spills of the flash kernels at head_dim 128
+   and 256 (bf16: the wgmma forward and the tensor-core backward; float32:
+   the CUDA-core kernels), of block_topk and of the ssd kernels at
+   (hd, ds) = (64, 128), and the flash kernels' dynamic shared memory at
+   128 and 256 (the wrapper's tile plan).
 3. kernels -- every kernel of the main path against its plain PyTorch
    version on the card, at the main path's shapes (rcv1 preset: N=10,
    D=47,236, k=74 for a step; D=47,239, k=7,400 for init_state's phibar
@@ -60,13 +62,20 @@ printed with its seconds:
    pool of layer 0, in bf16: its K/V reach ~100, far from the unit scale
    the f32 bar is set for), lengths 0, 1, a partial page and a full table, null
    pages past each length, GQA group 4 and MQA, window and softcap at
-   small sizes. Times by CUDA events and by profiler device time, beside
-   the bound, the plain version and the library call (SDPA; for decode,
-   SDPA over the gathered pages), which only the timing table uses.
-   gemma2-2b's attention is held too (8/4 heads, D=256, causal, window
-   4096, softcap 50, at S=2048 and at S=4608, where the window bites),
-   forward and backward, bf16 and f32, and the D=256 forward and backward
-   are timed at S=2048 beside their bound and plain version.
+   small sizes. decode is timed by CUDA events and by profiler device
+   time, beside the bound, the plain version and SDPA over the gathered
+   pages, which only the timing table uses. gemma2-2b's attention is held
+   too (8/4 heads, D=256, causal, window 4096, softcap 50, at S=2048 and at
+   S=4608, where the window bites), forward and backward, bf16 and f32.
+   Then, in a fresh process (``chip_smoke.py --attention-profile``; late
+   in this one torch.profiler has dropped kernel events), the bf16 flash
+   forward and backward are timed at D=128 (the score and train shapes)
+   and at D=256 (the gossip shape, S=2048): CUDA events, profiler device
+   time under the kernels' names (``flash_fwd_wgmma_kernel``; backward
+   ``flash_bwd_{dq,dkv}_wgmma_kernel`` at D=128, ``..._mma_kernel`` at
+   D=256), the plain
+   version, the bound and, at D=128, SDPA forward and backward (at D=256
+   SDPA without the softcap is logged only: not the same function).
 9. score   -- ``transformer.forward`` at full width, B=1, S=2048: 32
    flash_attention launches, each held to the plain version on its own
    inputs; finite logits of the expected shape.
@@ -154,8 +163,8 @@ printed with its seconds:
    version) and a train step is profiled (device busy, idle share).
 Before phase 9, flash_attention_bwd is held to its plain version at the
 train shape and at ragged small shapes (every head dim, GQA, MQA, window,
-softcap), bf16 and f32 (bars 5e-2, 2e-4), and timed beside its bound, the
-plain version and SDPA's backward.
+softcap), bf16 and f32 (bars 5e-2, 2e-4); its times come from the
+attention-profile process.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: no phase catches its
@@ -198,7 +207,9 @@ from repro_torch.core.gossip import (  # noqa: E402
 )
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    bwd_kernels, flash_attention, flash_attention_bwd, tile_plan,
+)
 from repro_torch.kernels.ref import (  # noqa: E402
     attention_ref, block_topk_ref, decode_attention_ref, flash_attention_bwd_ref,
     sparse_axpy_ref, sparse_dot_ref, ssd_chunk_bwd_ref, ssd_chunk_ref,
@@ -220,9 +231,9 @@ PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12, torch.bfloat16: 98
 SOURCES = {
     "sparse_dot": "src/repro_torch/kernels/csrc/sparse_saga.cu",
     "sparse_axpy": "src/repro_torch/kernels/csrc/sparse_saga.cu",
-    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
-    "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
     "block_topk": "src/repro_torch/kernels/csrc/topk_compress.cu",
     "ssd_chunk": "src/repro_torch/kernels/csrc/ssd_scan.cu",
     "ssd_chunk_bwd": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -766,9 +777,20 @@ def attention_parity(device, decode_main) -> dict[str, float]:
     return worst
 
 
-def time_attention(device, decode_main) -> dict[str, dict]:
-    """Kernel, plain and library times at the main paths' shapes (bf16)."""
-    out = {}
+# the bf16 kernels' names in the profiler (the main paths' dtype): the
+# forward's, and the backward's two at a head dim (wgmma at 64 and 128,
+# mma.sync at 16, 32 and 256)
+FLASH_FWD_KERNELS = ("flash_fwd_wgmma_kernel",)
+
+
+def flash_bwd_kernels(d: int) -> tuple[str, ...]:
+    """The bf16 backward's kernel names at head dim `d` (dq, then dk/dv)."""
+    return tuple(bwd_kernels(tile_plan(torch.bfloat16, d)))
+
+
+def time_attention(device) -> dict:
+    """The flash forward at the score phase's shape (bf16, B=1, 32/8 heads,
+    S=2048, D=128, causal): kernel, plain version and SDPA, beside the bound."""
     b, hq, hkv, s, d = 1, 32, 8, 2048, 128
     q, k, v = flash_inputs(b, hq, hkv, s, s, d, torch.bfloat16, device)
     pairs = b * hq * s * (s + 1) // 2  # causal: what this run's mask keeps
@@ -779,16 +801,22 @@ def time_attention(device, decode_main) -> dict[str, dict]:
     if not same_function(lib_out, plain_out):
         raise AssertionError("SDPA yardstick disagrees with the plain version: "
                              f"{(lib_out.float() - plain_out.float()).abs().max().item()}")
-    out["flash_attention"] = {
-        "ms": cuda_ms(lambda: flash_attention(q, k, v), iters=20, warmup=3),
-        "device_ms": kernel_device_ms(lambda: flash_attention(q, k, v), ("flash_fwd_kernel",),
-                                      iters=5),
+    out = {
+        "ms": cuda_ms(lambda: flash_attention(q, k, v), iters=50, warmup=5),
+        "device_ms": kernel_device_ms(lambda: flash_attention(q, k, v), FLASH_FWD_KERNELS,
+                                      iters=10),
         "plain_ms": cuda_ms(lambda: attention_ref(q, k, v), iters=5, warmup=1),
         "bound_ms": bound_f[0], "bound_by": bound_f[1],
         "library_ms": cuda_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
-                              iters=20, warmup=3),
+                              iters=50, warmup=5),
     }
+    log("attention-profile", f"flash_attention D=128: {json.dumps(out)}")
+    return out
 
+
+def time_decode(device, decode_main) -> dict:
+    """decode_attention at the serve snapshot (bf16): kernel, plain version
+    and SDPA over the gathered pages, beside the bound."""
     qd, kp, vp, table, lengths = decode_main
     B, Hq, D = qd.shape
     hkv = kp.shape[2]
@@ -800,12 +828,13 @@ def time_attention(device, decode_main) -> dict[str, dict]:
     kg = kp[table.long()].reshape(B, L, hkv, D).transpose(1, 2)
     vg = vp[table.long()].reshape(B, L, hkv, D).transpose(1, 2)
     mask = (torch.arange(L, device=device)[None] < lengths[:, None].long())[:, None, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     lib = lambda: sdpa(qd[:, :, None], kg, vg, attn_mask=mask, enable_gqa=True)  # noqa: E731
     lib_out, plain_out = lib()[:, :, 0].float(), decode_attention_ref(*decode_main).float()
     if not same_function(lib_out, plain_out):
         raise AssertionError("SDPA decode yardstick disagrees: "
                              f"{(lib_out - plain_out).abs().max().item()}")
-    out["decode_attention"] = {
+    out = {
         "ms": cuda_ms(lambda: decode_attention(*decode_main), iters=100),
         "device_ms": kernel_device_ms(lambda: decode_attention(*decode_main),
                                       ("decode_attention_kernel",)),
@@ -814,8 +843,7 @@ def time_attention(device, decode_main) -> dict[str, dict]:
         # SDPA over the pages gathered beforehand (the gather is not timed)
         "library_ms": cuda_ms(lib, iters=100),
     }
-    for name, r in out.items():
-        log("attention", f"{name}: {json.dumps(r)}")
+    log("attention", f"decode_attention: {json.dumps(out)}")
     return out
 
 
@@ -1120,18 +1148,16 @@ def time_flash_bwd(device) -> dict:
     del plain
     kern = lambda: flash_attention_bwd(q, k, v, o, lse, do)  # noqa: E731
     out_t = {
-        "ms": cuda_ms(kern, iters=10, warmup=2),
-        "device_ms": kernel_device_ms(kern, ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
-                                      iters=3),
+        "ms": cuda_ms(kern, iters=20, warmup=3),
+        "device_ms": kernel_device_ms(kern, flash_bwd_kernels(d), iters=5),
         "plain_ms": cuda_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do), iters=3,
                             warmup=1),
         "bound_ms": bound_b[0], "bound_by": bound_b[1],
         "library_ms": cuda_ms(lib, iters=20, warmup=3),
     }
-    split = {n: kernel_device_ms(kern, (n,), iters=3)
-             for n in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")}
-    log("attention", f"flash_attention_bwd: {json.dumps(out_t)}; device ms by kernel "
-        f"{json.dumps(split)}")
+    split = {n: kernel_device_ms(kern, (n,), iters=5) for n in flash_bwd_kernels(d)}
+    log("attention-profile", f"flash_attention_bwd D=128: {json.dumps(out_t)}; device ms by "
+        f"kernel {json.dumps(split)}")
     return out_t
 
 
@@ -2036,16 +2062,7 @@ def ssm_profile(device) -> dict:
 
 def ssm_profile_subprocess() -> dict:
     """``ssm_profile`` in a fresh process on the same card; its JSON result."""
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(ROOT / "src")
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--ssm-profile"], cwd=ROOT,
-                       env=env, capture_output=True, text=True, timeout=900)
-    log("ssm-profile", f"rc={r.returncode} in {time.perf_counter() - t0:.1f} s\n"
-        f"{r.stdout.strip()}")
-    if r.returncode != 0:
-        raise AssertionError(f"ssm profile failed:\n{r.stderr[-4000:]}")
-    res = json.loads(r.stdout.strip().splitlines()[-1])
+    res = profile_subprocess("--ssm-profile")
     n = ssm_config().n_layers
     want = {"ssd_fwd_kernel": 2 * n, "ssd_bwd_rows_kernel": n, "ssd_bwd_cols_kernel": n,
             "ssd_bwd_finish_kernel": n}
@@ -2084,22 +2101,20 @@ def ptxas_report(outputs) -> dict:
 
 def flash_smem_bytes(d: int) -> dict[str, int]:
     """Dynamic shared memory a block of each flash kernel asks for at head
-    dim `d` (the formulas of csrc/flash_attention.cu and
-    flash_attention_bwd.cu: 64-row q tiles, 32-row k/v tiles, padded rows)."""
-    bq, bk = 64, 32
-    fwd = 4 * (bq * (d + 1) + bk * (d + 1) + bk * d + bq * (bk + 1))
-    dq = 4 * (2 * bq * (d + 1) + 2 * bk * (d + 1) + bq * (bk + 1) + 2 * bq)
-    dkv_f = 4 * (2 * bk * (d + 1) + 2 * bk * (bq + 1) + 2 * bq)
-    return {"flash_fwd": fwd, "flash_bwd_dq": dq,
-            "flash_bwd_dkv_bf16": dkv_f + 2 * bq * (d + 2) * 2,
-            "flash_bwd_dkv_f32": dkv_f + 2 * bq * (d + 1) * 4}
+    dim `d`, bf16 and float32 (the wrapper's ``tile_plan``, which every bf16
+    launch checks against the compiled tiles)."""
+    return {f"{name}<{dt}>": plan["smem"]
+            for dtype, dt in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))
+            for name, plan in tile_plan(dtype, d).items()}
 
 
 def time_flash_d256(device) -> dict:
     """The flash forward and backward at the gossip step's attention shape
     (bf16, B=1, 8/4 heads, S=2048, D=256, causal, window 4096, softcap 50):
     kernel, plain version and bound. No single PyTorch call computes a
-    softcapped attention (SDPA has no softcap): no library time."""
+    softcapped attention (SDPA has no softcap): no library time. SDPA
+    without the softcap on the same tensors is logged beside it as a
+    yardstick of the card's rate only: not the same function."""
     b, hq, hkv, s, _, d, causal, window, cap = GEMMA2_ATTENTION[0]
     q, k, v = flash_inputs(b, hq, hkv, s, s, d, torch.bfloat16, device)
     do = flash_inputs(b, hq, hq, s, s, d, torch.bfloat16, device, seed=1)[0]
@@ -2114,20 +2129,55 @@ def time_flash_d256(device) -> dict:
     bwd = lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw)  # noqa: E731
     out = {
         "flash_attention": {
-            "ms": cuda_ms(fwd, iters=20, warmup=3),
-            "device_ms": kernel_device_ms(fwd, ("flash_fwd_kernel",), iters=5),
+            "ms": cuda_ms(fwd, iters=50, warmup=5),
+            "device_ms": kernel_device_ms(fwd, FLASH_FWD_KERNELS, iters=10),
             "plain_ms": cuda_ms(lambda: attention_ref(q, k, v, **kw), iters=5, warmup=1),
             "bound_ms": b_f[0], "bound_by": b_f[1], "library_ms": None},
         "flash_attention_bwd": {
-            "ms": cuda_ms(bwd, iters=10, warmup=2),
-            "device_ms": kernel_device_ms(bwd, ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
-                                          iters=3),
+            "ms": cuda_ms(bwd, iters=20, warmup=3),
+            "device_ms": kernel_device_ms(bwd, flash_bwd_kernels(d), iters=5),
             "plain_ms": cuda_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, **kw),
                                 iters=3, warmup=1),
             "bound_ms": b_b[0], "bound_by": b_b[1], "library_ms": None},
     }
-    log("attention", f"D=256 (gemma2-2b gossip shape): {json.dumps(out)}")
+    split = {n: kernel_device_ms(bwd, (n,), iters=5) for n in flash_bwd_kernels(d)}
+    log("attention-profile", f"D=256 (gemma2-2b gossip shape): {json.dumps(out)}; backward "
+        f"device ms by kernel {json.dumps(split)}")
+    # SDPA has no softcap: the same tensors without it (not the same function)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    sd_out = sdpa(*leaves, is_causal=True, enable_gqa=True)
+    log("attention-profile", "D=256 SDPA without softcap, not the same function: forward "
+        f"{cuda_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), iters=50, warmup=5)}"
+        " ms, backward "
+        f"{cuda_ms(lambda: torch.autograd.grad(sd_out, leaves, do, retain_graph=True), iters=20, warmup=3)}"
+        " ms")
     return out
+
+
+def attention_profile(device) -> dict:
+    """Run in a fresh process (``chip_smoke.py --attention-profile``; late in
+    the main process torch.profiler has dropped kernel events): the bf16
+    flash forward and backward at D=128 (the score and train shapes) and at
+    D=256 (the gossip shape), by CUDA events and profiler device time, beside
+    the plain version, the bound and SDPA (D=128)."""
+    return {"flash_attention": time_attention(device),
+            "flash_attention_bwd": time_flash_bwd(device), "d256": time_flash_d256(device)}
+
+
+def profile_subprocess(flag: str, timeout: float = 900) -> dict:
+    """``chip_smoke.py <flag>`` in a fresh process on the same card; its
+    JSON result (the last line of its output)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), flag], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=timeout)
+    tag = flag.removeprefix("--")
+    log(tag, f"rc={r.returncode} in {time.perf_counter() - t0:.1f} s\n{r.stdout.strip()}")
+    if r.returncode != 0:
+        raise AssertionError(f"{tag} failed:\n{r.stderr[-4000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
 
 
 def main() -> int:
@@ -2152,11 +2202,14 @@ def main() -> int:
     log("build", f"{sorted(built)} built, {len(_build.SIGNATURES)} loaded in "
         f"{time.perf_counter() - t0:.1f} s")
     ptxas = ptxas_report(built)
-    log("build", "ptxas (head_dim 256 flash kernels, block_topk, the ssd kernels at mamba2's "
-        "hd 64 and ds 128): " + json.dumps(
+    log("build", "ptxas (the flash kernels at head_dim 128 and 256, block_topk, the ssd kernels "
+        "at mamba2's hd 64 and ds 128): " + json.dumps(
             {k: v for k, v in ptxas.items()
-             if k.endswith(",256>") or k.startswith("block_topk") or k.endswith("<64,128>")}))
-    log("build", f"dynamic shared memory at head_dim 256, bytes: {json.dumps(flash_smem_bytes(256))}")
+             if (k.startswith("flash_") and k.endswith((",128>", ",256>")))
+             or k.startswith("block_topk") or k.endswith("<64,128>")}))
+    for d in (128, 256):
+        log("build", f"dynamic shared memory a block at head_dim {d}, bytes: "
+            f"{json.dumps(flash_smem_bytes(d))}")
 
     t0 = time.perf_counter()
     rcv1, news20 = DATASET_PRESETS["rcv1"], DATASET_PRESETS["news20"]
@@ -2197,12 +2250,15 @@ def main() -> int:
 
     t0 = time.perf_counter()
     errs.update(attention_parity(dev, decode_main))
-    times.update(time_attention(dev, decode_main))
+    times["decode_attention"] = time_decode(dev, decode_main)
     errs["flash_attention_bwd"] = flash_bwd_parity(dev)
-    times["flash_attention_bwd"] = time_flash_bwd(dev)
-    time_flash_d256(dev)
     del decode_main  # holds views of the serve pool
     log("attention", f"done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    aprof = profile_subprocess("--attention-profile")
+    times["flash_attention"] = aprof["flash_attention"]
+    times["flash_attention_bwd"] = aprof["flash_attention_bwd"]
+    log("attention-profile", f"done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     _, score_launches = score_phase(dev, cfg, params)
@@ -2305,9 +2361,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--ssm-profile"]:
+    PROFILES = {"--ssm-profile": ssm_profile, "--attention-profile": attention_profile}
+    if len(sys.argv) == 2 and sys.argv[1] in PROFILES:
         if not torch.cuda.is_available():
             sys.exit(1)
-        print(json.dumps(ssm_profile(torch.device("cuda"))))
+        print(json.dumps(PROFILES[sys.argv[1]](torch.device("cuda"))))
         sys.exit(0)
     sys.exit(main())

@@ -4,8 +4,9 @@ Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface; no PyTorch headers are included, so a
 build takes seconds; ``build_all`` starts one ``nvcc`` per source at once.
 Libraries go into ``kernels/build/`` (listed in
-``.gitignore``), named by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is. Nothing here
+``.gitignore``), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is. Nothing here
 runs at import time: ``load_library`` is called by the kernel wrappers (and
 by ``chip_smoke.py``, which times the build).
 
@@ -40,10 +41,15 @@ _DECODE = [_P] * 6 + [_I] * 10 + [_F, _F, _I, _P]
 # flash_attention_fwd_<dt>(q, k, v, o, lse, B, Hq, Hkv, S, Sk, D, causal,
 #   has_window, window, has_softcap, softcap, scale, device, stream)
 _FLASH = [_P] * 5 + [_I] * 10 + [_F, _F, _I, _P]
+# the bf16 (sm90) entry points take the tile plan's dynamic shared memory
+# before the device: ..., scale, smem, device, stream (backward: smem_dq,
+# smem_dkv)
+_FLASH_SM90 = [_P] * 5 + [_I] * 10 + [_F, _F, _I, _I, _P]
 # flash_attention_bwd_<dt>(q, k, v, o, lse, do, delta, dq, dk, dv, B, Hq, Hkv,
 #   S, Sk, D, causal, has_window, window, has_softcap, softcap, scale, device,
 #   stream)
 _FLASH_BWD = [_P] * 10 + [_I] * 10 + [_F, _F, _I, _P]
+_FLASH_BWD_SM90 = [_P] * 10 + [_I] * 10 + [_F, _F, _I, _I, _I, _P]
 _I64 = ctypes.c_int64
 # ssd_chunk_fwd_f32(xdt, cum, B, C, y, st, BC, Q, nh, hd, ds, device, stream)
 _SSD_FWD = [_P] * 6 + [_I] * 6 + [_P]
@@ -60,9 +66,12 @@ SIGNATURES = {
         "sparse_dot_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "decode_attention": {"decode_attention_bf16": _DECODE, "decode_attention_f32": _DECODE},
-    "flash_attention": {"flash_attention_fwd_bf16": _FLASH, "flash_attention_fwd_f32": _FLASH},
-    "flash_attention_bwd": {"flash_attention_bwd_bf16": _FLASH_BWD,
-                            "flash_attention_bwd_f32": _FLASH_BWD},
+    # float32 attention: the CUDA-core kernels; bfloat16: wgmma + TMA forward,
+    # tensor-core (mma.sync) backward
+    "flash_attention": {"flash_attention_fwd_f32": _FLASH},
+    "flash_attention_bwd": {"flash_attention_bwd_f32": _FLASH_BWD},
+    "flash_attention_sm90": {"flash_attention_fwd_bf16": _FLASH_SM90},
+    "flash_attention_bwd_sm90": {"flash_attention_bwd_bf16": _FLASH_BWD_SM90},
     # block_topk_f32(x, vals, idx, nb, block, k, device, stream)
     "topk_compress": {"block_topk_f32": [_P, _P, _P, _I, _I, _I, _I, _P]},
     "ssd_scan": {
@@ -91,7 +100,8 @@ def nvcc_path() -> str:
 
 def _library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))  # shared by sources
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

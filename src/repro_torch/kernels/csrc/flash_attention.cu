@@ -1,4 +1,4 @@
-// Hand-written Hopper kernel for the flash-attention forward pass.
+// Hand-written Hopper kernel for the float32 flash-attention forward pass.
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/flash_attention.py
 // (flash_attention_fwd / _attn_kernel): blocked online-softmax attention
@@ -23,16 +23,17 @@
 // What bounds it on an H100: operations. At the scoring shape (B=1,
 // minitron-8b's 32 heads, S=2048, D=128, causal) a call does about
 // 4*S*S*D*Hq/2 = 34 GFLOP against 42 MB of inputs and outputs, far above
-// the card's ridge point. This first version uses float32 FMAs (CUDA cores, 67 TFLOP/s
-// peak) with bf16 or float32 inputs converted when staged; tensor cores
-// (mma.sync, then wgmma with TMA-fed shared-memory rings) are the later
-// step that reaches the 989 TFLOP/s bf16 rate.
+// the card's ridge point. This kernel uses float32 FMAs on CUDA cores
+// (67 TFLOP/s peak) and serves float32 inputs only: a tensor-core product
+// on float32 is TF32, which keeps about 3 decimal digits and cannot meet the
+// 2e-5 float32 bar. bfloat16 inputs (every call on the score, train and
+// gossip paths) go to the wgmma kernel of flash_attention_sm90.cu; the
+// wrapper picks by dtype.
 //
 // Plain C entry points (bound with ctypes by kernels/_build.py). Each
 // launches on the given stream, allocates nothing, does not synchronise,
 // and returns cudaGetLastError() right after its launch.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -44,13 +45,9 @@ constexpr int kBK = 32;        // k rows per tile
 constexpr int kThreads = 256;  // 16 x 16: ty owns 4 rows, tx owns 2 k columns / D/16 o columns
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 template <int D>
 constexpr size_t smem_floats() {
@@ -238,16 +235,6 @@ int launch(const T* q, const T* k, const T* v, T* o, float* lse, int B, int Hq, 
 }  // namespace
 
 extern "C" {
-
-int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
-                             int B, int Hq, int Hkv, int S, int Sk, int D, int causal,
-                             int has_window, int window, int has_softcap, float softcap,
-                             float scale, int device, void* stream) {
-  return launch<__nv_bfloat16>((const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-                               (const __nv_bfloat16*)v, (__nv_bfloat16*)o, lse, B, Hq, Hkv, S,
-                               Sk, D, causal, has_window, window, has_softcap, softcap, scale,
-                               device, stream);
-}
 
 int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o, float* lse,
                             int B, int Hq, int Hkv, int S, int Sk, int D, int causal,

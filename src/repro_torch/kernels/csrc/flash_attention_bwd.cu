@@ -1,4 +1,4 @@
-// Hand-written Hopper kernels for the flash-attention backward pass.
+// Hand-written Hopper kernels for the float32 flash-attention backward pass.
 //
 // Replace the Pallas TPU kernels of src/repro/kernels/flash_attention.py
 // (flash_attention_bwd -> _attn_bwd_dq_kernel and _attn_bwd_dkv_kernel):
@@ -27,11 +27,9 @@
 //               accumulates dk and dv in float32 registers (2 rows x D/16
 //               columns each a thread) and writes them once. The group
 //               sum happens in registers: no partials, no atomics, so a
-//               step is bit-for-bit the same from run to run. Its q and do
-//               tiles stay in the input dtype in shared memory (bf16: 83 KB
-//               a block at D=128, two blocks an SM, where float32 staging
-//               took 116 KB and one), and the 1/sqrt(D) is applied to the
-//               dot products and to dk rather than to the staged q.
+//               step is bit-for-bit the same from run to run. The
+//               1/sqrt(D) is applied to the dot products and to dk rather
+//               than to the staged q.
 // The dkv kernel reads the delta the dq kernel wrote, so the two launch in
 // that order on one stream. Ragged S and Sk are masked in the kernels
 // (rows past S and keys past Sk are never read or written), not padded.
@@ -39,16 +37,17 @@
 // What bounds it on an H100: operations. At the train shape (B=2,
 // minitron-8b's 32/8 heads, S=2048, D=128, causal) the gradient needs five
 // products of the causal S x S x D band (s, dp, dq, dk, dv), ~172 GFLOP
-// against ~84 MB of inputs and outputs. Like the forward, this first
-// version uses float32 FMAs on CUDA cores (67 TFLOP/s peak) and recomputes
-// s and dp in both kernels (seven products); tensor cores (mma.sync, then
-// wgmma with TMA) are the later step toward the 989 TFLOP/s bf16 rate.
+// against ~84 MB of inputs and outputs. Like the forward, these kernels use
+// float32 FMAs on CUDA cores (67 TFLOP/s peak), recompute s and dp in both
+// kernels (seven products), and serve float32 inputs only: a tensor-core
+// product on float32 is TF32 (about 3 decimal digits), short of the 2e-4
+// float32 gradient bar. bfloat16 inputs go to the tensor-core kernels of
+// flash_attention_bwd_sm90.cu; the wrapper picks by dtype.
 //
 // Plain C entry points (bound with ctypes by kernels/_build.py). Each
 // launches on the given stream, allocates nothing, does not synchronise,
 // and returns the first launch error.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,13 +58,9 @@ constexpr int kBK = 32;        // kv rows per tile
 constexpr int kThreads = 256;  // 16 x 16 (ty, tx)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 struct Mask {
   int S, Sk, causal, has_window, window, has_softcap;
@@ -98,7 +93,7 @@ constexpr size_t dq_smem_floats() {
 // row stride of a q / do tile of the dkv kernel: one 4-byte bank past D
 template <typename T, int D>
 __host__ __device__ constexpr int dkv_q_stride() {
-  return sizeof(T) == 2 ? D + 2 : D + 1;
+  return D + 1;
 }
 
 template <typename T, int D>
@@ -446,16 +441,6 @@ int launch(const void* q, const void* k, const void* v, const void* o, const flo
 }  // namespace
 
 extern "C" {
-
-int flash_attention_bwd_bf16(const void* q, const void* k, const void* v, const void* o,
-                             const float* lse, const void* dout, float* delta, void* dq,
-                             void* dk, void* dv, int B, int Hq, int Hkv, int S, int Sk, int D,
-                             int causal, int has_window, int window, int has_softcap,
-                             float softcap, float scale, int device, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, lse, dout, delta, dq, dk, dv, B, Hq, Hkv, S, Sk, D,
-                               causal, has_window, window, has_softcap, softcap, scale, device,
-                               stream);
-}
 
 int flash_attention_bwd_f32(const void* q, const void* k, const void* v, const void* o,
                             const float* lse, const void* dout, float* delta, void* dq,

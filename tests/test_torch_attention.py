@@ -35,6 +35,50 @@ FLASH_CASES = {
 }
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Each test here runs torch's CPU kernels on one thread: with JAX
+    computing in the same process, torch's multi-threaded CPU kernels now
+    and then return one worker thread's share of a tensor slightly wrong
+    (tests/test_torch_ssm.py's fixture says more), which the float32 bars
+    here would report as a port fault."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+class _FakeLibrary:
+    """Stands in for a CUDA library: records the entry point a wrapper call
+    reaches and its arguments, and returns success."""
+
+    def __init__(self, name, calls):
+        self.name, self.calls = name, calls
+
+    def __getattr__(self, fn):
+        def call(*args):
+            self.calls.append((self.name, fn, args))
+            return 0
+        return call
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """The wrappers' launch path without a card: CPU tensors take the kernel
+    route, and the libraries record their calls (a list of (library, entry
+    point, arguments)). The launch counts are restored afterwards: other
+    tests hold that no kernel launches on the CPU."""
+    from repro_torch.kernels import _build
+
+    calls = []
+    for fn in (FA.flash_attention, FA.flash_attention_bwd):  # the fake launches count
+        monkeypatch.setattr(fn, "launches", fn.launches)
+    monkeypatch.setattr(_build, "plain_or_raise", lambda t: False)
+    monkeypatch.setattr(_build, "load_library", lambda name: _FakeLibrary(name, calls))
+    monkeypatch.setattr(_build, "stream", lambda t: 0)
+    return calls
+
+
 def _flash_inputs(case, dtype=np.float32, seed=0):
     B, Hq, Hkv, S, Sk, D = case[:6]
     rng = np.random.default_rng(seed)
@@ -239,3 +283,72 @@ def test_every_cuda_source_is_bound():
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == set(_build.SIGNATURES)
     for name, fns in _build.SIGNATURES.items():
         assert all(f.endswith(("_bf16", "_f32", "_f64")) for f in fns), name
+
+
+H100_SMEM_PER_BLOCK = 232_448  # bytes a block may use (227 KB)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", FA.HEAD_DIMS)
+def test_tile_plan_fits_an_h100(d, dtype):
+    """Every kernel a call launches fits a block's shared memory, and its
+    grid covers the shape: the q tiles cover S, the kv tiles Sk."""
+    B, Hq, Hkv, S, Sk = 2, 32, 8, 1000, 1037
+    plan = FA.tile_plan(dtype, d, B, Hq, Hkv, S, Sk)
+    assert len(plan) == 3
+    for name, p in plan.items():
+        assert 0 < p["smem"] <= H100_SMEM_PER_BLOCK, name
+        assert p["threads"] % 128 == 0 and p["threads"] <= 1024, name
+        assert p["block_q"] % 16 == 0 and p["block_k"] % 16 == 0, name
+        assert B in p["grid"] and np.prod(p["grid"]) < 2 ** 31, name
+    by_kind = {("fwd" if "fwd" in n else "dkv" if "dkv" in n else "dq"): p
+               for n, p in plan.items()}
+    for kind in ("fwd", "dq"):
+        p = by_kind[kind]
+        assert sorted(p["grid"]) == sorted((Hq, -(-S // p["block_q"]), B)), kind
+    p = by_kind["dkv"]
+    assert sorted(p["grid"]) == sorted((Hkv, -(-Sk // p["block_k"]), B))
+
+
+def test_tile_plan_bf16_kernels():
+    """The bf16 plan is the sm90 kernels': the forward a 128-row q tile on
+    three warpgroups (a TMA producer and two wgmma consumers) with its
+    swizzle atoms 1 KB-aligned; at gemma2-2b's attention (D=256, 8 heads,
+    S=2048) its grid is one wave on the H100's 132 SMs."""
+    plan = FA.tile_plan(torch.bfloat16, 128)
+    assert set(plan) == {"flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                         "flash_bwd_dkv_wgmma_kernel"}
+    fwd = plan["flash_fwd_wgmma_kernel"]
+    assert (fwd["block_q"], fwd["block_k"], fwd["threads"]) == (128, 128, 384)
+    # 1 KB alignment slack + Q (128 x 128) + 2 stages of K and V (128 x 128) + barriers
+    assert fwd["smem"] == 1024 + 2 * 128 * 128 + 4 * 2 * 128 * 128 + 64
+    assert set(FA.tile_plan(torch.float32, 128)) == {
+        "flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"}
+    gemma = FA.tile_plan(torch.bfloat16, 256, B=1, Hq=8, Hkv=4, S=2048, Sk=2048)
+    grid = gemma["flash_fwd_wgmma_kernel"]["grid"]
+    assert np.prod(grid) == 128 <= 132
+    with pytest.raises(TypeError):
+        FA.tile_plan(torch.float16, 128)
+
+
+@pytest.mark.parametrize("d", FA.HEAD_DIMS)
+def test_forward_routes_by_dtype(fake_card, d):
+    """A bf16 call reaches the wgmma kernel's entry point with the tile
+    plan's shared memory, a float32 call the CUDA-core kernel's; each with
+    every argument its bound signature declares."""
+    from repro_torch.kernels import _build
+
+    q, k = torch.zeros(1, 2, 5, d), torch.zeros(1, 1, 7, d)
+    n0 = FA.flash_attention.launches
+    FA.flash_attention(q.bfloat16(), k.bfloat16(), k.bfloat16(), causal=False)
+    FA.flash_attention(q, k, k, window=3, softcap=5.0)
+    assert FA.flash_attention.launches == n0 + 2
+    (lib_b, fn_b, args_b), (lib_f, fn_f, args_f) = fake_card
+    assert (lib_b, fn_b) == ("flash_attention_sm90", "flash_attention_fwd_bf16")
+    assert (lib_f, fn_f) == ("flash_attention", "flash_attention_fwd_f32")
+    assert args_b[-3] == FA.tile_plan(torch.bfloat16, d)["flash_fwd_wgmma_kernel"]["smem"]
+    assert len(args_b) == len(_build.SIGNATURES[lib_b][fn_b])
+    assert len(args_f) == len(_build.SIGNATURES[lib_f][fn_f])
+    # (B, Hq, Hkv, S, Sk, D, causal, has_window, window, has_softcap, softcap, scale)
+    assert args_b[5:17] == (1, 2, 1, 5, 7, d, 0, 0, 0, 0, 0.0, 1.0 / np.sqrt(d))
+    assert args_f[5:16] == (1, 2, 1, 5, 7, d, 1, 1, 3, 1, 5.0)

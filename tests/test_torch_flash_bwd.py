@@ -19,11 +19,24 @@ from repro.kernels import ref as JREF
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import attention_ref, flash_attention_bwd_ref
-from test_torch_attention import FLASH_CASES, _flash_inputs
+from test_torch_attention import FLASH_CASES, _flash_inputs, fake_card  # noqa: F401
 
 GRAD = {torch.float32: ops.get_kernel("flash_attention").grad_tolerance(torch.float32),
         torch.bfloat16: ops.get_kernel("flash_attention").grad_tolerance(torch.bfloat16)}
 JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Each test here runs torch's CPU kernels on one thread: with JAX
+    computing in the same process, torch's multi-threaded CPU kernels now
+    and then return one worker thread's share of a tensor slightly wrong
+    (tests/test_torch_ssm.py's fixture says more), which the float32
+    gradient bars here would report as a port fault."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _inputs(name, dtype):
@@ -168,3 +181,62 @@ def test_flash_bwd_wrapper_checks():
         FA.flash_attention_bwd(q, k, v, o, lse, do, window=0)
     with pytest.raises(ValueError, match="device"):
         FA.flash_attention_bwd(*[t.to("meta") for t in (q, k, v, o, lse, do)])
+
+
+H100_SMEM_PER_SM = 233_472  # bytes of shared memory an SM has for blocks (228 KB)
+
+
+@pytest.mark.parametrize("d", FA.HEAD_DIMS)
+def test_bwd_tile_plan_per_head_dim(d):
+    """The bf16 backward's kernels by head dim. The dq kernel runs wgmma on
+    two warpgroups at D >= 64 (128-row q tiles, one CTA an SM) and mma.sync
+    on 4 warps below (two CTAs an SM); the dk/dv kernel wgmma at D = 64 and
+    128 (128-row kv tiles, one CTA an SM) and mma.sync on 8 warps at 16, 32
+    (two CTAs an SM) and 256 (64-row q steps, one CTA an SM, where a
+    warpgroup's dk and dv would not fit its registers). Each block also
+    costs the 1 KB the card reserves; registers are ptxas' to report
+    (``chip_smoke.py``'s build phase)."""
+    (dq_name, dq), (kv_name, dkv) = FA.bwd_kernels(FA.tile_plan(torch.bfloat16, d)).items()
+    wg_dq, wg_kv = d >= 64, d in (64, 128)
+    assert dq_name == f"flash_bwd_dq_{'wgmma' if wg_dq else 'mma'}_kernel"
+    assert kv_name == f"flash_bwd_dkv_{'wgmma' if wg_kv else 'mma'}_kernel"
+    assert dq["threads"] == (256 if wg_dq else 128) and dkv["threads"] == 256
+    assert (dq["block_q"] == 128) == wg_dq and (dkv["block_k"] == 128) == (d != 256)
+    for p, ctas in ((dq, 1 if wg_dq else 2), (dkv, 1 if wg_kv or d == 256 else 2)):
+        assert ctas * (p["smem"] + 1024) <= H100_SMEM_PER_SM
+    if d == 256:
+        assert dkv["block_q"] == 64
+
+
+def test_bwd_tile_plan_gemma2_grids():
+    """At gemma2-2b's attention (B=1, 8/4 heads, S=2048, D=256) the dq grid
+    is one wave on the H100's 132 SMs (one CTA each); the dk/dv kernel
+    takes 32-row kv tiles (256 CTAs, the heaviest, under causal masking the
+    first kv tiles, launched first)."""
+    plan = FA.tile_plan(torch.bfloat16, 256, B=1, Hq=8, Hkv=4, S=2048, Sk=2048)
+    assert np.prod(plan["flash_bwd_dq_wgmma_kernel"]["grid"]) <= 132
+    dkv = plan["flash_bwd_dkv_mma_kernel"]
+    assert dkv["block_k"] == 32 and dkv["grid"] == (4, 64, 1)
+
+
+@pytest.mark.parametrize("d", FA.HEAD_DIMS)
+def test_bwd_routes_by_dtype(fake_card, d):
+    """A bf16 backward reaches the tensor-core kernels' entry point with the
+    tile plan's shared memory of both kernels, a float32 one the CUDA-core
+    kernels'; two launches a call either way."""
+    from repro_torch.kernels import _build
+
+    q, k = torch.zeros(1, 2, 5, d), torch.zeros(1, 1, 7, d)
+    lse = torch.zeros(1, 2, 5)
+    n0 = FA.flash_attention_bwd.launches
+    for dt in (torch.bfloat16, torch.float32):
+        qq, kk = q.to(dt), k.to(dt)
+        FA.flash_attention_bwd(qq, kk, kk, qq, lse, qq, causal=True)
+    assert FA.flash_attention_bwd.launches == n0 + 4
+    (lib_b, fn_b, args_b), (lib_f, fn_f, args_f) = fake_card
+    assert (lib_b, fn_b) == ("flash_attention_bwd_sm90", "flash_attention_bwd_bf16")
+    assert (lib_f, fn_f) == ("flash_attention_bwd", "flash_attention_bwd_f32")
+    dq, dkv = FA.bwd_kernels(FA.tile_plan(torch.bfloat16, d)).values()
+    assert args_b[-4:-2] == (dq["smem"], dkv["smem"])
+    assert len(args_b) == len(_build.SIGNATURES[lib_b][fn_b])
+    assert len(args_f) == len(_build.SIGNATURES[lib_f][fn_f])
