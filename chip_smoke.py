@@ -11,9 +11,10 @@ printed with its seconds:
 2. build   -- compiles ``src/repro_torch/kernels/csrc/*.cu`` (first use);
    logs ptxas' registers and spills of the flash kernels at head_dim 128
    and 256 (bf16: the wgmma forward and the tensor-core backward; float32:
-   the CUDA-core kernels), of block_topk and of the ssd kernels at
-   (hd, ds) = (64, 128), and the flash kernels' dynamic shared memory at
-   128 and 256 (the wrapper's tile plan).
+   the CUDA-core kernels), of block_topk and of the ssd kernels at hd 64,
+   the flash kernels' dynamic shared memory at 128 and 256 (the wrapper's
+   tile plan) and the ssd plan (head groups, shared memory, grids) at the
+   three ssd shapes below.
 3. kernels -- every kernel of the main path against its plain PyTorch
    version on the card, at the main path's shapes (rcv1 preset: N=10,
    D=47,236, k=74 for a step; D=47,239, k=7,400 for init_state's phibar
@@ -159,8 +160,9 @@ printed with its seconds:
    1e-3 relative, every gradient leaf within 5e-2 in relative norm). Then,
    in a fresh process (``chip_smoke.py --ssm-profile``; late in this one
    torch.profiler has dropped kernel events), the SSD kernels are timed at
-   the train shape (events and profiler, beside the bound and the plain
-   version) and a train step is profiled (device busy, idle share).
+   the train, score and prefill shapes (events and profiler, beside both
+   bounds and the plain version) and a train step is profiled (device
+   busy, idle share).
 Before phase 9, flash_attention_bwd is held to its plain version at the
 train shape and at ragged small shapes (every head dim, GQA, MQA, window,
 softcap), bf16 and f32 (bars 5e-2, 2e-4); its times come from the
@@ -215,7 +217,7 @@ from repro_torch.kernels.ref import (  # noqa: E402
     sparse_axpy_ref, sparse_dot_ref, ssd_chunk_bwd_ref, ssd_chunk_ref,
 )
 from repro_torch.kernels.sparse_saga import sparse_axpy, sparse_dot  # noqa: E402
-from repro_torch.kernels.ssd_scan import ssd_chunk_bwd, ssd_chunk_fwd  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_chunk_bwd, ssd_chunk_fwd, ssd_plan  # noqa: E402
 from repro_torch.kernels.topk_compress import block_topk  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.params import tree_leaves, tree_map, tree_num_params  # noqa: E402
@@ -227,6 +229,9 @@ from repro_torch.train.step import TrainConfig, init_train_state, local_grads, t
 # (non-tensor-core) arithmetic rates and the dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12, torch.bfloat16: 989e12}
+# the dense TF32 tensor-core rate: the SSD kernels' products (3 TF32 a float32 product)
+TF32 = "tf32"
+PEAK_OPS_PER_S[TF32] = 495e12
 
 SOURCES = {
     "sparse_dot": "src/repro_torch/kernels/csrc/sparse_saga.cu",
@@ -387,6 +392,15 @@ def kernel_device_ms(fn, names, iters=50, windows=3):
     return None
 
 
+def call_device_ms(fn, iters=50) -> float:
+    """Device milliseconds per call of ``fn``, summed over every CUDA kernel
+    it launches (profiler), after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    _, kern = device_profile(fn, iters)
+    return sum(t for t, _ in kern.values()) / iters / 1e3
+
+
 def bound(nbytes: float, nops: float, dtype) -> tuple[float, str]:
     """(least milliseconds, 'bytes' | 'operations') for this much work."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -429,6 +443,8 @@ def time_kernels(device, n, d, k, dtype=torch.float64) -> dict[str, dict]:
         "plain_ms": cuda_ms(lambda: sparse_dot_ref(psi, idx, val)),
         "bound_ms": b_dot[0], "bound_by": b_dot[1],
         "library_ms": cuda_ms(lambda: csr @ flat),  # CSR sparse matrix x vector
+        # the CSR call's own device time, every kernel it launches (profiler)
+        "library_device_ms": call_device_ms(lambda: csr @ flat),
     }
     for name, r in out.items():
         log("kernels", f"{name} N={n} D={d} k={k} {dtype}: {r}")
@@ -1627,6 +1643,12 @@ def ssd_inputs(shape, device, seed=0, scale=SSD_SCALE, decay=(0.01, 0.2)):
             (rnd(B, nc, Q, nh, hd), rnd(B, nc, nh, ds, hd)))
 
 
+def _bar_ratio(got, want, tol) -> float:
+    """The largest |got - want| / (atol + rtol |want|): 1.0 is the bar."""
+    w = want.double()
+    return float(((got.double() - w).abs() / (tol.atol + tol.rtol * w.abs())).max())
+
+
 def _outside_bar(got, want, tol) -> int:
     """Elements of got farther from want than atol + rtol |want|."""
     w = want.double()
@@ -1655,9 +1677,12 @@ def ssd_parity(device) -> dict[str, float]:
             want = (ssd_chunk_ref(*(a.double() for a in args))
                     + ssd_chunk_bwd_ref(*(a.double() for a in args + cts)))
         rel = [ops.rel_err(g, w) for g, w in zip(out, want)]
+        ratio = [_bar_ratio(g, w, SSD_BAR if k < 2 else SSD_GRAD_BAR)
+                 for k, (g, w) in enumerate(zip(out, want))]
         del want
         log("ssd", f"{name} {shape}: forward max_abs_err={e_f!r} backward max_abs_err={e_b!r} "
-            f"rel_norm (y, states, dxdt, dcum, dB, dC)={rel}")
+            f"rel_norm (y, states, dxdt, dcum, dB, dC)={rel} worst |err| / (atol + rtol |want|) "
+            f"{ratio}")
         if name == "train":
             worst = {"ssd_chunk": e_f, "ssd_chunk_bwd": e_b}
     # unit-scale inputs at the train shape (reported): the kernel and the
@@ -1681,14 +1706,18 @@ def ssd_parity(device) -> dict[str, float]:
     return worst
 
 
-def ssd_bounds(shape) -> dict[str, tuple[float, str]]:
+def ssd_bounds(shape) -> dict[str, dict]:
     """The least time (ms) the card could take for one forward and one
-    backward call at `shape`, float32 on CUDA cores. Operations counted for
-    the causal pairs i >= j that the function needs: the scores (2 ds a
-    pair), per head 2 hd a pair for y (forward) and for dM and dxdt
-    (backward), 2 Q ds hd for the chunk state (forward) and for each of its
-    two gradient terms (backward), and dscores -> dB, dC (4 ds a pair).
-    Bytes: each input read once, each output written once."""
+    backward call at `shape`. Operations counted for the causal pairs
+    i >= j that the function needs: the scores (2 ds a pair), per head
+    2 hd a pair for y (forward) and for dM and dxdt (backward), 2 Q ds hd
+    for the chunk state (forward) and for each of its two gradient terms
+    (backward), and dscores -> dB, dC (4 ds a pair). Bytes: each input read
+    once, each output written once. Two rates for these float32 products:
+    the CUDA cores' float32 peak (``bound_fp32_ms``), and three TF32
+    tensor-core products a product at the TF32 peak, the split the kernels
+    use (``bound_ms``, the lesser: the least time for float32-accurate
+    products on this card)."""
     B, nc, Q, nh, hd, ds = shape
     bc, pairs = B * nc, Q * (Q + 1) // 2
     fwd_ops = bc * (pairs * 2 * ds + nh * (pairs * 2 * hd + 2 * Q * ds * hd))
@@ -1696,38 +1725,52 @@ def ssd_bounds(shape) -> dict[str, tuple[float, str]]:
     x, c, bcd, st = bc * Q * nh * hd, bc * Q * nh, bc * Q * ds, bc * nh * ds * hd
     fwd_bytes = 4 * (x + c + 2 * bcd + x + st)
     bwd_bytes = 4 * (x + c + 2 * bcd + x + st + x + c + 2 * bcd)
-    return {"ssd_chunk": bound(fwd_bytes, fwd_ops, torch.float32),
-            "ssd_chunk_bwd": bound(bwd_bytes, bwd_ops, torch.float32)}
+    out = {}
+    for name, nbytes, nops in (("ssd_chunk", fwd_bytes, fwd_ops),
+                               ("ssd_chunk_bwd", bwd_bytes, bwd_ops)):
+        fp32, tf32 = bound(nbytes, nops, torch.float32), bound(nbytes, 3 * nops, TF32)
+        out[name] = {"bound_ms": tf32[0], "bound_by": tf32[1], "bound_fp32_ms": fp32[0],
+                     "gflop": nops / 1e9, "bound_counts": "3 TF32 products a float32 product"}
+    return out
 
 
 def time_ssd(device) -> dict[str, dict]:
-    """Both SSD kernels at the train shape: CUDA events, profiler device
-    time, the plain version (float32, on the card) and the bound. No single
-    PyTorch call computes them: library "none"."""
-    shape = SSD_MAIN["train"]
-    args, cts = ssd_inputs(shape, device)
-    bounds = ssd_bounds(shape)
-    fwd = lambda: ssd_chunk_fwd(*args)  # noqa: E731
-    bwd = lambda: ssd_chunk_bwd(*args, *cts)  # noqa: E731
-    out = {
-        "ssd_chunk": {
-            "ms": cuda_ms(fwd, iters=20, warmup=3),
-            "device_ms": kernel_device_ms(fwd, ("ssd_fwd_kernel",), iters=5),
-            "plain_ms": cuda_ms(lambda: ssd_chunk_ref(*args), iters=5, warmup=1),
-            "bound_ms": bounds["ssd_chunk"][0], "bound_by": bounds["ssd_chunk"][1],
-            "library_ms": None},
-        "ssd_chunk_bwd": {
-            "ms": cuda_ms(bwd, iters=10, warmup=2),
-            "device_ms": kernel_device_ms(bwd, ("ssd_bwd_rows_kernel", "ssd_bwd_cols_kernel",
-                                                "ssd_bwd_finish_kernel"), iters=5),
-            "plain_ms": cuda_ms(lambda: ssd_chunk_bwd_ref(*args, *cts), iters=3, warmup=1),
-            "bound_ms": bounds["ssd_chunk_bwd"][0], "bound_by": bounds["ssd_chunk_bwd"][1],
-            "library_ms": None},
-    }
-    split = {n: kernel_device_ms(bwd, (n,), iters=5)
-             for n in ("ssd_bwd_rows_kernel", "ssd_bwd_cols_kernel", "ssd_bwd_finish_kernel")}
-    log("ssd", f"train shape {shape}: {json.dumps(out)}; backward device ms by kernel "
-        f"{json.dumps(split)}")
+    """Both SSD kernels at each main-path shape (train, score, serve
+    prefill): CUDA events, profiler device time, the plain version (float32,
+    on the card) and the bounds. The kernels line carries the train shape's
+    numbers, and every shape's under ``shapes``. No single PyTorch call
+    computes them: library "none"."""
+    fwd_names = ("ssd_fwd_kernel",)
+    bwd_names = ("ssd_bwd_rows_kernel", "ssd_bwd_cols_kernel", "ssd_bwd_finish_kernel")
+    out = {"ssd_chunk": {"shapes": {}}, "ssd_chunk_bwd": {"shapes": {}}}
+    for label in ("train", "score", "prefill"):
+        shape = SSD_MAIN[label]
+        args, cts = ssd_inputs(shape, device)
+        bounds = ssd_bounds(shape)
+        fwd = lambda: ssd_chunk_fwd(*args)  # noqa: E731
+        bwd = lambda: ssd_chunk_bwd(*args, *cts)  # noqa: E731
+        few = 1 if label == "train" else 3
+        got = {
+            "ssd_chunk": {
+                "ms": cuda_ms(fwd, iters=20 if label == "train" else 100, warmup=3),
+                "device_ms": kernel_device_ms(fwd, fwd_names, iters=5),
+                "plain_ms": cuda_ms(lambda: ssd_chunk_ref(*args), iters=5 * few, warmup=1),
+                **bounds["ssd_chunk"], "library_ms": None},
+            "ssd_chunk_bwd": {
+                "ms": cuda_ms(bwd, iters=10 if label == "train" else 50, warmup=2),
+                "device_ms": kernel_device_ms(bwd, bwd_names, iters=5),
+                "device_ms_by_kernel": {n: kernel_device_ms(bwd, (n,), iters=5)
+                                        for n in bwd_names},
+                "plain_ms": cuda_ms(lambda: ssd_chunk_bwd_ref(*args, *cts), iters=3 * few,
+                                    warmup=1),
+                **bounds["ssd_chunk_bwd"], "library_ms": None},
+        }
+        for name, r in got.items():
+            out[name]["shapes"][label] = {"shape": list(shape), **r}
+            if label == "train":
+                out[name].update(r)
+        log("ssd", f"{label} shape {shape}: {json.dumps(got)}")
+        del args, cts
     return out
 
 
@@ -2203,13 +2246,17 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     ptxas = ptxas_report(built)
     log("build", "ptxas (the flash kernels at head_dim 128 and 256, block_topk, the ssd kernels "
-        "at mamba2's hd 64 and ds 128): " + json.dumps(
+        "at mamba2's hd 64): " + json.dumps(
             {k: v for k, v in ptxas.items()
              if (k.startswith("flash_") and k.endswith((",128>", ",256>")))
-             or k.startswith("block_topk") or k.endswith("<64,128>")}))
+             or k.startswith("block_topk") or (k.startswith("ssd_") and k.endswith("<64>"))
+             or "ssd_bwd_finish_kernel" in k}))
     for d in (128, 256):
         log("build", f"dynamic shared memory a block at head_dim {d}, bytes: "
             f"{json.dumps(flash_smem_bytes(d))}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, (b, nc, *rest) in SSD_MAIN.items():
+        log("build", f"ssd plan at the {label} shape: {json.dumps(ssd_plan(b * nc, *rest, sms))}")
 
     t0 = time.perf_counter()
     rcv1, news20 = DATASET_PRESETS["rcv1"], DATASET_PRESETS["news20"]

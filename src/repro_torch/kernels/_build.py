@@ -51,11 +51,12 @@ _FLASH_SM90 = [_P] * 5 + [_I] * 10 + [_F, _F, _I, _I, _P]
 _FLASH_BWD = [_P] * 10 + [_I] * 10 + [_F, _F, _I, _P]
 _FLASH_BWD_SM90 = [_P] * 10 + [_I] * 10 + [_F, _F, _I, _I, _I, _P]
 _I64 = ctypes.c_int64
-# ssd_chunk_fwd_f32(xdt, cum, B, C, y, st, BC, Q, nh, hd, ds, device, stream)
-_SSD_FWD = [_P] * 6 + [_I] * 6 + [_P]
+# ssd_chunk_fwd_f32(xdt, cum, B, C, y, st, BC, Q, nh, hd, ds, G, smem, device,
+#   stream): G and smem from ssd_scan.ssd_plan
+_SSD_FWD = [_P] * 6 + [_I] * 8 + [_P]
 # ssd_chunk_bwd_f32(xdt, cum, B, C, dy, dst, scratch, dxdt, dcum, dB, dC, BC, Q,
-#   nh, hd, ds, device, stream)
-_SSD_BWD = [_P] * 11 + [_I] * 6 + [_P]
+#   nh, hd, ds, GR, GC, smem_rows, smem_cols, device, stream)
+_SSD_BWD = [_P] * 11 + [_I] * 10 + [_P]
 # C signatures of each library's entry points: name -> argtypes (restype
 # int), or name -> (argtypes, restype)
 SIGNATURES = {
@@ -77,8 +78,8 @@ SIGNATURES = {
     "ssd_scan": {
         "ssd_chunk_fwd_f32": _SSD_FWD,
         "ssd_chunk_bwd_f32": _SSD_BWD,
-        # floats of scratch the backward needs: (BC, Q, nh, hd, ds) -> int64
-        "ssd_chunk_bwd_scratch_f32": ([_I] * 5, _I64),
+        # floats of scratch the backward needs: (BC, Q, nh, hd, ds, GR) -> int64
+        "ssd_chunk_bwd_scratch_f32": ([_I] * 6, _I64),
     },
 }
 

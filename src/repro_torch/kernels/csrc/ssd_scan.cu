@@ -1,5 +1,5 @@
 // Hand-written Hopper kernels for the Mamba2/SSD within-chunk computation,
-// forward and backward.
+// forward and backward, on tensor cores at float32 accuracy.
 //
 // Replace the Pallas TPU kernels of src/repro/kernels/ssd_scan.py
 // (ssd_chunk_fwd -> _ssd_chunk_kernel and ssd_chunk_bwd -> _ssd_bwd_kernel).
@@ -17,49 +17,78 @@
 // entry is SELECTED to 0 (its exp argument is selected to 0 first), never
 // multiplied by a 0/1 mask, so no inf * 0 = NaN reaches an output.
 //
-// Translation. The TPU grid walks (batch, chunk, head block) in order and
-// keeps a whole Q x Q score tile and one chunk's B and C in VMEM; at
-// mamba2's Q = 256 and ds = 128 those alone are 384 KB, more than the
-// 227 KB of shared memory a block may have. Here every kernel tiles the
-// rows i and the columns j <= i by 32 (kT), as a causal attention kernel
-// does; a block has 256 threads (8 warps); in a 32 x 32 tile warp w owns
-// rows 4w..4w+3 and lane l column l. Ragged Q, nh, hd and ds are masked in
-// the kernels (hd and ds are padded with zeros to the template widths HD in
-// {32, 64} and DS in {32, 64, 128}).
+// Arithmetic: float32 products on tensor cores by a split ("3xTF32"). Each
+// float32 operand a is split as hi = rna_tf32(a) and lo = a - hi, and a
+// product is taken as lo.hi + hi.lo + hi.hi, the two small terms first. A
+// single TF32 product keeps ~3 decimal digits and misses the 2e-5 bar at
+// Q = 256 by ~1000x. The three products of a k-step (k = 8) go into a fresh
+// register tile that is added to the accumulator on the CUDA cores: the
+// tensor cores' float32 accumulation truncates, and accumulated there over
+// dB's K = nh hd = 4096 the bias put dB outside its 2e-4 bar (lo.lo did not
+// help); added in float32 the error is at or below the CUDA-core float32
+// kernels'. Operands computed in registers (the decayed scores S o L and the
+// decay-weighted B and x) are split where they are computed.
 //
-//   forward     one launch, two kinds of block. A row block (i tile, group
-//               of G = 512 / HD heads) computes each score tile once and
-//               applies it to its G heads, y accumulated in registers
-//               (4 rows x HD/32 columns x G heads = 64 floats a thread); the
-//               tile of probabilities goes from lane to lane by shuffles.
-//               A state block (32 rows of ds, G heads) sums its rows of the
-//               chunk state over all Q steps.
-//   backward    three launches, no atomics, so the gradient is the same bit
-//               for bit from run to run:
-//     rows      one block per (i tile, 16 heads): for j tiles <= i, the
-//               score tile (written once to a scratch S for the cols
-//               kernel), dM = dy_i . xdt_j per head, the head group's
-//               partial of dscores = sum_h dM L (scratch), the row sums of
-//               dLL = dM S L (complete: the block owns the rows; stored in
-//               dcum) and, per (i tile, column, head), the column sums
-//               (scratch, finished by the finish kernel in a fixed order).
-//     cols      one block per (j tile, G heads): dxdt = sum_{i >= j} (S L)^T
-//               dy + exp(cum_{Q-1} - cum_j) (B_j dst_h), its decay-to-end
-//               term's dcum share ddte = xdt . that term (scratch), and the
-//               head group's partial of dB's state term (scratch).
-//     finish    one block per 32 rows: dC = dscores B and dB = dscores^T C +
-//               the state-term partials, summing the head groups' partials
-//               in order, and dcum = row sums - column sums - ddte, with the
-//               last row also collecting sum_j ddte (cum_{Q-1} is in every
-//               decay-to-end factor).
+// Instruction: every product is mma.sync.m16n8k8.tf32 (warp-level, 16 x 8
+// outputs, k 8), its fragments loaded from padded shared memory. wgmma
+// takes .tf32 operands only K-major (its transpose bits are for 16-bit
+// types), but half of these products contract over a dimension that lies
+// N- or M-major in memory (P.X reads X (Q x hd) over its rows, the state
+// (B o dte)^T X and dxdt's (S o L)^T dy contract over rows), and one operand
+// of most products is computed elementwise in registers first. mma.sync
+// reads a fragment from any orientation: a tile read K-major is padded to
+// a row stride of 4 mod 32 floats, a tile read N- or M-major to 8 mod 32,
+// which makes every fragment load free of bank conflicts.
+//
+// Tiles and copies: a CTA is 4 warps; a warp owns 16 rows of a 64-row tile
+// and every column of it. Tiles come into shared memory through a
+// two-stage ring of cp.async copies (16 bytes a copy when hd and ds are
+// multiples of 4 and the tensors 16-byte aligned, else 4; zero-filled past
+// Q, nh, hd and ds, so ragged shapes are masked here and not padded by the
+// caller): the next stage loads while this one multiplies. The scores use
+// ds in chunks of 32. At Q = 256 a CTA's dynamic shared memory stays under
+// ~113 KB, so two CTAs share an SM. The host-side plan (kernels/ssd_scan.py
+// ``ssd_plan``) picks the head group of each kind of CTA so that the grid
+// fills the card (two CTAs an SM); every launcher here checks the plan's
+// shared memory against its own.
+//
+//   forward     one launch, two kinds of CTA, the longest first:
+//     rows      (chunk, 64-row i tile, G heads): the score tiles S_ij for
+//               j <= i once, into shared memory (64 x Q), then for each head
+//               y_i = sum_j (S o L_h)_ij X_jh, P = S o L formed and split in
+//               registers as the A fragment.
+//     state     (chunk, 64 rows of ds, G heads): st_h = (B o dte_h)^T X_h, K = Q;
+//               B's 64 columns staged once for the chunk, X streamed per head.
+//   backward    three launches, no atomics: every partial sum is written to
+//               scratch and summed in a fixed order, so the gradient is the
+//               same bit for bit from run to run:
+//     rows      (chunk, i tile, GR heads): for j tiles <= i the score tile
+//               (registers), then per head dM = dy_i X_j^T, dscores += dM o L
+//               (the head group's partial, scratch), the row sums of
+//               dLL = dM o S o L (complete: stored in dcum) and its column
+//               sums over the tile's rows (scratch).
+//     cols      three kinds of CTA: dxdt (chunk, j tile, GC heads) =
+//               sum_{i >= j} (S o L)^T dy_i (S^T tiles into shared memory
+//               once) + dte (B_j dst_h), and ddte = xdt . that term
+//               (scratch); dB (chunk, j tile, 64 of ds) = dscores^T C +
+//               sum_h (dte x_h) dst_h^T, one product over K = nh hd; dC
+//               (chunk, i tile, 64 of ds) = dscores B. dscores is the
+//               head-group partials summed in order.
+//     finish    dcum = row sums - column sums - ddte, the last row also
+//               + sum_j ddte (cum_{Q-1} is in every decay-to-end factor).
+//   dB and dC are whole products of the cols launch (dB's state term over
+//   K = nh hd at once, not summed from head-group partials), which fills
+//   the card better than finishing them in the last launch; the finish
+//   launch is elementwise.
 //
 // What bounds it on an H100: operations. At the train shape (B=4, 8 chunks
-// of 256, 64 heads of 64, ds 128) the forward needs ~17.7 GFLOP (the causal
-// half of the intra-chunk product, the chunk states, the scores) against
-// ~346 MB of inputs and outputs, the backward ~45 GFLOP. This first version
-// uses float32 FMAs on CUDA cores (67 TFLOP/s peak): TF32 tensor cores
-// keep ~3 decimal digits and could not meet the float32 bar of 2e-5 at
-// Q = 256; a faster version needs 3xTF32 or FP32 emulation on tensor cores.
+// of 256, 64 heads of 64, ds 128) the forward needs 17.5 GFLOP (the causal
+// pairs of the scores and of y, the chunk states) and the backward 35.3
+// GFLOP (chip_smoke.py ``ssd_bounds`` counts them): 0.261 and 0.526 ms at
+// the 67 TFLOP/s float32 CUDA-core peak; as three TF32 products each at
+// the 495 TFLOP/s tensor-core peak, 0.106 and 0.214 ms. What holds these
+// kernels above that is instruction issue in the inner loop (fragment
+// loads, the split and the adds beside the products) at 8 warps an SM.
 //
 // Plain C entry points (bound with ctypes by kernels/_build.py). Each
 // launches on the given stream, allocates nothing (the backward's scratch
@@ -71,19 +100,13 @@
 
 namespace {
 
-constexpr int kT = 32;                // rows of an i or j tile, columns of a score tile
-constexpr int kThreads = 256;         // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kRW = kT / kWarps;      // tile rows a warp owns
-constexpr int kRowHeads = 16;         // heads of a backward rows block
-constexpr unsigned kFull = 0xffffffffu;
-
-// heads of a forward or backward cols block: G * HD = 512 keeps the
-// accumulators at 4 rows x HD/32 columns x G heads = 64 floats a thread
-template <int HD>
-__host__ __device__ constexpr int heads_per_block() {
-  return 512 / HD;
-}
+constexpr int kThreads = 128;      // 4 warps
+constexpr int kBM = 64;            // rows of an i or j tile; 16 a warp
+constexpr int kKC = 32;            // ds (or hd) columns of a staged chunk
+constexpr int kLdC = kKC + 4;      // a chunk read K-major
+constexpr int kLdT = kBM + 8;      // a 64-wide tile read N- or M-major
+constexpr int kLdK = kBM + 4;      // a 64-wide tile read K-major
+constexpr int kSmemMax = 232448;   // bytes of shared memory a block may have
 
 struct Shape {
   int BC, Q, nh, hd, ds;  // BC = batch x chunks
@@ -102,58 +125,137 @@ struct Shape {
 };
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// ---- PTX: cp.async, the TF32 split, mma.sync --------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// n = 16 or 4 bytes global -> shared; zeros where !valid (nothing is read)
+template <int N>
+__device__ __forceinline__ void cp_async(float* dst, const float* src, bool valid) {
+  if constexpr (N == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "r"(valid ? 4 : 0)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most one committed group of this thread's copies is pending
+__device__ __forceinline__ void cp_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// a = hi + lo: hi = cvt.rna.tf32(a) (round to nearest, ties away), lo =
+// a - hi exactly in float32, handed to the tensor core, which reads its TF32
+// bits (lo's error 2^-21 |a|, against 2^-22 when lo is rounded too; the
+// measured errors are the same). cvt.rna is computed with two integer ops:
+// conversions were the split's slowest part.
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(a - __uint_as_float(hi));
+}
+
+// d (16 x 8) += a (16 x 8) b (8 x 8), TF32 in, float32 accumulate
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = a b (16 x 8), TF32 in, float32 out, from a zero accumulator
+__device__ __forceinline__ void mma_tf32_first(float* d, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f), "f"(0.f),
+        "f"(0.f), "f"(0.f));
+}
+
+// one k-step of a warp's 16 x 8NT tile: acc += a (split here) times the
+// B fragments bload(n, b) gives for n-tiles 0 .. NT - 1, each split here.
+// The three products lo.hi + hi.lo, then hi.hi go into a fresh tile, which
+// is added to acc on the CUDA cores: the tensor cores' float32 accumulation
+// truncates, and over a long K (dB's nh hd = 4096) its bias broke the 2e-4
+// bar; a float32 add rounds to nearest.
+template <int NT, typename BLoad>
+__device__ __forceinline__ void mma_row(float (&acc)[8][4], const float (&a)[4], BLoad bload) {
+  uint32_t ah[4], al[4];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
-
-// rows [q0, q0 + kT) of B or C into smem rows of stride DS + 1, zero padded
-template <int DS>
-__device__ __forceinline__ void stage_bc(float* dst, const float* src, const Shape& sh, int bc,
-                                         int q0) {
-  for (int e = threadIdx.x; e < kT * DS; e += kThreads) {
-    const int r = e / DS, s = e % DS, q = q0 + r;
-    dst[r * (DS + 1) + s] = (q < sh.Q && s < sh.ds) ? src[sh.b(bc, q) + s] : 0.f;
-  }
-}
-
-// rows [q0, q0 + kT) of heads h0 .. h0 + G - 1 of xdt or dy into smem laid
-// out [row][head][HD + 1], zero padded past Q, nh and hd
-template <int HD, int G>
-__device__ __forceinline__ void stage_heads(float* dst, const float* src, const Shape& sh, int bc,
-                                            int q0, int h0) {
-  for (int e = threadIdx.x; e < kT * G * HD; e += kThreads) {
-    const int r = e / (G * HD), g = (e / HD) % G, d = e % HD;
-    const int q = q0 + r, h = h0 + g;
-    dst[(r * G + g) * (HD + 1) + d] =
-        (q < sh.Q && h < sh.nh && d < sh.hd) ? src[sh.x(bc, q, h) + d] : 0.f;
-  }
-}
-
-// cum of rows [q0, q0 + kT) for heads h0 .. h0 + G - 1 into smem [head][row]
-template <int G>
-__device__ __forceinline__ void stage_cum(float* dst, const float* cum, const Shape& sh, int bc,
-                                          int q0, int h0) {
-  for (int e = threadIdx.x; e < G * kT; e += kThreads) {
-    const int g = e / kT, q = q0 + e % kT, h = h0 + g;
-    dst[e] = (q < sh.Q && h < sh.nh) ? cum[sh.c(bc, q, h)] : 0.f;
-  }
-}
-
-// the score tile S[i0 + 4w + k, j0 + lane] from staged C rows and B rows
-template <int DS>
-__device__ __forceinline__ void score_tile(float (&s)[kRW], const float* Ci, const float* Bj) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = 0; r < 4; ++r) split_tf32(a[r], ah[r], al[r]);
 #pragma unroll
-  for (int k = 0; k < kRW; ++k) s[k] = 0.f;
-#pragma unroll 8
-  for (int q = 0; q < DS; ++q) {
-    const float bv = Bj[lane * (DS + 1) + q];
+  for (int n = 0; n < NT; ++n) {
+    float b[2];
+    bload(n, b);
+    uint32_t bh[2], bl[2];
+    split_tf32(b[0], bh[0], bl[0]);
+    split_tf32(b[1], bh[1], bl[1]);
+    float p[4];
+    mma_tf32_first(p, al, bh);
+    mma_tf32(p, ah, bl);
+    mma_tf32(p, ah, bh);
 #pragma unroll
-    for (int k = 0; k < kRW; ++k) s[k] = fmaf(Ci[(warp * kRW + k) * (DS + 1) + q], bv, s[k]);
+    for (int r = 0; r < 4; ++r) acc[n][r] += p[r];
   }
+}
+
+// ---- fragments from shared memory (g = lane / 4, t = lane % 4) --------------
+// A (16 x 8): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
+// B (8 x 8): b0 (k t, n g), b1 (k t + 4, n g); C: (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1).
+
+// A[m][k] stored at s[m * ld + k] (K-major)
+__device__ __forceinline__ void frag_a_k(float (&a)[4], const float* s, int ld, int m0, int k0) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* p = s + (m0 + g) * ld + k0 + t;
+  a[0] = p[0];
+  a[1] = p[8 * ld];
+  a[2] = p[4];
+  a[3] = p[8 * ld + 4];
+}
+
+// A[m][k] stored at s[k * ld + m] (M-major)
+__device__ __forceinline__ void frag_a_m(float (&a)[4], const float* s, int ld, int m0, int k0) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* p = s + (k0 + t) * ld + m0 + g;
+  a[0] = p[0];
+  a[1] = p[8];
+  a[2] = p[4 * ld];
+  a[3] = p[4 * ld + 8];
+}
+
+// B[k][n] stored at s[n * ld + k] (K-major)
+__device__ __forceinline__ void frag_b_k(float* b, const float* s, int ld, int n0, int k0) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* p = s + (n0 + g) * ld + k0 + t;
+  b[0] = p[0];
+  b[1] = p[4];
+}
+
+// B[k][n] stored at s[k * ld + n] (N-major)
+__device__ __forceinline__ void frag_b_n(float* b, const float* s, int ld, int n0, int k0) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* p = s + (k0 + t) * ld + n0 + g;
+  b[0] = p[0];
+  b[1] = p[4 * ld];
+}
+
+__device__ __forceinline__ void zero(float (&acc)[8][4]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[n][r] = 0.f;
 }
 
 // decay L[i, j] with the mask selected, never multiplied: exp of a selected
@@ -163,157 +265,284 @@ __device__ __forceinline__ float decay(bool ok, float cum_i, float cum_j) {
   return ok ? e : 0.f;
 }
 
-template <int HD, int DS>
-__host__ __device__ constexpr size_t fwd_smem_floats() {
-  constexpr int G = heads_per_block<HD>();
-  constexpr size_t rows = 2 * (size_t)kT * (DS + 1) + (size_t)kT * G * (HD + 1) + 2 * (size_t)G * kT;
-  constexpr size_t states = (size_t)kT * (kT + 1) + (size_t)kT * G * (HD + 1) + (size_t)G * kT;
-  return rows > states ? rows : states;
+// ---- staging ----------------------------------------------------------------
+
+// rows [r0, r0 + R) x columns [c0, c0 + C) of a row-major matrix (row stride
+// `stride` floats; rows < nrows and columns < ncols exist) into shared
+// memory rows of `ld` floats, zero outside; 16-byte copies when `vec`
+template <int R, int C>
+__device__ __forceinline__ void stage_tile(float* dst, int ld, const float* src, int64_t stride,
+                                           int r0, int nrows, int c0, int ncols, bool vec) {
+  if (vec) {
+    for (int e = threadIdx.x; e < R * C / 4; e += kThreads) {
+      const int r = e / (C / 4), c = (e % (C / 4)) * 4;
+      const bool ok = r0 + r < nrows && c0 + c < ncols;
+      cp_async<16>(dst + r * ld + c, ok ? src + (r0 + r) * stride + c0 + c : src, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < R * C; e += kThreads) {
+      const int r = e / C, c = e % C;
+      const bool ok = r0 + r < nrows && c0 + c < ncols;
+      cp_async<4>(dst + r * ld + c, ok ? src + (r0 + r) * stride + c0 + c : src, ok);
+    }
+  }
 }
 
-// forward: grid (nIT * nHG row blocks + nST * nHG state blocks, BC)
-template <int HD, int DS>
-__global__ void __launch_bounds__(kThreads, 2) ssd_fwd_kernel(
-    const float* __restrict__ xdt, const float* __restrict__ cum, const float* __restrict__ Bm,
-    const float* __restrict__ Cm, float* __restrict__ y, float* __restrict__ st, Shape sh) {
-  constexpr int G = heads_per_block<HD>();
-  constexpr int NM = HD / 32;  // hd columns a lane owns: lane + 32 m
-  constexpr int XS = HD + 1;
-  extern __shared__ float smem[];
-  const int Q = sh.Q;
-  const int nIT = cdiv(Q, kT), nHG = cdiv(sh.nh, G);
-  const int bc = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int bx = blockIdx.x;
+// kBM values src[(r0 + r) * stride], r < n - r0, zero past
+__device__ __forceinline__ void stage_col(float* dst, const float* src, int64_t stride, int r0,
+                                          int n) {
+  if (threadIdx.x < kBM) {
+    const int r = threadIdx.x;
+    const bool ok = r0 + r < n;
+    cp_async<4>(dst + r, ok ? src + (r0 + r) * stride : src, ok);
+  }
+}
 
-  float acc[G][kRW][NM];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int k = 0; k < kRW; ++k)
-#pragma unroll
-      for (int m = 0; m < NM; ++m) acc[g][k][m] = 0.f;
+// ---- shared memory of each kernel, in floats (the plan's, times 4 bytes) ----
 
-  if (bx < nIT * nHG) {
-    // ---- row block: y for rows i0 .. i0 + 31 of heads h0 .. h0 + G - 1
-    const int it = nIT - 1 - bx / nHG;  // the longest row blocks first
-    const int h0 = (bx % nHG) * G;
-    const int ng = min(G, sh.nh - h0);
-    const int i0 = it * kT;
-    float* Ci = smem;                  // kT x (DS + 1)
-    float* Bj = Ci + kT * (DS + 1);    // kT x (DS + 1)
-    float* Xs = Bj + kT * (DS + 1);    // kT x G x XS
-    float* ci = Xs + kT * G * XS;      // G x kT
-    float* cj = ci + G * kT;           // G x kT
-    stage_bc<DS>(Ci, Cm, sh, bc, i0);
-    stage_cum<G>(ci, cum, sh, bc, i0, h0);
-    for (int jt = 0; jt <= it; ++jt) {
-      const int j0 = jt * kT;
-      __syncthreads();  // the previous j tile is no longer read
-      stage_bc<DS>(Bj, Bm, sh, bc, j0);
-      stage_heads<HD, G>(Xs, xdt, sh, bc, j0, h0);
-      stage_cum<G>(cj, cum, sh, bc, j0, h0);
-      __syncthreads();
-      float s[kRW];
-      score_tile<DS>(s, Ci, Bj);
-      const int j = j0 + lane;
+template <int HD>
+__host__ __device__ constexpr int fwd_rows_stage() {
+  return cmax(2 * kBM * kLdC, kBM * (HD + 8) + kBM);  // C, B chunks | X tile, cum
+}
+template <int HD>
+__host__ __device__ constexpr int fwd_state_stage() {
+  return kBM * (HD + 8) + kBM;  // X tile, cum
+}
+template <int HD>
+__host__ __device__ int fwd_smem_floats(int Q, int G) {
+  const int Qp = cdiv(Q, kBM) * kBM;
+  const int rows = kBM * (Qp + 4) + 2 * fwd_rows_stage<HD>() + G * kBM;
+  return cmax(rows, Qp * kLdT + 2 * fwd_state_stage<HD>());  // state: B's 64 columns, a ring
+}
+
+template <int HD>
+__host__ __device__ constexpr int rows_stage() {
+  return cmax(2 * kBM * kLdC, 2 * kBM * (HD + 4) + kBM);  // C, B chunks | dy, X tiles, cum
+}
+template <int HD>
+__host__ __device__ int rows_smem_floats(int GR) {
+  return 2 * rows_stage<HD>() + 2 * GR * kBM + 4 * kBM;  // ring, cum and row sums, red
+}
+
+template <int HD>
+__host__ __device__ constexpr int dx_stage() {
+  // B, C chunks | dy tile, cum | B chunk, dst chunk
+  return cmax(cmax(2 * kBM * kLdC, kBM * (HD + 8) + kBM), kBM * kLdC + kKC * (HD + 8));
+}
+// D, C | x, dst, cum
+__host__ __device__ constexpr int db_stage() { return cmax(2 * kBM * kLdT, 2 * kBM * kLdC + kBM); }
+__host__ __device__ constexpr int dc_stage() { return kBM * kLdK + kBM * kLdT; }  // D, B
+template <int HD>
+__host__ __device__ int cols_smem_floats(int Q, int GC) {
+  const int dx = kBM * (cdiv(Q, kBM) * kBM + 4) + 2 * dx_stage<HD>() + GC * kBM;
+  return cmax(dx, cmax(2 * db_stage(), 2 * dc_stage()));
+}
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
+struct FwdArgs {
+  const float *xdt, *cum, *B, *C;
+  float *y, *st;
+  Shape sh;
+  int G;     // heads of a CTA
+  bool vec;  // 16-byte copies
+};
+
+template <int HD>
+__device__ void fwd_rows(const FwdArgs& a, int bc, int it, int h0, float* smem) {
+  constexpr int NT = HD / 8;
+  constexpr int stage = fwd_rows_stage<HD>();
+  const Shape& sh = a.sh;
+  const int Q = sh.Q, nkc = cdiv(sh.ds, kKC), ldS = cdiv(Q, kBM) * kBM + 4;
+  const int ng = min(a.G, sh.nh - h0), i0 = it * kBM;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, wm = (threadIdx.x >> 5) * 16;
+  float* S = smem;                   // kBM x ldS: S[i0 + r, j]
+  float* ring = S + kBM * ldS;       // 2 stages
+  float* cumI = ring + 2 * stage;    // G x kBM: cum of the tile's rows
+  for (int e = threadIdx.x; e < ng * kBM; e += kThreads) {
+    const int r = e % kBM, q = i0 + r;
+    cumI[e] = q < Q ? a.cum[sh.c(bc, q, h0 + e / kBM)] : 0.f;
+  }
+  const int n1 = (it + 1) * nkc, total = n1 + ng * (it + 1);
+  auto issue = [&](int s) {
+    float* buf = ring + (s & 1) * stage;
+    if (s < n1) {  // a ds chunk of C_i and B_j
+      const int jt = s / nkc, k0 = (s % nkc) * kKC;
+      stage_tile<kBM, kKC>(buf, kLdC, a.C + sh.b(bc, 0), sh.ds, i0, Q, k0, sh.ds, a.vec);
+      stage_tile<kBM, kKC>(buf + kBM * kLdC, kLdC, a.B + sh.b(bc, 0), sh.ds, jt * kBM, Q, k0,
+                           sh.ds, a.vec);
+    } else {  // X_j and cum_j of one head
+      const int s2 = s - n1, h = h0 + s2 / (it + 1), jt = s2 % (it + 1);
+      stage_tile<kBM, HD>(buf, HD + 8, a.xdt + sh.x(bc, 0, h), (int64_t)sh.nh * sh.hd, jt * kBM,
+                          Q, 0, sh.hd, a.vec);
+      stage_col(buf + kBM * (HD + 8), a.cum + sh.c(bc, 0, h), sh.nh, jt * kBM, Q);
+    }
+  };
+
+  float acc[8][4];
+  zero(acc);
+  float ci0 = 0.f, ci1 = 0.f;
+  issue(0);
+  cp_commit();
+  for (int s = 0; s < total; ++s) {
+    if (s + 1 < total) issue(s + 1);
+    cp_commit();
+    cp_wait1();
+    __syncthreads();
+    const float* buf = ring + (s & 1) * stage;
+    if (s < n1) {
+      // S tile (rows i0.., columns jt * 64..) over one ds chunk
+      const int jt = s / nkc;
+      const float* Cs = buf;
+      const float* Bs = buf + kBM * kLdC;
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        if (g >= ng) break;  // uniform over the block
-        float p[kRW];
+      for (int k0 = 0; k0 < kKC; k0 += 8) {
+        float f[4];
+        frag_a_k(f, Cs, kLdC, wm, k0);
+        mma_row<8>(acc, f, [&](int n, float* b) { frag_b_k(b, Bs, kLdC, n * 8, k0); });
+      }
+      if (s % nkc == nkc - 1) {
 #pragma unroll
-        for (int k = 0; k < kRW; ++k) {
-          const int r = warp * kRW + k, i = i0 + r;
-          const bool ok = j <= i && i < Q && j < Q;
-          p[k] = s[k] * decay(ok, ci[g * kT + r], cj[g * kT + lane]);
+        for (int n = 0; n < 8; ++n) {
+          float* p = S + (wm + g) * ldS + jt * kBM + n * 8 + 2 * t;
+          p[0] = acc[n][0];
+          p[1] = acc[n][1];
+          p[8 * ldS] = acc[n][2];
+          p[8 * ldS + 1] = acc[n][3];
         }
-#pragma unroll 4
-        for (int c = 0; c < kT; ++c) {
-          float xv[NM];
+        zero(acc);
+      }
+    } else {
+      // y_i += (S o L_h) X_jh
+      const int s2 = s - n1, gi = s2 / (it + 1), jt = s2 % (it + 1);
+      const float* Xs = buf;
+      const float* cj = buf + kBM * (HD + 8);
+      if (jt == 0) {
+        ci0 = cumI[gi * kBM + wm + g];
+        ci1 = cumI[gi * kBM + wm + g + 8];
+      }
+      const int r0 = i0 + wm + g, r1 = r0 + 8;
+      // on the diagonal tile, columns past this warp's last row are all masked
+      const int kend = jt == it ? wm + 16 : kBM;
+      for (int k0 = 0; k0 < kend; k0 += 8) {
+        const int c0 = k0 + t, c1 = c0 + 4, j0 = jt * kBM + c0, j1 = j0 + 4;
+        const float cj0 = cj[c0], cj1 = cj[c1];
+        const float* Sp = S + (wm + g) * ldS + jt * kBM;
+        const bool ok00 = j0 <= r0 && r0 < Q && j0 < Q, ok10 = j0 <= r1 && r1 < Q && j0 < Q;
+        const bool ok01 = j1 <= r0 && r0 < Q && j1 < Q, ok11 = j1 <= r1 && r1 < Q && j1 < Q;
+        float f[4];
+        f[0] = ok00 ? Sp[c0] * decay(ok00, ci0, cj0) : 0.f;
+        f[1] = ok10 ? Sp[8 * ldS + c0] * decay(ok10, ci1, cj0) : 0.f;
+        f[2] = ok01 ? Sp[c1] * decay(ok01, ci0, cj1) : 0.f;
+        f[3] = ok11 ? Sp[8 * ldS + c1] * decay(ok11, ci1, cj1) : 0.f;
+        mma_row<NT>(acc, f, [&](int n, float* b) { frag_b_n(b, Xs, HD + 8, n * 8, k0); });
+      }
+      if (jt == it) {  // this head's rows are complete
+        const int h = h0 + gi;
 #pragma unroll
-          for (int m = 0; m < NM; ++m) xv[m] = Xs[(c * G + g) * XS + lane + 32 * m];
+        for (int n = 0; n < NT; ++n) {
+          const int d = n * 8 + 2 * t;
 #pragma unroll
-          for (int k = 0; k < kRW; ++k) {
-            const float pk = __shfl_sync(kFull, p[k], c);
-#pragma unroll
-            for (int m = 0; m < NM; ++m) acc[g][k][m] = fmaf(pk, xv[m], acc[g][k][m]);
+          for (int r = 0; r < 4; ++r) {
+            const int i = r < 2 ? r0 : r1, dd = d + (r & 1);
+            if (i < Q && dd < sh.hd) a.y[sh.x(bc, i, h) + dd] = acc[n][r];
           }
         }
+        zero(acc);
       }
     }
+    __syncthreads();  // the stage's buffer is refilled by the next issue
+  }
+}
+
+template <int HD>
+__device__ void fwd_state(const FwdArgs& a, int bc, int s0, int h0, float* smem) {
+  constexpr int NT = HD / 8;
+  constexpr int stage = fwd_state_stage<HD>();
+  const Shape& sh = a.sh;
+  const int Q = sh.Q, nJT = cdiv(Q, kBM), ng = min(a.G, sh.nh - h0);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, wm = (threadIdx.x >> 5) * 16;
+  float* Bt = smem;                   // nJT * 64 x kLdT: B[j][s0 + c], A[m = s][k = j] M-major
+  float* ring = Bt + nJT * kBM * kLdT;
+  const int total = ng * nJT;
+  auto issue = [&](int s) {
+    float* buf = ring + (s & 1) * stage;
+    const int h = h0 + s / nJT, j0 = (s % nJT) * kBM;
+    stage_tile<kBM, HD>(buf, HD + 8, a.xdt + sh.x(bc, 0, h), (int64_t)sh.nh * sh.hd, j0, Q, 0,
+                        sh.hd, a.vec);
+    stage_col(buf + kBM * (HD + 8), a.cum + sh.c(bc, 0, h), sh.nh, j0, Q);
+  };
+  float acc[8][4];
+  zero(acc);
+  float clast = 0.f;
+  // B's 64 columns for the whole chunk, once (every head reads them)
+  for (int jt = 0; jt < nJT; ++jt)
+    stage_tile<kBM, kBM>(Bt + jt * kBM * kLdT, kLdT, a.B + sh.b(bc, 0), sh.ds, jt * kBM, Q, s0,
+                         sh.ds, a.vec);
+  issue(0);
+  cp_commit();
+  for (int s = 0; s < total; ++s) {
+    if (s + 1 < total) issue(s + 1);
+    cp_commit();
+    cp_wait1();
+    __syncthreads();
+    const int gi = s / nJT, jt = s % nJT, h = h0 + gi;
+    const float* Bj = Bt + jt * kBM * kLdT;
+    const float* Xs = ring + (s & 1) * stage;
+    const float* cj = Xs + kBM * (HD + 8);
+    if (jt == 0) clast = a.cum[sh.c(bc, Q - 1, h)];
+#pragma unroll 2
+    for (int k0 = 0; k0 < kBM; k0 += 8) {
+      const int j0 = jt * kBM + k0 + t;
+      // decay to the chunk's end of steps j0 and j0 + 4
+      const float w0 = j0 < Q ? expf(clast - cj[k0 + t]) : 0.f;
+      const float w1 = j0 + 4 < Q ? expf(clast - cj[k0 + t + 4]) : 0.f;
+      float f[4];
+      frag_a_m(f, Bj, kLdT, wm, k0);
+      f[0] *= w0;
+      f[1] *= w0;
+      f[2] *= w1;
+      f[3] *= w1;
+      mma_row<NT>(acc, f, [&](int n, float* b) { frag_b_n(b, Xs, HD + 8, n * 8, k0); });
+    }
+    if (jt == nJT - 1) {  // this head's state rows are complete
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      if (g >= ng) break;
+      for (int n = 0; n < NT; ++n) {
 #pragma unroll
-      for (int k = 0; k < kRW; ++k) {
-        const int i = i0 + warp * kRW + k;
-        if (i >= Q) continue;
-#pragma unroll
-        for (int m = 0; m < NM; ++m) {
-          const int d = lane + 32 * m;
-          if (d < sh.hd) y[sh.x(bc, i, h0 + g) + d] = acc[g][k][m];
+        for (int r = 0; r < 4; ++r) {
+          const int sr = s0 + wm + g + (r < 2 ? 0 : 8), d = n * 8 + 2 * t + (r & 1);
+          if (sr < sh.ds && d < sh.hd) a.st[sh.st(bc, h, sr) + d] = acc[n][r];
         }
       }
+      zero(acc);
     }
+    __syncthreads();  // the stage's buffer is refilled by the next issue
+  }
+}
+
+// grid: BC x nHG row CTAs of the last i tile, then BC x nST x nHG state CTAs,
+// then the other row CTAs by decreasing i tile (the longest first)
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 2) ssd_fwd_kernel(FwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const Shape& sh = a.sh;
+  const int nIT = cdiv(sh.Q, kBM), nHG = cdiv(sh.nh, a.G), nST = cdiv(sh.ds, kBM);
+  const int per_it = sh.BC * nHG, n_state = sh.BC * nST * nHG;
+  int id = blockIdx.x;
+  if (id >= per_it && id < per_it + n_state) {
+    id -= per_it;
+    fwd_state<HD>(a, id / (nST * nHG), (id / nHG % nST) * kBM, (id % nHG) * a.G, smem);
     return;
   }
-
-  // ---- state block: state rows s0 .. s0 + 31 of heads h0 .. h0 + G - 1
-  bx -= nIT * nHG;
-  const int s0 = (bx / nHG) * kT;
-  const int h0 = (bx % nHG) * G;
-  const int ng = min(G, sh.nh - h0);
-  float* Bs = smem;                  // kT (j) x (kT + 1) (s)
-  float* Xs = Bs + kT * (kT + 1);    // kT x G x XS
-  float* w = Xs + kT * G * XS;       // G x kT: exp(cum_{Q-1} - cum_j)
-  for (int jt = 0; jt < nIT; ++jt) {
-    const int j0 = jt * kT;
-    __syncthreads();
-    for (int e = threadIdx.x; e < kT * kT; e += kThreads) {
-      const int r = e / kT, q = e % kT, j = j0 + r, s = s0 + q;
-      Bs[r * (kT + 1) + q] = (j < Q && s < sh.ds) ? Bm[sh.b(bc, j) + s] : 0.f;
-    }
-    stage_heads<HD, G>(Xs, xdt, sh, bc, j0, h0);
-    for (int e = threadIdx.x; e < G * kT; e += kThreads) {
-      const int g = e / kT, j = j0 + e % kT, h = h0 + g;
-      w[e] = (j < Q && h < sh.nh) ? expf(cum[sh.c(bc, Q - 1, h)] - cum[sh.c(bc, j, h)]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int c = 0; c < kT; ++c) {
-      float bv[kRW];
-#pragma unroll
-      for (int k = 0; k < kRW; ++k) bv[k] = Bs[c * (kT + 1) + warp * kRW + k];
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        if (g >= ng) break;
-        const float wv = w[g * kT + c];
-        float xv[NM];
-#pragma unroll
-        for (int m = 0; m < NM; ++m) xv[m] = Xs[(c * G + g) * XS + lane + 32 * m];
-#pragma unroll
-        for (int k = 0; k < kRW; ++k) {
-          const float bw = bv[k] * wv;
-#pragma unroll
-          for (int m = 0; m < NM; ++m) acc[g][k][m] = fmaf(bw, xv[m], acc[g][k][m]);
-        }
-      }
-    }
+  int it = nIT - 1;
+  if (id >= per_it) {
+    id -= per_it + n_state;
+    it = nIT - 2 - id / per_it;
+    id %= per_it;
   }
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (g >= ng) break;
-#pragma unroll
-    for (int k = 0; k < kRW; ++k) {
-      const int s = s0 + warp * kRW + k;
-      if (s >= sh.ds) continue;
-#pragma unroll
-      for (int m = 0; m < NM; ++m) {
-        const int d = lane + 32 * m;
-        if (d < sh.hd) st[sh.st(bc, h0 + g, s) + d] = acc[g][k][m];
-      }
-    }
-  }
+  fwd_rows<HD>(a, id / nHG, it, (id % nHG) * a.G, smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -322,509 +551,592 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_fwd_kernel(
 
 // scratch of one backward call, in floats, carved in this order
 struct Scratch {
-  float *S, *dscp, *colpart, *ddte, *dBpart;
+  float *dscp, *colpart, *ddte;
 };
 
-template <int HD>
-__host__ __device__ int cols_groups(int nh) {
-  return cdiv(nh, heads_per_block<HD>());
+__host__ int64_t scratch_floats(const Shape& sh, int GR) {
+  const int64_t Q = sh.Q, BC = sh.BC, nIT = cdiv(sh.Q, kBM);
+  return BC * cdiv(sh.nh, GR) * Q * Q  // dscores partials of the head groups
+         + BC * nIT * Q * sh.nh         // column-sum partials of the i tiles
+         + BC * Q * sh.nh;              // ddte
 }
 
-template <int HD>
-__host__ int64_t scratch_floats(const Shape& sh) {
-  const int64_t Q = sh.Q, BC = sh.BC, nIT = cdiv(sh.Q, kT);
-  return BC * Q * Q                                  // S
-         + BC * cdiv(sh.nh, kRowHeads) * Q * Q       // dscores partials
-         + BC * nIT * Q * sh.nh                      // column-sum partials
-         + BC * Q * sh.nh                            // ddte
-         + BC * (int64_t)cols_groups<HD>(sh.nh) * Q * sh.ds;  // dB state-term partials
-}
-
-template <int HD>
-__host__ Scratch carve(float* base, const Shape& sh) {
-  const int64_t Q = sh.Q, BC = sh.BC, nIT = cdiv(sh.Q, kT);
+__host__ Scratch carve(float* base, const Shape& sh, int GR) {
+  const int64_t Q = sh.Q, BC = sh.BC, nIT = cdiv(sh.Q, kBM);
   Scratch sc;
-  sc.S = base;
-  sc.dscp = sc.S + BC * Q * Q;
-  sc.colpart = sc.dscp + BC * cdiv(sh.nh, kRowHeads) * Q * Q;
+  sc.dscp = base;
+  sc.colpart = sc.dscp + BC * cdiv(sh.nh, GR) * Q * Q;
   sc.ddte = sc.colpart + BC * nIT * Q * sh.nh;
-  sc.dBpart = sc.ddte + BC * Q * sh.nh;
   return sc;
 }
 
-template <int HD, int DS>
-__host__ __device__ constexpr size_t rows_smem_floats() {
-  return 2 * (size_t)kT * (DS + 1) + 2 * (size_t)kT * (HD + 1) + 2 * (size_t)kT +
-         (size_t)kWarps * kT + (size_t)kRowHeads * kT;
-}
+struct BwdArgs {
+  const float *xdt, *cum, *B, *C, *dy, *dst;
+  float *dxdt, *dcum, *dB, *dC;
+  Scratch sc;
+  Shape sh;
+  int GR, GC;  // heads of a rows CTA and of a dxdt CTA
+  bool vec;
+};
 
-// rows: grid (nIT * nRG, BC)
-template <int HD, int DS>
-__global__ void __launch_bounds__(kThreads, 2) ssd_bwd_rows_kernel(
-    const float* __restrict__ xdt, const float* __restrict__ cum, const float* __restrict__ Bm,
-    const float* __restrict__ Cm, const float* __restrict__ dy, Scratch sc,
-    float* __restrict__ dcum, Shape sh) {
-  constexpr int XS = HD + 1;
-  extern __shared__ float smem[];
-  const int Q = sh.Q, nh = sh.nh;
-  const int nIT = cdiv(Q, kT), nRG = cdiv(nh, kRowHeads);
-  const int bc = blockIdx.y;
-  const int it = nIT - 1 - (int)blockIdx.x / nRG;
-  const int rg = blockIdx.x % nRG;
-  const int h0 = rg * kRowHeads, ng = min(kRowHeads, nh - h0);
-  const int i0 = it * kT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* Ci = smem;                   // kT x (DS + 1)
-  float* Bj = Ci + kT * (DS + 1);     // kT x (DS + 1)
-  float* DYs = Bj + kT * (DS + 1);    // kT x XS (one head)
-  float* Xs = DYs + kT * XS;          // kT x XS (one head)
-  float* ci = Xs + kT * XS;           // kT
-  float* cj = ci + kT;                // kT
-  float* red = cj + kT;               // kWarps x kT
-  float* rowacc = red + kWarps * kT;  // kRowHeads x kT
-
-  stage_bc<DS>(Ci, Cm, sh, bc, i0);
-  for (int e = threadIdx.x; e < kRowHeads * kT; e += kThreads) rowacc[e] = 0.f;
-  for (int jt = 0; jt <= it; ++jt) {
-    const int j0 = jt * kT, j = j0 + lane;
-    __syncthreads();
-    stage_bc<DS>(Bj, Bm, sh, bc, j0);
-    __syncthreads();
-    float s[kRW], dsc[kRW];
-    score_tile<DS>(s, Ci, Bj);
-#pragma unroll
-    for (int k = 0; k < kRW; ++k) {
-      dsc[k] = 0.f;
-      const int i = i0 + warp * kRW + k;
-      if (rg == 0 && i < Q && j < Q) sc.S[((int64_t)bc * Q + i) * Q + j] = s[k];
-    }
-    for (int g = 0; g < ng; ++g) {
-      const int h = h0 + g;
-      __syncthreads();  // the previous head's tiles and column sums are read
-      stage_heads<HD, 1>(DYs, dy, sh, bc, i0, h);
-      stage_heads<HD, 1>(Xs, xdt, sh, bc, j0, h);
-      stage_cum<1>(ci, cum, sh, bc, i0, h);
-      stage_cum<1>(cj, cum, sh, bc, j0, h);
-      __syncthreads();
-      float dm[kRW];
-#pragma unroll
-      for (int k = 0; k < kRW; ++k) dm[k] = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < HD; ++d) {
-        const float xv = Xs[lane * XS + d];
-#pragma unroll
-        for (int k = 0; k < kRW; ++k) dm[k] = fmaf(DYs[(warp * kRW + k) * XS + d], xv, dm[k]);
-      }
-      float colv = 0.f;
-#pragma unroll
-      for (int k = 0; k < kRW; ++k) {
-        const int r = warp * kRW + k, i = i0 + r;
-        const bool ok = j <= i && i < Q && j < Q;
-        const float L = decay(ok, ci[r], cj[lane]);
-        dsc[k] = fmaf(dm[k], L, dsc[k]);
-        const float dll = ok ? dm[k] * s[k] * L : 0.f;
-        colv += dll;
-        const float rsum = warp_sum(dll);
-        if (lane == 0) rowacc[g * kT + r] += rsum;
-      }
-      red[warp * kT + lane] = colv;
-      __syncthreads();
-      if (warp == 0 && j < Q) {
-        float t = 0.f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) t += red[w * kT + lane];
-        sc.colpart[(((int64_t)bc * nIT + it) * Q + j) * nh + h] = t;
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kRW; ++k) {
-      const int i = i0 + warp * kRW + k;
-      if (i < Q && j < Q) sc.dscp[(((int64_t)bc * nRG + rg) * Q + i) * Q + j] = dsc[k];
-    }
+// rows: grid BC x nIT x nRG, the longest (last i tile) first
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 2) ssd_bwd_rows_kernel(BwdArgs a) {
+  constexpr int stage = rows_stage<HD>();
+  extern __shared__ __align__(16) float smem[];
+  const Shape& sh = a.sh;
+  const int Q = sh.Q, nh = sh.nh, nIT = cdiv(Q, kBM), nRG = cdiv(nh, a.GR);
+  const int nkc = cdiv(sh.ds, kKC);
+  const int per_it = sh.BC * nRG;
+  const int it = nIT - 1 - (int)blockIdx.x / per_it;
+  const int bc = (int)blockIdx.x % per_it / nRG, rg = (int)blockIdx.x % nRG;
+  const int h0 = rg * a.GR, ng = min(a.GR, nh - h0), i0 = it * kBM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wm = warp * 16;
+  float* ring = smem;
+  float* cumI = ring + 2 * stage;      // GR x kBM
+  float* rowacc = cumI + a.GR * kBM;   // GR x kBM: row sums of dLL
+  float* red = rowacc + a.GR * kBM;    // 4 x kBM: the warps' column sums
+  for (int e = threadIdx.x; e < ng * kBM; e += kThreads) {
+    const int q = i0 + e % kBM;
+    cumI[e] = q < Q ? a.cum[sh.c(bc, q, h0 + e / kBM)] : 0.f;
+    rowacc[e] = 0.f;
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < kT * ng; e += kThreads) {
-    const int r = e / ng, g = e % ng, i = i0 + r;
-    if (i < Q) dcum[sh.c(bc, i, h0 + g)] = rowacc[g * kT + r];
+  const int per_jt = nkc + ng, total = (it + 1) * per_jt;
+  auto issue = [&](int s) {
+    float* buf = ring + (s & 1) * stage;
+    const int jt = s / per_jt, r = s % per_jt;
+    if (r < nkc) {  // a ds chunk of C_i and B_j
+      stage_tile<kBM, kKC>(buf, kLdC, a.C + sh.b(bc, 0), sh.ds, i0, Q, r * kKC, sh.ds, a.vec);
+      stage_tile<kBM, kKC>(buf + kBM * kLdC, kLdC, a.B + sh.b(bc, 0), sh.ds, jt * kBM, Q,
+                           r * kKC, sh.ds, a.vec);
+    } else {  // dy_i, X_j and cum_j of one head
+      const int h = h0 + r - nkc;
+      const int64_t rs = (int64_t)nh * sh.hd;
+      stage_tile<kBM, HD>(buf, HD + 4, a.dy + sh.x(bc, 0, h), rs, i0, Q, 0, sh.hd, a.vec);
+      stage_tile<kBM, HD>(buf + kBM * (HD + 4), HD + 4, a.xdt + sh.x(bc, 0, h), rs, jt * kBM, Q,
+                          0, sh.hd, a.vec);
+      stage_col(buf + 2 * kBM * (HD + 4), a.cum + sh.c(bc, 0, h), nh, jt * kBM, Q);
+    }
+  };
+
+  float sacc[8][4], dsc[8][4], dm[8][4];
+  zero(sacc);
+  zero(dsc);
+  const int r0 = i0 + wm + g, r1 = r0 + 8;
+  issue(0);
+  cp_commit();
+  for (int s = 0; s < total; ++s) {
+    if (s + 1 < total) issue(s + 1);
+    cp_commit();
+    cp_wait1();
+    __syncthreads();
+    const float* buf = ring + (s & 1) * stage;
+    const int jt = s / per_jt, r = s % per_jt;
+    if (r < nkc) {
+      if (r == 0) {
+        zero(sacc);
+        zero(dsc);
+      }
+      const float* Cs = buf;
+      const float* Bs = buf + kBM * kLdC;
+#pragma unroll
+      for (int k0 = 0; k0 < kKC; k0 += 8) {
+        float f[4];
+        frag_a_k(f, Cs, kLdC, wm, k0);
+        mma_row<8>(sacc, f, [&](int n, float* b) { frag_b_k(b, Bs, kLdC, n * 8, k0); });
+      }
+    } else {
+      const int gi = r - nkc, h = h0 + gi;
+      const float* DYs = buf;
+      const float* Xs = buf + kBM * (HD + 4);
+      const float* cj = buf + 2 * kBM * (HD + 4);
+      // dM = dy_i X_j^T (K = hd)
+      zero(dm);
+#pragma unroll
+      for (int k0 = 0; k0 < HD; k0 += 8) {
+        float f[4];
+        frag_a_k(f, DYs, HD + 4, wm, k0);
+        mma_row<8>(dm, f, [&](int n, float* b) { frag_b_k(b, Xs, HD + 4, n * 8, k0); });
+      }
+      const float ci0 = cumI[gi * kBM + wm + g], ci1 = cumI[gi * kBM + wm + g + 8];
+      float row0 = 0.f, row1 = 0.f, col[8][2];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = n * 8 + 2 * t + e, j = jt * kBM + c;
+          const float cjv = cj[c];
+          const bool ok0 = j <= r0 && r0 < Q && j < Q, ok1 = j <= r1 && r1 < Q && j < Q;
+          const float L0 = decay(ok0, ci0, cjv), L1 = decay(ok1, ci1, cjv);
+          dsc[n][e] = fmaf(dm[n][e], L0, dsc[n][e]);
+          dsc[n][2 + e] = fmaf(dm[n][2 + e], L1, dsc[n][2 + e]);
+          const float d0 = ok0 ? dm[n][e] * sacc[n][e] * L0 : 0.f;
+          const float d1 = ok1 ? dm[n][2 + e] * sacc[n][2 + e] * L1 : 0.f;
+          row0 += d0;
+          row1 += d1;
+          col[n][e] = d0 + d1;
+        }
+      }
+      // row sums: over the quad (the warp owns its rows)
+      row0 += __shfl_xor_sync(0xffffffffu, row0, 1);
+      row0 += __shfl_xor_sync(0xffffffffu, row0, 2);
+      row1 += __shfl_xor_sync(0xffffffffu, row1, 1);
+      row1 += __shfl_xor_sync(0xffffffffu, row1, 2);
+      if (t == 0) {
+        rowacc[gi * kBM + wm + g] += row0;
+        rowacc[gi * kBM + wm + g + 8] += row1;
+      }
+      // column sums: over the warp's 16 rows, then over the warps in order
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float v = col[n][e];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (g == 0) red[warp * kBM + n * 8 + 2 * t + e] = v;
+        }
+      __syncthreads();
+      if (threadIdx.x < kBM) {
+        const int j = jt * kBM + threadIdx.x;
+        const float v = red[threadIdx.x] + red[kBM + threadIdx.x] + red[2 * kBM + threadIdx.x] +
+                        red[3 * kBM + threadIdx.x];
+        if (j < Q) a.sc.colpart[(((int64_t)bc * nIT + it) * Q + j) * nh + h] = v;
+      }
+      if (gi == ng - 1) {  // the head group's dscores tile is complete
+        float* out = a.sc.dscp + ((int64_t)bc * nRG + rg) * Q * Q;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e < 2 ? r0 : r1, j = jt * kBM + n * 8 + 2 * t + (e & 1);
+            if (i < Q && j < Q) out[(int64_t)i * Q + j] = dsc[n][e];
+          }
+      }
+    }
+    __syncthreads();
+  }
+  for (int e = threadIdx.x; e < ng * kBM; e += kThreads) {
+    const int q = i0 + e % kBM;
+    if (q < Q) a.dcum[sh.c(bc, q, h0 + e / kBM)] = rowacc[e];
   }
 }
 
-template <int HD, int DS>
-__host__ __device__ constexpr size_t cols_smem_floats() {
-  constexpr int G = heads_per_block<HD>();
-  constexpr size_t a = (size_t)kT * G * (HD + 1) + (size_t)kT * (kT + 1) + (size_t)G * kT;
-  constexpr size_t b = (size_t)DS * (HD + 1) + (size_t)kT * (HD + 1);
-  return (size_t)kT * (DS + 1) + (size_t)G * kT + (a > b ? a : b);
+// the dscores tile rows [i0, +64) x columns [j0, +64), the head groups'
+// partials summed in order, into shared memory rows of ld; zero past Q
+__device__ __forceinline__ void stage_dscores(float* dst, int ld, const BwdArgs& a, int bc,
+                                              int i0, int j0) {
+  const int Q = a.sh.Q, nRG = cdiv(a.sh.nh, a.GR);
+  for (int e = threadIdx.x; e < kBM * kBM; e += kThreads) {
+    const int r = e / kBM, c = e % kBM, i = i0 + r, j = j0 + c;
+    float v = 0.f;
+    if (i < Q && j < Q)
+      for (int p = 0; p < nRG; ++p) v += a.sc.dscp[(((int64_t)bc * nRG + p) * Q + i) * Q + j];
+    dst[r * ld + c] = v;
+  }
 }
 
-// cols: grid (nIT * nHG, BC)
-template <int HD, int DS>
-__global__ void __launch_bounds__(kThreads, 2) ssd_bwd_cols_kernel(
-    const float* __restrict__ xdt, const float* __restrict__ cum, const float* __restrict__ Bm,
-    const float* __restrict__ dy, const float* __restrict__ dst, Scratch sc,
-    float* __restrict__ dxdt, Shape sh) {
-  constexpr int G = heads_per_block<HD>();
-  constexpr int NM = HD / 32;
-  constexpr int NS = DS / 32;  // ds columns a lane owns in dB: lane + 32 n
-  constexpr int XS = HD + 1;
-  extern __shared__ float smem[];
-  const int Q = sh.Q, nh = sh.nh;
-  const int nIT = cdiv(Q, kT), nHG = cdiv(nh, G);
-  const int bc = blockIdx.y;
-  const int jt = blockIdx.x / nHG;  // the longest (j tile 0) first
-  const int hg = blockIdx.x % nHG;
-  const int h0 = hg * G, ng = min(G, nh - h0);
-  const int j0 = jt * kT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* Bj = smem;                 // kT x (DS + 1)
-  float* cj = Bj + kT * (DS + 1);   // G x kT
-  float* ph = cj + G * kT;          // phase A and phase B share the rest
-  float* DYs = ph;                  // A: kT x G x XS
-  float* Ss = DYs + kT * G * XS;    // A: kT x (kT + 1)
-  float* ci = Ss + kT * (kT + 1);   // A: G x kT
-  float* DST = ph;                  // B: DS x XS
-  float* Xh = DST + DS * XS;        // B: kT x XS
-
-  stage_bc<DS>(Bj, Bm, sh, bc, j0);
-  stage_cum<G>(cj, cum, sh, bc, j0, h0);
-
-  // phase A: dxdt_j = sum_{i >= j} (S L)[i, j] dy_i
-  float acc[G][kRW][NM];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int k = 0; k < kRW; ++k)
-#pragma unroll
-      for (int m = 0; m < NM; ++m) acc[g][k][m] = 0.f;
-  for (int it = jt; it < nIT; ++it) {
-    const int i0 = it * kT, i = i0 + lane;
-    __syncthreads();
-    stage_heads<HD, G>(DYs, dy, sh, bc, i0, h0);
-    for (int e = threadIdx.x; e < kT * kT; e += kThreads) {
-      const int r = e / kT, c = e % kT;
-      const bool in = i0 + r < Q && j0 + c < Q;
-      Ss[r * (kT + 1) + c] = in ? sc.S[((int64_t)bc * Q + i0 + r) * Q + j0 + c] : 0.f;
+// cols, dxdt CTA: dxdt_j = sum_{i >= j} (S o L)^T dy_i + dte (B_j dst_h), ddte
+template <int HD>
+__device__ void cols_dx(const BwdArgs& a, int bc, int jt, int h0, float* smem) {
+  constexpr int NT = HD / 8;
+  constexpr int stage = dx_stage<HD>();
+  const Shape& sh = a.sh;
+  const int Q = sh.Q, nh = sh.nh, nIT = cdiv(Q, kBM), nkc = cdiv(sh.ds, kKC);
+  const int ldS = nIT * kBM + 4, ng = min(a.GC, nh - h0), j0 = jt * kBM;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, wm = (threadIdx.x >> 5) * 16;
+  float* ST = smem;                 // kBM x ldS: S^T[j0 + r, j0 + c]
+  float* ring = ST + kBM * ldS;
+  float* cumJ = ring + 2 * stage;   // GC x kBM
+  for (int e = threadIdx.x; e < ng * kBM; e += kThreads) {
+    const int q = j0 + e % kBM;
+    cumJ[e] = q < Q ? a.cum[sh.c(bc, q, h0 + e / kBM)] : 0.f;
+  }
+  const int nA = nIT - jt, n1 = nA * nkc, per_h = nA + nkc, total = n1 + ng * per_h;
+  const int64_t rs = (int64_t)nh * sh.hd;
+  auto issue = [&](int s) {
+    float* buf = ring + (s & 1) * stage;
+    if (s < n1) {  // a ds chunk of B_j and C_i
+      const int it = jt + s / nkc, k0 = (s % nkc) * kKC;
+      stage_tile<kBM, kKC>(buf, kLdC, a.B + sh.b(bc, 0), sh.ds, j0, Q, k0, sh.ds, a.vec);
+      stage_tile<kBM, kKC>(buf + kBM * kLdC, kLdC, a.C + sh.b(bc, 0), sh.ds, it * kBM, Q, k0,
+                           sh.ds, a.vec);
+      return;
     }
-    stage_cum<G>(ci, cum, sh, bc, i0, h0);
+    const int s2 = s - n1, h = h0 + s2 / per_h, r = s2 % per_h;
+    if (r < nA) {  // dy_i and cum_i of one head
+      stage_tile<kBM, HD>(buf, HD + 8, a.dy + sh.x(bc, 0, h), rs, (jt + r) * kBM, Q, 0, sh.hd,
+                          a.vec);
+      stage_col(buf + kBM * (HD + 8), a.cum + sh.c(bc, 0, h), nh, (jt + r) * kBM, Q);
+    } else {  // a ds chunk of B_j and of dst_h
+      const int k0 = (r - nA) * kKC;
+      stage_tile<kBM, kKC>(buf, kLdC, a.B + sh.b(bc, 0), sh.ds, j0, Q, k0, sh.ds, a.vec);
+      stage_tile<kKC, HD>(buf + kBM * kLdC, HD + 8, a.dst + sh.st(bc, h, 0), sh.hd, k0, sh.ds, 0,
+                          sh.hd, a.vec);
+    }
+  };
+
+  float acc[8][4], xacc[8][4];
+  zero(acc);
+  zero(xacc);
+  const int q0 = j0 + wm + g, q1 = q0 + 8;  // this lane's rows j
+  issue(0);
+  cp_commit();
+  for (int s = 0; s < total; ++s) {
+    if (s + 1 < total) issue(s + 1);
+    cp_commit();
+    cp_wait1();
     __syncthreads();
+    const float* buf = ring + (s & 1) * stage;
+    if (s < n1) {  // S^T tile (rows j, columns i) over one ds chunk
+      const int it = jt + s / nkc;
+      const float* Bs = buf;
+      const float* Cs = buf + kBM * kLdC;
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      if (g >= ng) break;
-      float pt[kRW];  // (S L)[i0 + lane, j0 + 4 warp + k]
-#pragma unroll
-      for (int k = 0; k < kRW; ++k) {
-        const int c = warp * kRW + k, jj = j0 + c;
-        const bool ok = jj <= i && i < Q && jj < Q;
-        pt[k] = Ss[lane * (kT + 1) + c] * decay(ok, ci[g * kT + lane], cj[g * kT + c]);
+      for (int k0 = 0; k0 < kKC; k0 += 8) {
+        float f[4];
+        frag_a_k(f, Bs, kLdC, wm, k0);
+        mma_row<8>(acc, f, [&](int n, float* b) { frag_b_k(b, Cs, kLdC, n * 8, k0); });
       }
-#pragma unroll 4
-      for (int r = 0; r < kT; ++r) {
-        float dv[NM];
+      if (s % nkc == nkc - 1) {
 #pragma unroll
-        for (int m = 0; m < NM; ++m) dv[m] = DYs[(r * G + g) * XS + lane + 32 * m];
+        for (int n = 0; n < 8; ++n) {
+          float* p = ST + (wm + g) * ldS + (it - jt) * kBM + n * 8 + 2 * t;
+          p[0] = acc[n][0];
+          p[1] = acc[n][1];
+          p[8 * ldS] = acc[n][2];
+          p[8 * ldS + 1] = acc[n][3];
+        }
+        zero(acc);
+      }
+    } else {
+      const int s2 = s - n1, gi = s2 / per_h, r = s2 % per_h, h = h0 + gi;
+      const float cj0 = cumJ[gi * kBM + wm + g], cj1 = cumJ[gi * kBM + wm + g + 8];
+      if (r < nA) {  // xacc += (S o L)^T_{j, i} dy_i
+        const int it = jt + r;
+        const float* DYs = buf;
+        const float* ci = buf + kBM * (HD + 8);
+        const float* Sp = ST + (wm + g) * ldS + r * kBM;
+        // on the diagonal tile, columns i before this warp's first row are masked
+        for (int k0 = it == jt ? wm : 0; k0 < kBM; k0 += 8) {
+          const int c0 = k0 + t, c1 = c0 + 4, i0 = it * kBM + c0, i1 = i0 + 4;
+          const float ci0 = ci[c0], ci1 = ci[c1];
+          const bool ok00 = i0 >= q0 && i0 < Q && q0 < Q, ok10 = i0 >= q1 && i0 < Q && q1 < Q;
+          const bool ok01 = i1 >= q0 && i1 < Q && q0 < Q, ok11 = i1 >= q1 && i1 < Q && q1 < Q;
+          float f[4];
+          f[0] = ok00 ? Sp[c0] * decay(ok00, ci0, cj0) : 0.f;
+          f[1] = ok10 ? Sp[8 * ldS + c0] * decay(ok10, ci0, cj1) : 0.f;
+          f[2] = ok01 ? Sp[c1] * decay(ok01, ci1, cj0) : 0.f;
+          f[3] = ok11 ? Sp[8 * ldS + c1] * decay(ok11, ci1, cj1) : 0.f;
+          mma_row<NT>(xacc, f, [&](int n, float* b) { frag_b_n(b, DYs, HD + 8, n * 8, k0); });
+        }
+      } else {  // acc += B_j dst_h over one ds chunk
+        const int kc = r - nA;
+        const float* Bs = buf;
+        const float* Ds = buf + kBM * kLdC;
 #pragma unroll
-        for (int k = 0; k < kRW; ++k) {
-          const float p = __shfl_sync(kFull, pt[k], r);
+        for (int k0 = 0; k0 < kKC; k0 += 8) {
+          float f[4];
+          frag_a_k(f, Bs, kLdC, wm, k0);
+          mma_row<NT>(acc, f, [&](int n, float* b) { frag_b_n(b, Ds, HD + 8, n * 8, k0); });
+        }
+        if (kc == nkc - 1) {  // dxdt_j = xacc + dte acc; ddte = x_j . dte acc
+          const float clast = a.cum[sh.c(bc, Q - 1, h)];
+          const float w0 = q0 < Q ? expf(clast - cj0) : 0.f, w1 = q1 < Q ? expf(clast - cj1) : 0.f;
+          float p0 = 0.f, p1 = 0.f;
 #pragma unroll
-          for (int m = 0; m < NM; ++m) acc[g][k][m] = fmaf(p, dv[m], acc[g][k][m]);
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int q = e < 2 ? q0 : q1, d = n * 8 + 2 * t + (e & 1);
+              const float tv = (e < 2 ? w0 : w1) * acc[n][e];
+              if (q < Q && d < sh.hd) {
+                a.dxdt[sh.x(bc, q, h) + d] = xacc[n][e] + tv;
+                const float xv = a.xdt[sh.x(bc, q, h) + d];
+                if (e < 2) p0 = fmaf(xv, tv, p0);
+                else p1 = fmaf(xv, tv, p1);
+              }
+            }
+          p0 += __shfl_xor_sync(0xffffffffu, p0, 1);
+          p0 += __shfl_xor_sync(0xffffffffu, p0, 2);
+          p1 += __shfl_xor_sync(0xffffffffu, p1, 1);
+          p1 += __shfl_xor_sync(0xffffffffu, p1, 2);
+          if (t == 0 && q0 < Q) a.sc.ddte[sh.c(bc, q0, h)] = p0;
+          if (t == 0 && q1 < Q) a.sc.ddte[sh.c(bc, q1, h)] = p1;
+          zero(acc);
+          zero(xacc);
         }
       }
     }
-  }
-
-  // phase B, head by head: the state cotangent's terms
-  float dB[kRW][NS];
-#pragma unroll
-  for (int k = 0; k < kRW; ++k)
-#pragma unroll
-    for (int n = 0; n < NS; ++n) dB[k][n] = 0.f;
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (g >= ng) break;
-    const int h = h0 + g;
-    __syncthreads();  // phase A's (or the previous head's) tiles are read
-    for (int e = threadIdx.x; e < DS * HD; e += kThreads) {
-      const int s = e / HD, d = e % HD;
-      DST[s * XS + d] = (s < sh.ds && d < sh.hd) ? dst[sh.st(bc, h, s) + d] : 0.f;
-    }
-    stage_heads<HD, 1>(Xh, xdt, sh, bc, j0, h);
-    __syncthreads();
-    const float clast = cum[sh.c(bc, Q - 1, h)];
-    float w[kRW], t[kRW][NM];
-#pragma unroll
-    for (int k = 0; k < kRW; ++k) {
-      w[k] = j0 + warp * kRW + k < Q ? expf(clast - cj[g * kT + warp * kRW + k]) : 0.f;
-#pragma unroll
-      for (int m = 0; m < NM; ++m) t[k][m] = 0.f;
-    }
-    // t = B_j dst_h, then times the decay to the chunk's end
-#pragma unroll 4
-    for (int q = 0; q < DS; ++q) {
-      float dv[NM];
-#pragma unroll
-      for (int m = 0; m < NM; ++m) dv[m] = DST[q * XS + lane + 32 * m];
-#pragma unroll
-      for (int k = 0; k < kRW; ++k) {
-        const float bv = Bj[(warp * kRW + k) * (DS + 1) + q];
-#pragma unroll
-        for (int m = 0; m < NM; ++m) t[k][m] = fmaf(bv, dv[m], t[k][m]);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kRW; ++k) {
-      const int c = warp * kRW + k, jj = j0 + c;
-      float part = 0.f;
-#pragma unroll
-      for (int m = 0; m < NM; ++m) {
-        const int d = lane + 32 * m;
-        t[k][m] *= w[k];
-        if (jj < Q && d < sh.hd) dxdt[sh.x(bc, jj, h) + d] = acc[g][k][m] + t[k][m];
-        part = fmaf(Xh[c * XS + d], t[k][m], part);
-      }
-      const float dd = warp_sum(part);  // ddte = xdt_j . t
-      if (lane == 0 && jj < Q) sc.ddte[sh.c(bc, jj, h)] = dd;
-    }
-    // dB's state term: sum_h exp(cum_{Q-1} - cum_j) xdt_j dst_h^T
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float dv[NS];
-#pragma unroll
-      for (int n = 0; n < NS; ++n) dv[n] = DST[(lane + 32 * n) * XS + d];
-#pragma unroll
-      for (int k = 0; k < kRW; ++k) {
-        const float xw = Xh[(warp * kRW + k) * XS + d] * w[k];
-#pragma unroll
-        for (int n = 0; n < NS; ++n) dB[k][n] = fmaf(xw, dv[n], dB[k][n]);
-      }
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < kRW; ++k) {
-    const int jj = j0 + warp * kRW + k;
-    if (jj >= Q) continue;
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      const int s = lane + 32 * n;
-      if (s < sh.ds) sc.dBpart[(((int64_t)bc * nHG + hg) * Q + jj) * sh.ds + s] = dB[k][n];
-    }
+    __syncthreads();  // the stage's buffer is refilled by the next issue
   }
 }
 
-template <int DS>
-__host__ __device__ constexpr size_t finish_smem_floats() {
-  return (size_t)kT * (kT + 1) + (size_t)kT * (DS + 1);
-}
-
-// finish: grid (nIT, BC)
-template <int HD, int DS>
-__global__ void __launch_bounds__(kThreads) ssd_bwd_finish_kernel(
-    const float* __restrict__ Bm, const float* __restrict__ Cm, Scratch sc,
-    float* __restrict__ dcum, float* __restrict__ dBo, float* __restrict__ dCo, Shape sh) {
-  constexpr int NS = DS / 32;
-  extern __shared__ float smem[];
-  const int Q = sh.Q, nh = sh.nh;
-  const int nIT = cdiv(Q, kT), nRG = cdiv(nh, kRowHeads), nHG = cols_groups<HD>(nh);
-  const int bc = blockIdx.y;
-  const int t = blockIdx.x, r0 = t * kT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* D = smem;                // kT x (kT + 1): summed dscores tile
-  float* Ms = D + kT * (kT + 1);  // kT x (DS + 1): B or C rows
-  // the dscores tile (rows i0.., columns j0..), head-group partials summed in order
-  auto stage_d = [&](int i0, int j0) {
-    for (int e = threadIdx.x; e < kT * kT; e += kThreads) {
-      const int r = e / kT, c = e % kT, i = i0 + r, j = j0 + c;
-      float v = 0.f;
-      if (i < Q && j < Q)
-        for (int g = 0; g < nRG; ++g) v += sc.dscp[(((int64_t)bc * nRG + g) * Q + i) * Q + j];
-      D[r * (kT + 1) + c] = v;
+// cols, dB CTA: dB_j = sum_{i >= j} dscores[i, j] C_i + sum_h (dte_h x_jh) dst_h^T
+__device__ void cols_db(const BwdArgs& a, int bc, int jt, int s0, float* smem) {
+  constexpr int stage = db_stage();
+  const Shape& sh = a.sh;
+  const int Q = sh.Q, nh = sh.nh, nIT = cdiv(Q, kBM), ndc = cdiv(sh.hd, kKC), j0 = jt * kBM;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, wm = (threadIdx.x >> 5) * 16;
+  const int nA = nIT - jt, total = nA + nh * ndc;
+  auto issue = [&](int s) {
+    float* buf = smem + (s & 1) * stage;
+    if (s < nA) {  // dscores[i tile, j tile] and C_i's 64 columns of ds
+      const int i0 = (jt + s) * kBM;
+      stage_tile<kBM, kBM>(buf + kBM * kLdT, kLdT, a.C + sh.b(bc, 0), sh.ds, i0, Q, s0, sh.ds,
+                           a.vec);
+      stage_dscores(buf, kLdT, a, bc, i0, j0);
+    } else {  // a hd chunk of x_jh and of dst_h's 64 rows of ds, cum_jh
+      const int h = (s - nA) / ndc, k0 = (s - nA) % ndc * kKC;
+      stage_tile<kBM, kKC>(buf, kLdC, a.xdt + sh.x(bc, 0, h), (int64_t)nh * sh.hd, j0, Q, k0,
+                           sh.hd, a.vec);
+      stage_tile<kBM, kKC>(buf + kBM * kLdC, kLdC, a.dst + sh.st(bc, h, 0), sh.hd, s0, sh.ds, k0,
+                           sh.hd, a.vec);
+      stage_col(buf + 2 * kBM * kLdC, a.cum + sh.c(bc, 0, h), nh, j0, Q);
     }
   };
-  float acc[kRW][NS];
-
-  // dC rows r0..: sum_{j <= i} dscores[i, j] B_j
-#pragma unroll
-  for (int k = 0; k < kRW; ++k)
-#pragma unroll
-    for (int n = 0; n < NS; ++n) acc[k][n] = 0.f;
-  for (int jt = 0; jt <= t; ++jt) {
+  float acc[8][4];
+  zero(acc);
+  const int q0 = j0 + wm + g, q1 = q0 + 8;
+  float w0 = 0.f, w1 = 0.f;
+  issue(0);
+  cp_commit();
+  for (int s = 0; s < total; ++s) {
+    if (s + 1 < total) issue(s + 1);
+    cp_commit();
+    cp_wait1();
     __syncthreads();
-    stage_d(r0, jt * kT);
-    stage_bc<DS>(Ms, Bm, sh, bc, jt * kT);
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < kT; ++c) {
+    const float* buf = smem + (s & 1) * stage;
+    if (s < nA) {  // A[m = j][k = i] = dscores[i][j] (M-major), B = C_i (N-major)
+      const float* Ds = buf;
+      const float* Cs = buf + kBM * kLdT;
+      // on the diagonal tile, rows i before this warp's first column j are 0
+      for (int k0 = s == 0 ? wm : 0; k0 < kBM; k0 += 8) {
+        float f[4];
+        frag_a_m(f, Ds, kLdT, wm, k0);
+        mma_row<8>(acc, f, [&](int n, float* b) { frag_b_n(b, Cs, kLdT, n * 8, k0); });
+      }
+    } else {  // A = dte_h x_jh (K-major), B[k = d][n = s] = dst_h[s][d] (K-major)
+      const int h = (s - nA) / ndc;
+      const float* Xs = buf;
+      const float* Ds = buf + kBM * kLdC;
+      if ((s - nA) % ndc == 0) {
+        const float clast = a.cum[sh.c(bc, Q - 1, h)];
+        const float* cj = buf + 2 * kBM * kLdC;
+        w0 = q0 < Q ? expf(clast - cj[wm + g]) : 0.f;
+        w1 = q1 < Q ? expf(clast - cj[wm + g + 8]) : 0.f;
+      }
 #pragma unroll
-      for (int k = 0; k < kRW; ++k) {
-        const float dv = D[(warp * kRW + k) * (kT + 1) + c];
-#pragma unroll
-        for (int n = 0; n < NS; ++n)
-          acc[k][n] = fmaf(dv, Ms[c * (DS + 1) + lane + 32 * n], acc[k][n]);
+      for (int k0 = 0; k0 < kKC; k0 += 8) {
+        float f[4];
+        frag_a_k(f, Xs, kLdC, wm, k0);
+        f[0] *= w0;
+        f[1] *= w1;
+        f[2] *= w0;
+        f[3] *= w1;
+        mma_row<8>(acc, f, [&](int n, float* b) { frag_b_k(b, Ds, kLdC, n * 8, k0); });
       }
     }
+    __syncthreads();  // the stage's buffer is refilled by the next issue
   }
 #pragma unroll
-  for (int k = 0; k < kRW; ++k) {
-    const int i = r0 + warp * kRW + k;
+  for (int n = 0; n < 8; ++n)
 #pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      const int s = lane + 32 * n;
-      if (i < Q && s < sh.ds) dCo[sh.b(bc, i) + s] = acc[k][n];
+    for (int e = 0; e < 4; ++e) {
+      const int q = e < 2 ? q0 : q1, sc = s0 + n * 8 + 2 * t + (e & 1);
+      if (q < Q && sc < sh.ds) a.dB[sh.b(bc, q) + sc] = acc[n][e];
     }
-  }
+}
 
-  // dB rows r0..: sum_{i >= j} dscores[i, j] C_i + the state-term partials
-#pragma unroll
-  for (int k = 0; k < kRW; ++k)
-#pragma unroll
-    for (int n = 0; n < NS; ++n) acc[k][n] = 0.f;
-  for (int it = t; it < nIT; ++it) {
+// cols, dC CTA: dC_i = sum_{j <= i} dscores[i, j] B_j
+__device__ void cols_dc(const BwdArgs& a, int bc, int it, int s0, float* smem) {
+  constexpr int stage = dc_stage();
+  const Shape& sh = a.sh;
+  const int Q = sh.Q, i0 = it * kBM;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, wm = (threadIdx.x >> 5) * 16;
+  const int total = it + 1;
+  auto issue = [&](int s) {
+    float* buf = smem + (s & 1) * stage;
+    stage_tile<kBM, kBM>(buf + kBM * kLdK, kLdT, a.B + sh.b(bc, 0), sh.ds, s * kBM, Q, s0, sh.ds,
+                         a.vec);
+    stage_dscores(buf, kLdK, a, bc, i0, s * kBM);
+  };
+  float acc[8][4];
+  zero(acc);
+  issue(0);
+  cp_commit();
+  for (int s = 0; s < total; ++s) {
+    if (s + 1 < total) issue(s + 1);
+    cp_commit();
+    cp_wait1();
     __syncthreads();
-    stage_d(it * kT, r0);
-    stage_bc<DS>(Ms, Cm, sh, bc, it * kT);
-    __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < kT; ++r) {
-#pragma unroll
-      for (int k = 0; k < kRW; ++k) {
-        const float dv = D[r * (kT + 1) + warp * kRW + k];
-#pragma unroll
-        for (int n = 0; n < NS; ++n)
-          acc[k][n] = fmaf(dv, Ms[r * (DS + 1) + lane + 32 * n], acc[k][n]);
-      }
+    const float* Ds = smem + (s & 1) * stage;  // A[m = i][k = j] (K-major)
+    const float* Bs = Ds + kBM * kLdK;         // B[k = j][n = s] (N-major)
+    // on the diagonal tile, columns j past this warp's last row are 0
+    const int kend = s == it ? wm + 16 : kBM;
+    for (int k0 = 0; k0 < kend; k0 += 8) {
+      float f[4];
+      frag_a_k(f, Ds, kLdK, wm, k0);
+      mma_row<8>(acc, f, [&](int n, float* b) { frag_b_n(b, Bs, kLdT, n * 8, k0); });
     }
+    __syncthreads();  // the stage's buffer is refilled by the next issue
   }
 #pragma unroll
-  for (int k = 0; k < kRW; ++k) {
-    const int j = r0 + warp * kRW + k;
+  for (int n = 0; n < 8; ++n)
 #pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      const int s = lane + 32 * n;
-      if (j >= Q || s >= sh.ds) continue;
-      float v = acc[k][n];
-      for (int g = 0; g < nHG; ++g) v += sc.dBpart[(((int64_t)bc * nHG + g) * Q + j) * sh.ds + s];
-      dBo[sh.b(bc, j) + s] = v;
+    for (int e = 0; e < 4; ++e) {
+      const int q = i0 + wm + g + (e < 2 ? 0 : 8), sc = s0 + n * 8 + 2 * t + (e & 1);
+      if (q < Q && sc < sh.ds) a.dC[sh.b(bc, q) + sc] = acc[n][e];
     }
-  }
+}
 
-  // dcum rows r0..: row sums (already in dcum) - column sums - ddte, and the
-  // last row also + sum_j ddte
-  for (int e = threadIdx.x; e < kT * nh; e += kThreads) {
+// cols: grid BC x nIT x nCG dxdt CTAs (by increasing j tile: the longest
+// first), then BC x nIT x nST dB CTAs, then BC x nIT x nST dC CTAs
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 2) ssd_bwd_cols_kernel(BwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const Shape& sh = a.sh;
+  const int nIT = cdiv(sh.Q, kBM), nCG = cdiv(sh.nh, a.GC), nST = cdiv(sh.ds, kBM);
+  int id = blockIdx.x;
+  const int n_dx = sh.BC * nIT * nCG, n_b = sh.BC * nIT * nST;
+  if (id < n_dx) {
+    const int per_jt = sh.BC * nCG;
+    cols_dx<HD>(a, id % per_jt / nCG, id / per_jt, (id % nCG) * a.GC, smem);
+    return;
+  }
+  id -= n_dx;
+  const bool db = id < n_b;
+  if (!db) id -= n_b;
+  const int bc = id / (nIT * nST), tile = id / nST % nIT, s0 = (id % nST) * kBM;
+  if (db) cols_db(a, bc, tile, s0, smem);
+  else cols_dc(a, bc, tile, s0, smem);
+}
+
+// finish: grid BC x nIT; dcum = row sums (already in dcum) - column sums -
+// ddte, and the last row also + sum_j ddte
+__global__ void __launch_bounds__(kThreads) ssd_bwd_finish_kernel(BwdArgs a) {
+  const Shape& sh = a.sh;
+  const int Q = sh.Q, nh = sh.nh, nIT = cdiv(Q, kBM);
+  const int bc = (int)blockIdx.x / nIT, t = (int)blockIdx.x % nIT, r0 = t * kBM;
+  for (int e = threadIdx.x; e < kBM * nh; e += kThreads) {
     const int i = r0 + e / nh, h = e % nh;
     if (i >= Q) continue;
-    float v = dcum[sh.c(bc, i, h)];
-    for (int it = t; it < nIT; ++it) v -= sc.colpart[(((int64_t)bc * nIT + it) * Q + i) * nh + h];
-    v -= sc.ddte[sh.c(bc, i, h)];
+    float v = a.dcum[sh.c(bc, i, h)];
+    for (int it = t; it < nIT; ++it) v -= a.sc.colpart[(((int64_t)bc * nIT + it) * Q + i) * nh + h];
+    v -= a.sc.ddte[sh.c(bc, i, h)];
     if (i == Q - 1) {
       float tot = 0.f;
-      for (int j = 0; j < Q; ++j) tot += sc.ddte[sh.c(bc, j, h)];
+      for (int j = 0; j < Q; ++j) tot += a.sc.ddte[sh.c(bc, j, h)];
       v += tot;
     }
-    dcum[sh.c(bc, i, h)] = v;
+    a.dcum[sh.c(bc, i, h)] = v;
   }
 }
 
-template <int HD, int DS>
-int fwd_launch(const float* xdt, const float* cum, const float* B, const float* C, float* y,
-               float* st, const Shape& sh, cudaStream_t stream) {
-  constexpr int G = heads_per_block<HD>();
-  const size_t bytes = fwd_smem_floats<HD, DS>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(ssd_fwd_kernel<HD, DS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int nHG = cdiv(sh.nh, G);
-  const dim3 grid(cdiv(sh.Q, kT) * nHG + cdiv(sh.ds, kT) * nHG, sh.BC);
-  ssd_fwd_kernel<HD, DS><<<grid, kThreads, bytes, stream>>>(xdt, cum, B, C, y, st, sh);
-  return (int)cudaGetLastError();
-}
-
-template <int HD, int DS>
-int bwd_launch(const float* xdt, const float* cum, const float* B, const float* C,
-               const float* dy, const float* dst, float* scratch, float* dxdt, float* dcum,
-               float* dB, float* dC, const Shape& sh, cudaStream_t stream) {
-  const Scratch sc = carve<HD>(scratch, sh);
-  const int nIT = cdiv(sh.Q, kT);
-  const size_t rows_b = rows_smem_floats<HD, DS>() * sizeof(float);
-  const size_t cols_b = cols_smem_floats<HD, DS>() * sizeof(float);
-  const size_t fin_b = finish_smem_floats<DS>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(ssd_bwd_rows_kernel<HD, DS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rows_b);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(ssd_bwd_cols_kernel<HD, DS>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cols_b);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(ssd_bwd_finish_kernel<HD, DS>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)fin_b);
-  if (err != cudaSuccess) return (int)err;
-  ssd_bwd_rows_kernel<HD, DS><<<dim3(nIT * cdiv(sh.nh, kRowHeads), sh.BC), kThreads, rows_b,
-                                stream>>>(xdt, cum, B, C, dy, sc, dcum, sh);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  ssd_bwd_cols_kernel<HD, DS><<<dim3(nIT * cols_groups<HD>(sh.nh), sh.BC), kThreads, cols_b,
-                                stream>>>(xdt, cum, B, dy, dst, sc, dxdt, sh);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  ssd_bwd_finish_kernel<HD, DS><<<dim3(nIT, sh.BC), kThreads, fin_b, stream>>>(B, C, sc, dcum,
-                                                                             dB, dC, sh);
-  return (int)cudaGetLastError();
-}
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
 
 bool valid(const Shape& sh) {
-  return sh.BC > 0 && sh.BC <= 65535 && sh.Q > 0 && sh.nh > 0 && sh.hd > 0 && sh.hd <= 64 &&
-         sh.ds > 0 && sh.ds <= 128;
+  return sh.BC > 0 && sh.Q > 0 && sh.nh > 0 && sh.hd > 0 && sh.hd <= 64 && sh.ds > 0 &&
+         sh.ds <= 128;
 }
 
-// HD in {32, 64} by hd, DS in {32, 64, 128} by ds
-#define SSD_DISPATCH(CALL)                                              \
-  if (sh.hd <= 32) {                                                    \
-    if (sh.ds <= 32) return CALL(32, 32);                               \
-    if (sh.ds <= 64) return CALL(32, 64);                               \
-    return CALL(32, 128);                                               \
-  }                                                                     \
-  if (sh.ds <= 32) return CALL(64, 32);                                 \
-  if (sh.ds <= 64) return CALL(64, 64);                                 \
-  return CALL(64, 128);
+bool heads_ok(int G, int cap) { return G >= 1 && G <= cap && (G & (G - 1)) == 0; }
+
+bool aligned(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+template <typename K>
+int launch_prep(K kernel, int smem) {
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+template <int HD>
+int fwd_launch(const FwdArgs& a, int smem, cudaStream_t stream) {
+  const Shape& sh = a.sh;
+  if (!heads_ok(a.G, 8) || smem != 4 * fwd_smem_floats<HD>(sh.Q, a.G))
+    return (int)cudaErrorInvalidValue;  // the plan disagrees with the compiled tiles
+  int err = launch_prep(ssd_fwd_kernel<HD>, smem);
+  if (err) return err;
+  const int64_t ctas =
+      (int64_t)sh.BC * cdiv(sh.nh, a.G) * (cdiv(sh.Q, kBM) + cdiv(sh.ds, kBM));
+  if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  ssd_fwd_kernel<HD><<<(unsigned)ctas, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int bwd_launch(const BwdArgs& a, int smem_rows, int smem_cols, cudaStream_t stream) {
+  const Shape& sh = a.sh;
+  if (!heads_ok(a.GR, 16) || !heads_ok(a.GC, 16) || smem_rows != 4 * rows_smem_floats<HD>(a.GR) ||
+      smem_cols != 4 * cols_smem_floats<HD>(sh.Q, a.GC))
+    return (int)cudaErrorInvalidValue;
+  int err = launch_prep(ssd_bwd_rows_kernel<HD>, smem_rows);
+  if (err) return err;
+  err = launch_prep(ssd_bwd_cols_kernel<HD>, smem_cols);
+  if (err) return err;
+  const int64_t nIT = cdiv(sh.Q, kBM), nST = cdiv(sh.ds, kBM);
+  const int64_t rows = sh.BC * nIT * cdiv(sh.nh, a.GR);
+  const int64_t cols = sh.BC * nIT * (cdiv(sh.nh, a.GC) + 2 * nST);
+  if (rows > 0x7fffffff || cols > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  ssd_bwd_rows_kernel<HD><<<(unsigned)rows, kThreads, smem_rows, stream>>>(a);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  ssd_bwd_cols_kernel<HD><<<(unsigned)cols, kThreads, smem_cols, stream>>>(a);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  ssd_bwd_finish_kernel<<<(unsigned)(sh.BC * nIT), kThreads, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
 extern "C" {
 
 // y (B, nc, Q, nh, hd) and st (B, nc, nh, ds, hd) of float32 inputs, all
-// contiguous; BC = B * nc
+// contiguous; BC = B * nc; G and smem from the plan (kernels/ssd_scan.py)
 int ssd_chunk_fwd_f32(const float* xdt, const float* cum, const float* B, const float* C,
-                      float* y, float* st, int BC, int Q, int nh, int hd, int ds, int device,
-                      void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const Shape sh{BC, Q, nh, hd, ds};
-  if (!valid(sh)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-#define FWD_CALL(HD, DS) fwd_launch<HD, DS>(xdt, cum, B, C, y, st, sh, s)
-  SSD_DISPATCH(FWD_CALL)
-#undef FWD_CALL
-}
-
-// floats of scratch ssd_chunk_bwd_f32 needs at this shape (-1 if invalid)
-int64_t ssd_chunk_bwd_scratch_f32(int BC, int Q, int nh, int hd, int ds) {
-  const Shape sh{BC, Q, nh, hd, ds};
-  if (!valid(sh)) return -1;
-  return hd <= 32 ? scratch_floats<32>(sh) : scratch_floats<64>(sh);
-}
-
-// (dxdt, dcum, dB, dC) from the inputs and the cotangents dy (as y) and dst
-// (as st); three launches on one stream (rows, cols, finish)
-int ssd_chunk_bwd_f32(const float* xdt, const float* cum, const float* B, const float* C,
-                      const float* dy, const float* dst, float* scratch, float* dxdt,
-                      float* dcum, float* dB, float* dC, int BC, int Q, int nh, int hd, int ds,
+                      float* y, float* st, int BC, int Q, int nh, int hd, int ds, int G, int smem,
                       int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Shape sh{BC, Q, nh, hd, ds};
   if (!valid(sh)) return (int)cudaErrorInvalidValue;
+  const bool vec = hd % 4 == 0 && ds % 4 == 0 && aligned(xdt) && aligned(B) && aligned(C);
+  const FwdArgs a{xdt, cum, B, C, y, st, sh, G, vec};
   cudaStream_t s = (cudaStream_t)stream;
-#define BWD_CALL(HD, DS) \
-  bwd_launch<HD, DS>(xdt, cum, B, C, dy, dst, scratch, dxdt, dcum, dB, dC, sh, s)
-  SSD_DISPATCH(BWD_CALL)
-#undef BWD_CALL
+  return hd <= 32 ? fwd_launch<32>(a, smem, s) : fwd_launch<64>(a, smem, s);
+}
+
+// floats of scratch ssd_chunk_bwd_f32 needs at this shape and rows head
+// group GR (-1 if invalid)
+int64_t ssd_chunk_bwd_scratch_f32(int BC, int Q, int nh, int hd, int ds, int GR) {
+  const Shape sh{BC, Q, nh, hd, ds};
+  if (!valid(sh) || !heads_ok(GR, 16)) return -1;
+  return scratch_floats(sh, GR);
+}
+
+// (dxdt, dcum, dB, dC) from the inputs and the cotangents dy (as y) and dst
+// (as st); three launches on one stream (rows, cols, finish); GR, GC and
+// the shared memory from the plan
+int ssd_chunk_bwd_f32(const float* xdt, const float* cum, const float* B, const float* C,
+                      const float* dy, const float* dst, float* scratch, float* dxdt,
+                      float* dcum, float* dB, float* dC, int BC, int Q, int nh, int hd, int ds,
+                      int GR, int GC, int smem_rows, int smem_cols, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Shape sh{BC, Q, nh, hd, ds};
+  if (!valid(sh) || !heads_ok(GR, 16)) return (int)cudaErrorInvalidValue;
+  const bool vec = hd % 4 == 0 && ds % 4 == 0 && aligned(xdt) && aligned(B) && aligned(C) &&
+                   aligned(dy) && aligned(dst);
+  const BwdArgs a{xdt, cum, B, C, dy, dst, dxdt, dcum, dB, dC, carve(scratch, sh, GR), sh,
+                  GR, GC, vec};
+  cudaStream_t s = (cudaStream_t)stream;
+  return hd <= 32 ? bwd_launch<32>(a, smem_rows, smem_cols, s)
+                  : bwd_launch<64>(a, smem_rows, smem_cols, s);
 }
 
 const char* error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -179,20 +179,25 @@ def test_cuda_block_topk_matches_plain_bit_for_bit(card, kind):
     torch.cuda.synchronize()
 
 
-# (B, nc, Q, nh, hd, ds, log-decay range): mamba2's widths, ragged Q and nh,
-# the reduced models' widths, and fast decay (exp overflows above the diagonal)
-SSD = [(1, 2, 256, 64, 64, 128, (0.01, 0.2)), (2, 1, 37, 6, 16, 16, (0.01, 0.5)),
+# (B, nc, Q, nh, hd, ds, log-decay range): the main paths' shapes (train,
+# score, serve prefill: mamba2's widths), ragged Q, nh, hd and ds, the
+# reduced models' widths, and fast decay (exp overflows above the diagonal)
+SSD = [(4, 8, 256, 64, 64, 128, (0.01, 0.2)), (1, 8, 256, 64, 64, 128, (0.01, 0.2)),
+       (1, 1, 256, 64, 64, 128, (0.01, 0.2)), (2, 1, 37, 6, 16, 16, (0.01, 0.5)),
        (1, 3, 5, 3, 4, 5, (0.01, 0.5)), (1, 1, 1, 3, 64, 128, (0.01, 0.5)),
-       (1, 2, 64, 8, 32, 64, (6.0, 8.0))]
+       (1, 2, 100, 5, 50, 70, (0.01, 0.5)), (1, 2, 64, 8, 32, 64, (6.0, 8.0)),
+       (1, 2, 256, 64, 64, 128, (6.0, 8.0))]
 
 
 @pytest.mark.cuda
 def test_cuda_ssd_chunk_matches_plain(card):
-    """ssd_chunk forward (one launch) and backward (three launches) against
-    their plain versions in float64 on the same float32 inputs, at the
-    registry bars (2e-5; 2e-4 elementwise and in relative norm); finite
-    under fast decay; the SsdChunk Function's gradients are the backward
-    kernel's; another dtype raises."""
+    """ssd_chunk forward (one launch) and backward (three launches: rows,
+    cols, finish) against their plain versions in float64 on the same
+    float32 inputs, at the registry bars (2e-5; 2e-4 elementwise and in
+    relative norm), at the three main shapes, ragged shapes and fast decay
+    (every output finite); two backward calls are the same bit for bit; the
+    SsdChunk Function's gradients are the backward kernel's; another dtype
+    raises."""
     from repro_torch.kernels import ssd_scan
 
     g = torch.Generator(device=card).manual_seed(3)
@@ -212,11 +217,16 @@ def test_cuda_ssd_chunk_matches_plain(card):
         leaves = [t.clone().requires_grad_() for t in args]
         got = torch.autograd.grad(ops.ssd_chunk(*leaves, mode="on"), leaves, (dy, dst))
         want = ssd_scan.ssd_chunk_bwd(*args, dy, dst)
-        for x, y in zip(got, want):
+        again = ssd_scan.ssd_chunk_bwd(*args, dy, dst)
+        assert ssd_scan.ssd_chunk_bwd.launches == before[1] + 12
+        for x, y, z in zip(got, want, again):
             assert torch.isfinite(x).all()
-            assert torch.equal(x, y)  # deterministic: no atomics
+            assert torch.equal(x, y) and torch.equal(y, z)  # deterministic: no atomics
+        assert all(torch.isfinite(t).all() for t in ssd_scan.ssd_chunk_fwd(*args))
     with pytest.raises(ValueError, match="float32 only"):
         ssd_scan.ssd_chunk_fwd(*(t.double() for t in args))
+    with pytest.raises(ValueError, match="float32 only"):
+        ssd_scan.ssd_chunk_fwd(*(t.to(torch.bfloat16) for t in args))
     torch.cuda.synchronize()
 
 
