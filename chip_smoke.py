@@ -22,13 +22,20 @@ printed with its seconds:
    padded entries and (for sparse_axpy) duplicate indices. float64
    sparse_axpy must be bit-exact, sparse_dot within 1e-12 (float32: 1e-5).
    Times per call from CUDA events after warm-up, beside the plain
-   version's time and the least time the card could take (bound).
-   block_topk against its plain version, bit for bit and by the
-   registry's comparator, at (nb, block, k) = (288000, 4096, 40) (the
-   gossip step's embedding leaf: 2 pods x 144,000 blocks), (7, 2304, 23),
-   (5, 64, 1), (3, 16, 16) and (4, 4096, 4096), on random rows, rows with
-   many ties and constant rows; timed at the first beside its bound, the
-   plain version and torch.topk + gather.
+   version's time and the least time the card could take (bound);
+   sparse_dot in turns with the CSR call, and both calls' host
+   microseconds (time.perf_counter over 10,000 calls, no synchronisation).
+   block_topk against its plain version, bit for bit (values as bits) and
+   by the registry's comparator, one launch a call, at (nb, block, k) =
+   (288000, 4096, 40) (the gossip step's embedding leaf: 2 pods x 144,000
+   blocks), (7, 2304, 23), (5, 64, 1), (3, 16, 16), (4, 4096, 4096),
+   (3, 8193, 81), (2, 8192, 8192), (3, 65536, 655) and (2, 1000003, 10000)
+   (the last two streamed), on random rows, rows with many ties, constant
+   rows and rows with NaNs of several payloads and signs, +-inf and +-0;
+   timed at the first and the last beside the bound, the plain version
+   and torch.topk + gather, and at the first under other plans (a warp a
+   row, 1-3 stages, 256 candidates). ``chip_smoke.py --topk-profile`` runs
+   the block_topk and sparse work of this phase alone (a fresh process).
 4. slice   -- the main path: ``solve()`` on the paper's Section-7 setup
    (rcv1 preset, N=10, q=100, Erdos-Renyi(0.4) seed 0, Laplacian W,
    lam = 1/(10 Q)) for dsba and dsa on ridge, logistic and AUC:
@@ -121,6 +128,10 @@ printed with its seconds:
    launches (11 block_topk, 8 flash forward, 8 flash backward), finite
    loss, grad norm and consensus distance, wire bytes per pod equal to the
    closed form sum of nb * k_b * 8 (58.2 MB against 2.98 GB dense).
+   ``chip_smoke.py --gossip-profile`` runs this phase alone and then
+   block_topk on the embedding leaf's rows of the next exchange: bit for
+   bit, its time, and the shares of rows split in one pass and of rows
+   whose boundary bin overflows the candidate lists.
 13. launcher -- ``python -m repro_torch.launch.train --reduced`` on the
    card in a subprocess: 6 steps with --ckpt-every 3; the final checkpoint
    is dropped (a crash after step 3's) and a second run resumes from it; its
@@ -213,12 +224,12 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     bwd_kernels, flash_attention, flash_attention_bwd, tile_plan,
 )
 from repro_torch.kernels.ref import (  # noqa: E402
-    attention_ref, block_topk_ref, decode_attention_ref, flash_attention_bwd_ref,
+    attention_ref, block_topk_ref, decode_attention_ref, flash_attention_bwd_ref, magnitude_key,
     sparse_axpy_ref, sparse_dot_ref, ssd_chunk_bwd_ref, ssd_chunk_ref,
 )
 from repro_torch.kernels.sparse_saga import sparse_axpy, sparse_dot  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_chunk_bwd, ssd_chunk_fwd, ssd_plan  # noqa: E402
-from repro_torch.kernels.topk_compress import block_topk  # noqa: E402
+from repro_torch.kernels.topk_compress import block_topk, topk_plan  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.params import tree_leaves, tree_map, tree_num_params  # noqa: E402
 from repro_torch.optim.adam import AdamConfig  # noqa: E402
@@ -401,6 +412,20 @@ def call_device_ms(fn, iters=50) -> float:
     return sum(t for t, _ in kern.values()) / iters / 1e3
 
 
+def host_us(fn, calls=10_000) -> float:
+    """Host microseconds a call of ``fn``: time.perf_counter over `calls`
+    back-to-back calls with no synchronisation (the launch path alone while
+    the device keeps up), after one synchronised warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
 def bound(nbytes: float, nops: float, dtype) -> tuple[float, str]:
     """(least milliseconds, 'bytes' | 'operations') for this much work."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -436,15 +461,25 @@ def time_kernels(device, n, d, k, dtype=torch.float64) -> dict[str, dict]:
     lib_err = (csr @ flat - sparse_dot_ref(psi, idx, val)).abs().max().item()
     if lib_err > 1e-9:
         raise AssertionError(f"CSR library yardstick disagrees: {lib_err}")
+    dot = lambda: sparse_dot(psi, idx, val)  # noqa: E731
+    csr_dot = lambda: csr @ flat  # noqa: E731
+    # events over back-to-back calls, in turns with the CSR call (the two
+    # numbers the launch path is held to are taken in this one call)
+    ms, lib_ms = [], []
+    for _ in range(3):
+        ms.append(cuda_ms(dot))
+        lib_ms.append(cuda_ms(csr_dot))
     out["sparse_dot"] = {
-        "ms": cuda_ms(lambda: sparse_dot(psi, idx, val)),
-        "device_ms": kernel_device_ms(lambda: sparse_dot(psi, idx, val),
-                                      ("sparse_dot_kernel",)),
+        "ms": float(np.median(ms)),
+        "device_ms": kernel_device_ms(dot, ("sparse_dot_kernel",)),
         "plain_ms": cuda_ms(lambda: sparse_dot_ref(psi, idx, val)),
         "bound_ms": b_dot[0], "bound_by": b_dot[1],
-        "library_ms": cuda_ms(lambda: csr @ flat),  # CSR sparse matrix x vector
+        "library_ms": float(np.median(lib_ms)),  # CSR sparse matrix x vector
         # the CSR call's own device time, every kernel it launches (profiler)
-        "library_device_ms": call_device_ms(lambda: csr @ flat),
+        "library_device_ms": call_device_ms(csr_dot),
+        "ms_runs": ms, "library_ms_runs": lib_ms,
+        # the host's cost a call: time.perf_counter over 10,000 calls, no sync
+        "host_us": host_us(dot), "library_host_us": host_us(csr_dot),
     }
     for name, r in out.items():
         log("kernels", f"{name} N={n} D={d} k={k} {dtype}: {r}")
@@ -454,14 +489,26 @@ def time_kernels(device, n, d, k, dtype=torch.float64) -> dict[str, dict]:
 # the gossip step's largest selection: gemma2-2b's embedding leaf, 2 pods x
 # 144,000 blocks of 4,096, k_b = 40 (1% of a block)
 TOPK_MAIN = (2 * 144_000, 4096, 40)
+# one long row a pod (a block_size of 1,000,003 at ratio 0.01): the "stream"
+# variant, every pass from device memory
+TOPK_LONG = (2, 1_000_003, 10_000)
 # + final_norm (one block of 2304, k_b 23), the reduced configs' leaves
-# (blocks of 64 and 16, k_b 1), k = block
-TOPK_CASES = [TOPK_MAIN, (7, 2304, 23), (5, 64, 1), (3, 16, 16), (4, 4096, 4096)]
+# (blocks of 64 and 16, k_b 1), k = block (staged and sorted in shared
+# memory), blocks above 8,192 (staged at 8,193; stream at 65,536 and at
+# TOPK_LONG)
+TOPK_CASES = [TOPK_MAIN, (7, 2304, 23), (5, 64, 1), (3, 16, 16), (4, 4096, 4096),
+              (3, 8193, 81), (2, 8192, 8192), (3, 65_536, 655), TOPK_LONG]
+TOPK_KINDS = ("random", "ties", "constant", "nan")
+# NaNs of several payloads and both signs, +-inf, +-0 (as uint32 bits)
+TOPK_SPECIALS = (0x7FC00000, 0x7FC00005, 0xFFC00003, 0x7F800001, 0xFF812345, 0x7F800000,
+                 0xFF800000, 0x80000000, 0x00000000)
 
 
 def topk_rows(nb, block, kind, device, seed=0):
     """Seeded float32 rows: normal ('random'), rounded to halves ('ties':
-    |x| in {0, 0.5, 1, ...}) or constant ('constant': 1.0, odd rows -0.25)."""
+    |x| in {0, 0.5, 1, ...}), constant ('constant': 1.0, odd rows -0.25) or
+    normal with block // 100 (at least 1) entries a row replaced by
+    ``TOPK_SPECIALS`` ('nan')."""
     g = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn(nb, block, generator=g, device=device)
     if kind == "ties":
@@ -469,39 +516,52 @@ def topk_rows(nb, block, kind, device, seed=0):
     elif kind == "constant":
         x = torch.full_like(x, 1.0)
         x[1::2] = -0.25
+    elif kind == "nan":
+        m = max(1, block // 100)
+        bits = torch.tensor(np.array(TOPK_SPECIALS, np.uint32).view(np.int32), device=device)
+        pos = torch.randint(0, block, (nb, m), generator=g, device=device)
+        pick = torch.randint(0, len(TOPK_SPECIALS), (nb, m), generator=g, device=device)
+        x.view(torch.int32).scatter_(1, pos, bits[pick])
     return x
 
 
 def topk_parity(device) -> float:
-    """block_topk against its plain version at every case and kind: within
-    the registry's comparator (1e-6) and bit-equal in values and indices
-    (both take the lower index first among ties). Returns the error at
-    the main shape on random rows."""
+    """block_topk against its plain version at every case and kind, one
+    launch a call: within the registry's comparator (1e-6; not on 'nan',
+    whose NaNs it cannot compare) and bit-equal in values (as bits) and
+    indices. Returns the error at the main shape on random rows."""
     spec = ops.get_kernel("block_topk")
     worst = None
     for i, (nb, block, k) in enumerate(TOPK_CASES):
-        for kind in ("random", "ties", "constant"):
+        for kind in TOPK_KINDS:
             x = topk_rows(nb, block, kind, device, seed=i)
+            before = block_topk.launches
             got = ops.dispatch("block_topk", x, k, mode="on")
+            launched = block_topk.launches - before
             want = ops.dispatch("block_topk", x, k, mode="off")
             torch.cuda.synchronize()
-            err = spec.compare((x, k), got, want, spec.tolerance(x.dtype))
-            exact = all(torch.equal(g, w) for g, w in zip(got, want))
-            log("kernels", f"block_topk nb={nb} block={block} k={k} {kind}: "
-                f"max_abs_err={err!r} bit_equal={exact}")
-            if not exact:
-                raise AssertionError(f"block_topk ({nb}, {block}, {k}) {kind}: not bit-equal")
+            err = (spec.compare((x, k), got, want, spec.tolerance(x.dtype))
+                   if kind != "nan" else None)
+            exact = (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+                     and torch.equal(got[1], want[1]))
+            log("kernels", f"block_topk nb={nb} block={block} k={k} {kind} "
+                f"({topk_plan(block, k, nb)['variant']}): max_abs_err={err!r} "
+                f"bit_equal={exact} launches={launched}")
+            if not exact or launched != 1:
+                raise AssertionError(f"block_topk ({nb}, {block}, {k}) {kind}: bit_equal={exact}, "
+                                     f"{launched} launches")
             if i == 0 and kind == "random":
                 worst = err
             del x, got, want
     return worst
 
 
-def time_topk(device) -> dict:
-    """block_topk at the gossip step's embedding leaf: kernel, plain version
-    and torch.topk + gather (the same selection; its tie order may differ,
-    so it is held by the registry's comparator, not bit for bit)."""
-    nb, block, k = TOPK_MAIN
+def time_topk_shape(device, shape, iters) -> dict:
+    """block_topk at one shape (random rows): kernel by events and by
+    profiler device time, plain version, bound and torch.topk + gather (the
+    same selection; its tie order may differ, so it is held by the
+    registry's comparator, not bit for bit)."""
+    nb, block, k = shape
     x = topk_rows(nb, block, "random", device)
     # each input read once, each output written once; one comparison an
     # element is the least work a selection does
@@ -515,13 +575,22 @@ def time_topk(device) -> dict:
     spec = ops.get_kernel("block_topk")
     spec.compare((x, k), lib(), kern(), spec.tolerance(x.dtype))
     out = {
-        "ms": cuda_ms(kern, iters=20, warmup=3),
-        "device_ms": kernel_device_ms(kern, ("block_topk_kernel",), iters=5),
+        "ms": cuda_ms(kern, iters=iters, warmup=3),
+        "device_ms": kernel_device_ms(kern, ("block_topk_",), iters=5),
         "plain_ms": cuda_ms(lambda: block_topk_ref(x, k), iters=3, warmup=1),
         "bound_ms": b[0], "bound_by": b[1],
-        "library_ms": cuda_ms(lib, iters=10, warmup=2),
+        "library_ms": cuda_ms(lib, iters=max(3, iters // 2), warmup=2),
+        "plan": topk_plan(block, k, nb),
     }
     log("kernels", f"block_topk nb={nb} block={block} k={k} float32: {json.dumps(out)}")
+    return out
+
+
+def time_topk(device) -> dict:
+    """block_topk at the gossip step's embedding leaf (the kernels line's
+    numbers), with the long row's numbers under ``long_row``."""
+    out = time_topk_shape(device, TOPK_MAIN, iters=20)
+    out["long_row"] = time_topk_shape(device, TOPK_LONG, iters=5)
     return out
 
 
@@ -1432,13 +1501,14 @@ def profile_ranges(fn):
     return sum(t for t, _ in kern.values()), kern, ranges, by_range
 
 
-def gossip_phase(device) -> tuple[dict, dict]:
+def gossip_phase(device, topk_rows: bool = False) -> tuple[dict, dict]:
     """GOSSIP_STEPS dsba steps of gemma2-2b at full width on 2 pods.
 
     Step 0 holds every block_topk (bit for bit), flash forward and flash
     backward call to its plain version; steps 1-4 are timed; step 5 is
     profiled. Every step: launches per kernel as predicted, finite loss,
     grad norm and consensus distance, wire bytes equal to the closed form.
+    `topk_rows` (``--gossip-profile``) adds ``gossip_topk_rows``.
     Returns (summary, launches over every step)."""
     cfg, tc, gcfg = gossip_setup()
     full = get_config("gemma2-2b")
@@ -1516,7 +1586,7 @@ def gossip_phase(device) -> tuple[dict, dict]:
     record(GOSSIP_STEPS - 1)
     wall_ms = float(np.median(walls)) * 1e3
     busy_ms = busy_us / 1e3
-    topk_us = sum(t for k, (t, _) in kern.items() if "block_topk_kernel" in k)
+    topk_us = sum(t for k, (t, _) in kern.items() if "block_topk_" in k)
     update_us = ranges["gossip_update"][1] if "gossip_update" in ranges else None
     top = top_by_prefix({k: t for k, (t, _) in kern.items()}, 10)
     top_update = top_by_prefix(by_range.get("gossip_update", {}), 8)
@@ -1545,12 +1615,54 @@ def gossip_phase(device) -> tuple[dict, dict]:
         "peak_gb_steps_1_4": peak / 1e9, "peak_gb_step0_held": peak_step0 / 1e9,
         "top_kernels_us_per_step": top,
     }
+    if topk_rows:
+        summary["block_topk_rows"] = gossip_topk_rows(state, gcfg)
     log("gossip", json.dumps(summary))
     del state
     gc.collect()
     torch.cuda.empty_cache()
     summary["reported_consensus_without_compression"] = uncompressed_consensus(device, ld)
     return summary, total
+
+
+def gossip_topk_rows(state, gcfg) -> dict:
+    """The rows the next gossip step's largest selection takes: the
+    embedding leaf's residual 2 theta - theta_prev - theta_hat of both pods,
+    in blocks. block_topk's time on them (held bit for bit to the plain
+    version) beside the random rows' at the same shape, and what sets it:
+    the share of rows whose first-digit boundary equals that of the row
+    their CTA took before (those are split in one pass), and the share
+    whose boundary bin overflows a warp's candidate list (those refine the
+    whole row). A diagnosis (``--gossip-profile`` only): it mirrors the
+    kernel's partition (4 warps' contiguous quarters, STAGED_CAP / 4
+    candidates a warp, the first digit as key >> 23)."""
+    p, pp, rec = max(zip(tree_leaves(state["params"]), tree_leaves(state["params_prev"]),
+                         tree_leaves(state["recon"])), key=lambda t: t[0].numel())
+    block = gcfg.block_size
+    k = max(1, int(block * gcfg.topk_ratio))
+    x = (2 * p - pp - rec[:, 0]).float().reshape(-1, block)
+    nb = x.shape[0]
+    plan = topk_plan(block, k, nb)
+    w = plan["warps"]
+    d0 = torch.empty(nb, dtype=torch.int32, device=x.device)
+    over = 0
+    for lo in range(0, nb, 16_384):
+        key = magnitude_key(x[lo:lo + 16_384])
+        d0[lo:lo + 16_384] = torch.topk(key, k, dim=1).values[:, -1] >> 23
+        part = ((key >> 23) == d0[lo:lo + 16_384, None]).view(-1, w, block // w).sum(-1)
+        over += int((part.max(1).values > plan["cap"] // w).sum())
+        del key, part
+    got, want = block_topk(x, k), block_topk_ref(x, k)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("block_topk on the gossip rows: not bit-equal")
+    del got, want
+    g = plan["grid"]
+    out = {"shape": [nb, block, k], "ms": cuda_ms(lambda: block_topk(x, k), iters=10, warmup=2),
+           "guess_hit_share": float((d0[g:] == d0[:-g]).float().mean()),
+           "list_overflow_share": over / nb,
+           "boundary_digits": torch.unique(d0, return_counts=True)[0].tolist()[:16]}
+    log("gossip", f"block_topk on the embedding leaf's residual rows: {json.dumps(out)}")
+    return out
 
 
 def uncompressed_consensus(device, ld) -> list[float]:
@@ -2198,6 +2310,22 @@ def time_flash_d256(device) -> dict:
     return out
 
 
+def topk_profile(device) -> dict:
+    """``chip_smoke.py --topk-profile`` (a fresh process): block_topk's
+    parity at every case and kind, its times (TOPK_MAIN, TOPK_LONG) and the
+    sparse kernels' times at the solver's shape, the
+    kernels phase's block_topk and sparse work alone."""
+    rcv1 = DATASET_PRESETS["rcv1"]
+    log("topk-profile", subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    built = _build.build_all()
+    log("topk-profile", "ptxas: " + json.dumps(
+        {k: v for k, v in ptxas_report(built).items() if k.startswith("block_topk")}))
+    return {"parity": topk_parity(device), "block_topk": time_topk(device),
+            "sparse": time_kernels(device, 10, rcv1["d"], rcv1["k"])}
+
+
 def attention_profile(device) -> dict:
     """Run in a fresh process (``chip_smoke.py --attention-profile``; late in
     the main process torch.profiler has dropped kernel events): the bf16
@@ -2408,7 +2536,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    PROFILES = {"--ssm-profile": ssm_profile, "--attention-profile": attention_profile}
+    PROFILES = {"--ssm-profile": ssm_profile, "--attention-profile": attention_profile,
+                "--topk-profile": topk_profile,
+                "--gossip-profile": lambda dev: gossip_phase(dev, topk_rows=True)[0]}
     if len(sys.argv) == 2 and sys.argv[1] in PROFILES:
         if not torch.cuda.is_available():
             sys.exit(1)

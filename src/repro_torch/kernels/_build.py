@@ -73,8 +73,14 @@ SIGNATURES = {
     "flash_attention_bwd": {"flash_attention_bwd_f32": _FLASH_BWD},
     "flash_attention_sm90": {"flash_attention_fwd_bf16": _FLASH_SM90},
     "flash_attention_bwd_sm90": {"flash_attention_bwd_bf16": _FLASH_BWD_SM90},
-    # block_topk_f32(x, vals, idx, nb, block, k, device, stream)
-    "topk_compress": {"block_topk_f32": [_P, _P, _P, _I, _I, _I, _I, _P]},
+    # block_topk_f32(x, vals, idx, nb, block, k, stages, cap, smem, grid,
+    #   device, stream): the plan of topk_compress.topk_plan
+    "topk_compress": {
+        "block_topk_f32": [_P, _P, _P] + [_I] * 8 + [_P],
+        # the plan's dynamic shared memory: (block, k, stages, cap)
+        "block_topk_smem_f32": ([_I] * 4, ctypes.c_longlong),
+        "block_topk_k_max_f32": ([], _I),
+    },
     "ssd_scan": {
         "ssd_chunk_fwd_f32": _SSD_FWD,
         "ssd_chunk_bwd_f32": _SSD_BWD,
@@ -157,20 +163,33 @@ def load_library(name: str = "sparse_saga") -> ctypes.CDLL:
 
 
 def stream(t) -> int:
-    """The handle of the current CUDA stream of tensor t's device."""
+    """The handle of the current CUDA stream of tensor t's device, read as
+    Triton's launcher reads it, through torch's private
+    ``torch._C._cuda_getCurrentRawStream``: without building a
+    ``torch.cuda.Stream`` object (this is on every launch path). It is the
+    port's only private torch API; ``tests/test_torch_hygiene.py`` keeps it
+    here alone and ``tests/test_torch_cuda.py`` checks it on the card."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+@functools.cache
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (132 on an H100 SXM)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def plain_or_raise(t) -> bool:
     """True for a CPU tensor (the wrapper uses the plain version), False for
     a CUDA tensor (it launches the kernel); any other device raises."""
+    if t.is_cuda:
+        return False
     if t.device.type == "cpu":
         return True
-    if t.device.type != "cuda":
-        raise ValueError(f"unsupported device {t.device}: CPU or CUDA only")
-    return False
+    raise ValueError(f"unsupported device {t.device}: CPU or CUDA only")
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

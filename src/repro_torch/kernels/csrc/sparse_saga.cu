@@ -118,10 +118,19 @@ __global__ void sparse_dot_kernel(const T* __restrict__ psi, const int* __restri
   if (lane == 0) out[node] = acc;
 }
 
+// Makes `device` current; a call on the current device (every call of a
+// one-card run) reads the current device and sets nothing.
+inline cudaError_t use_device(int device) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess || current == device) return err;
+  return cudaSetDevice(device);
+}
+
 template <typename T>
 int launch_axpy(const T* psi, const int* idx, const T* val, const T* coef, const T* rho,
                 T* out, int N, int D, int K, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   const int blocks_d = min((D + kScaleThreads - 1) / kScaleThreads, 4096);
@@ -138,7 +147,7 @@ int launch_axpy(const T* psi, const int* idx, const T* val, const T* coef, const
 template <typename T>
 int launch_dot(const T* psi, const int* idx, const T* val, T* out, int N, int D, int K,
                int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (N + kDotWarps - 1) / kDotWarps;
   sparse_dot_kernel<T><<<blocks, 32 * kDotWarps, 0, (cudaStream_t)stream>>>(

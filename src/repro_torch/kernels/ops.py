@@ -193,6 +193,8 @@ def held_to_plain(name: str):
 
 def dispatch(name: str, *args, mode: str = "auto", **kwargs):
     """Run kernel `name` on `args` (and keyword options) under `mode`."""
+    if mode == "auto" and not _HELD:  # the wrapper, which picks plain or kernel itself
+        return _REGISTRY[name].kernel(*args, **kwargs)
     fn = _resolve(name, mode, *args)
     out = fn(*args, **kwargs)
     held = _HELD.get(name)

@@ -8,9 +8,11 @@ oracles do; ``flash_attention_bwd_ref`` is the dense counterpart of the
 blocked gradient kernels, computing in float32. The scatter runs column by
 column in k order with no atomics, so it is deterministic on the CPU and on
 the card and folds duplicate indices in the same order as the JAX oracle's
-sequential scatter. ``block_topk_ref`` selects by a stable sort, so among
-equal magnitudes the lower index comes first, as ``jax.lax.top_k`` and the
-Pallas body's first-occurrence argmax take them. ``ssd_chunk_ref`` is
+sequential scatter. ``block_topk_ref`` selects by a stable sort of integer
+magnitude keys, so among equal magnitudes the lower index comes first, as
+``jax.lax.top_k`` and the Pallas body's first-occurrence argmax take them,
+and every NaN ranks equal (above +inf), in index order, on any device.
+``ssd_chunk_ref`` is
 the within-chunk SSD of Mamba2 and ``ssd_chunk_bwd_ref`` its gradient, the
 Pallas backward's formulas written out in tensor ops; both compute in the
 input dtype, as the JAX oracle does.
@@ -149,14 +151,29 @@ def decode_attention_ref(q, k_pool, v_pool, table, lengths, window=None, softcap
     return o.reshape(B, Hq, D).to(q.dtype)
 
 
+_INT_OF = {torch.float64: torch.int64, torch.float32: torch.int32,
+           torch.bfloat16: torch.int16, torch.float16: torch.int16}
+
+
+def magnitude_key(x: torch.Tensor) -> torch.Tensor:
+    """The integer rank key of ``x`` (same width): the bits of ``|x|`` (so
+    -0.0 and 0.0 are equal), with every NaN, whatever its sign and payload,
+    mapped to one key above +inf's. Orders like ``|x|`` does."""
+    it = _INT_OF[x.dtype]
+    inf = int(torch.tensor(float("inf"), dtype=x.dtype).view(it))
+    key = x.view(it) & torch.iinfo(it).max
+    return torch.where(key > inf, inf + 1, key)
+
+
 def block_topk_ref(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row top-k by |value|: (vals (nb, k) in x.dtype, idx (nb, k) int32).
 
-    Rows are ranked by a stable descending sort of ``|x|``, so equal
-    magnitudes keep their order: the lower index first (NaN ranks above
-    every number, as in ``torch.sort``). ``torch.topk`` promises no order
-    among ties and is not used. Sorted in chunks of rows, so the sort's
-    temporaries stay small whatever nb is.
+    Rows are ranked by a stable descending sort of ``magnitude_key(x)``, so
+    equal magnitudes keep their order: the lower index first. Every NaN
+    ranks equal, above +inf, so NaNs too come in index order (a float sort
+    may order NaNs by their bits on some devices). ``torch.topk`` promises
+    no order among ties and is not used. Sorted in chunks of rows, so the
+    sort's temporaries stay small whatever nb is.
     """
     nb, block = x.shape
     if not 1 <= k <= block:
@@ -166,7 +183,8 @@ def block_topk_ref(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]
     step = max(1, _TOPK_CHUNK // block)
     for lo in range(0, nb, step):
         rows = x[lo:lo + step]
-        order = torch.sort(rows.abs(), dim=1, descending=True, stable=True).indices[:, :k]
+        order = torch.sort(magnitude_key(rows), dim=1, descending=True,
+                           stable=True).indices[:, :k]
         vals[lo:lo + step] = torch.gather(rows, 1, order)
         idx[lo:lo + step] = order.to(torch.int32)
     return vals, idx

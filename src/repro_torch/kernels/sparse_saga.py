@@ -14,7 +14,10 @@ this size. The design answers that only in part: pass 1 of ``sparse_axpy``
 is one coalesced elementwise sweep, its pass 2 and ``sparse_dot`` give each
 node one warp that walks its k entries 32 at a time; folding the whole step
 into fewer launches is later work. See the header of the ``.cu`` file for the arithmetic policy
-(f64 ``sparse_axpy`` is bit-equal to ``ref.sparse_axpy_ref``).
+(f64 ``sparse_axpy`` is bit-equal to ``ref.sparse_axpy_ref``). Since a
+``solve()`` step is host-bound, the wrappers keep the path to the launch
+short: every input is checked in one expression (``_refuse`` names what
+failed), entry points are bound once, and the stream handle is read raw.
 
 Each wrapper takes the plain version (``kernels.ref``) for a tensor on the
 CPU, and only then; for a CUDA tensor it launches the kernel or raises.
@@ -29,6 +32,8 @@ rejected by the plain version's indexing; callers must not rely on either.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import _build
@@ -36,10 +41,35 @@ from repro_torch.kernels.ref import sparse_axpy_ref, sparse_dot_ref
 
 _DTYPES = {torch.float64: "f64", torch.float32: "f32"}
 _MAX_GRID_Y = 65535  # pass 1 puts the node index on the grid's y axis
+_MAX_INT = 2**31 - 1
 
 
 def _check_inputs(psi, idx, val, vectors=()):
-    """Validate what the kernels take; returns (N, D, K)."""
+    """Validate what the kernels take; returns (N, D, K).
+
+    Every call checks every input: dtypes, shapes, devices, contiguity and
+    the grid limits, first in one expression of cheap attribute reads (the
+    launch path of a host-bound step), then, when that fails, one check at
+    a time, to raise the error that names the input."""
+    shape, ishape = psi.shape, idx.shape
+    dev = psi.get_device()
+    if (len(shape) == 2 and len(ishape) == 2 and psi.dtype in _DTYPES
+            and idx.dtype is torch.int32 and val.dtype is psi.dtype
+            and ishape[0] == shape[0] and val.shape == ishape
+            and idx.get_device() == dev and val.get_device() == dev
+            and psi.is_contiguous() and idx.is_contiguous() and val.is_contiguous()
+            and shape[0] <= _MAX_GRID_Y and shape[1] <= _MAX_INT and ishape[1] <= _MAX_INT):
+        for _, t in vectors:
+            if not (t.dtype is psi.dtype and t.shape == shape[:1] and t.get_device() == dev
+                    and t.is_contiguous()):
+                break
+        else:
+            return shape[0], shape[1], ishape[1]
+    _refuse(psi, idx, val, vectors)
+
+
+def _refuse(psi, idx, val, vectors):
+    """Raise the error naming what ``_check_inputs`` refused."""
     if psi.dtype not in _DTYPES:
         raise TypeError(f"psi must be float32 or float64, got {psi.dtype}")
     if psi.ndim != 2:
@@ -64,9 +94,15 @@ def _check_inputs(psi, idx, val, vectors=()):
             raise ValueError(f"{name} is on {t.device}, psi on {psi.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if n > _MAX_GRID_Y or d >= 2**31 or idx.shape[1] >= 2**31:
-        raise ValueError(f"shape (N={n}, D={d}, k={idx.shape[1]}) too large")
-    return n, d, idx.shape[1]
+    raise ValueError(f"shape (N={n}, D={d}, k={idx.shape[1]}) too large")  # the grid limits
+
+
+@functools.cache
+def _entry(kind: str, dtype: torch.dtype):
+    """The library's entry point for (``"dot"`` | ``"axpy"``, dtype), bound
+    once (ctypes builds a function object on every attribute lookup of a
+    new name)."""
+    return getattr(_build.load_library(), f"sparse_{kind}_{_DTYPES[dtype]}")
 
 
 def sparse_dot(psi: torch.Tensor, idx: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
@@ -75,11 +111,11 @@ def sparse_dot(psi: torch.Tensor, idx: torch.Tensor, val: torch.Tensor) -> torch
         return sparse_dot_ref(psi, idx, val)
     n, d, k = _check_inputs(psi, idx, val)
     out = torch.empty((n,), dtype=psi.dtype, device=psi.device)
-    lib = _build.load_library()
-    fn = getattr(lib, f"sparse_dot_{_DTYPES[psi.dtype]}")
-    code = fn(psi.data_ptr(), idx.data_ptr(), val.data_ptr(), out.data_ptr(),
-              n, d, k, psi.device.index or 0, _build.stream(psi))
-    _build.check(lib, code, "sparse_dot launch")
+    code = _entry("dot", psi.dtype)(psi.data_ptr(), idx.data_ptr(), val.data_ptr(),
+                                    out.data_ptr(), n, d, k, psi.get_device(),
+                                    _build.stream(psi))
+    if code:
+        _build.check(_build.load_library(), code, "sparse_dot launch")
     sparse_dot.launches += 1
     return out
 
@@ -99,12 +135,11 @@ def sparse_axpy(
         return sparse_axpy_ref(psi, idx, val, coef, rho)
     n, d, k = _check_inputs(psi, idx, val, (("coef", coef), ("rho", rho)))
     out = torch.empty_like(psi)
-    lib = _build.load_library()
-    fn = getattr(lib, f"sparse_axpy_{_DTYPES[psi.dtype]}")
-    code = fn(psi.data_ptr(), idx.data_ptr(), val.data_ptr(), coef.data_ptr(),
-              rho.data_ptr(), out.data_ptr(), n, d, k, psi.device.index or 0,
-              _build.stream(psi))
-    _build.check(lib, code, "sparse_axpy launch")
+    code = _entry("axpy", psi.dtype)(psi.data_ptr(), idx.data_ptr(), val.data_ptr(),
+                                     coef.data_ptr(), rho.data_ptr(), out.data_ptr(), n, d, k,
+                                     psi.get_device(), _build.stream(psi))
+    if code:
+        _build.check(_build.load_library(), code, "sparse_axpy launch")
     sparse_axpy.launches += 2 if k > 0 else 1
     return out
 

@@ -148,35 +148,101 @@ def test_cuda_flash_bwd_matches_plain(card, dtype):
     torch.cuda.synchronize()
 
 
+# NaNs of several payloads and both signs, +-inf, +-0 (uint32 bits)
+TOPK_SPECIALS = np.array([0x7FC00000, 0x7FC00005, 0xFFC00003, 0x7F800001, 0xFF812345,
+                          0x7F800000, 0xFF800000, 0x80000000, 0x00000000], np.uint32)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["random", "ties", "constant"])
+@pytest.mark.parametrize("kind", ["random", "ties", "constant", "nan"])
 def test_cuda_block_topk_matches_plain_bit_for_bit(card, kind):
     """block_topk against its plain version at the gossip path's block sizes
-    (4096 with k 40, 2304 with 23, 64 and 16 with 1, k = block), bit for bit
-    in values and indices (both take the lower index first among ties), one
-    launch a call; a block past the kernel's limit is refused."""
+    (4096 with k 40, 2304 with 23, 64 and 16 with 1, k = block), above
+    8192 (8193 staged; 65,536 and 1,000,003 streamed, k up to 10,000) and
+    k = block at 8192, bit for bit in values (as bits: NaN payloads too)
+    and indices (both take the lower index first among ties, every NaN
+    equal), one launch a call; k above K_MAX and float64 are refused."""
     from repro_torch.kernels import topk_compress
     from repro_torch.kernels.ref import block_topk_ref
 
     g = torch.Generator(device=card).manual_seed(2)
+    specials = torch.as_tensor(TOPK_SPECIALS.view(np.int32), device=card)
     for nb, block, k in [(300, 4096, 40), (7, 2304, 23), (5, 64, 1), (3, 16, 16),
-                         (2, 4096, 4096), (2, 8192, 3)]:
+                         (2, 4096, 4096), (2, 8192, 3), (2, 8193, 81), (2, 8192, 8192),
+                         (3, 65_536, 655), (2, 1_000_003, 10_000)]:
         x = torch.randn(nb, block, generator=g, device=card)
         if kind == "ties":
             x = torch.round(x * 2) / 2
         elif kind == "constant":
             x = torch.full_like(x, 1.0)
+        elif kind == "nan":
+            m = max(1, block // 100)
+            pos = torch.randint(0, block, (nb, m), generator=g, device=card)
+            pick = torch.randint(0, len(TOPK_SPECIALS), (nb, m), generator=g, device=card)
+            x.view(torch.int32).scatter_(1, pos, specials[pick])
         before = topk_compress.block_topk.launches
         got = ops.topk_blocks(x, k, mode="on")
         assert topk_compress.block_topk.launches == before + 1
         want = block_topk_ref(x, k)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-        ops.parity_check("block_topk", x, k, mode="on")
-    with pytest.raises(ValueError, match="8192"):
-        topk_compress.block_topk(torch.zeros(1, 8193, device=card), 1)
+        assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+        assert torch.equal(got[1], want[1])
+        if kind != "nan":  # the registry's comparator cannot compare NaNs
+            ops.parity_check("block_topk", x, k, mode="on")
+    with pytest.raises(ValueError, match="K_MAX"):
+        topk_compress.block_topk(torch.zeros(1, topk_compress.K_MAX + 1, device=card),
+                                 topk_compress.K_MAX + 1)
     with pytest.raises(TypeError, match="float32"):
         topk_compress.block_topk(torch.zeros(1, 64, device=card, dtype=torch.float64), 1)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_block_topk_plans_agree(card):
+    """The C side's layout and K_MAX equal the plan's, and every kernel the
+    plan chooses by shape (3, 2 and 1 stages, the stream variant) gives the
+    plain version's output bit for bit: on rows that guess the previous
+    row's boundary digit right and wrong (rows of two scales in turn), and
+    on rows whose boundary bin overflows the candidate lists at the plan's
+    capacity (constant rows, rows of one first digit), which refine the row
+    itself."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import topk_compress as TK
+    from repro_torch.kernels.ref import block_topk_ref
+
+    lib = _build.load_library("topk_compress")
+    assert lib.block_topk_k_max_f32() == TK.K_MAX
+    for block, k, nb in [(4096, 40, 288_000), (2304, 23, 2), (8193, 81, 3), (8192, 8192, 2),
+                         (65_536, 655, 3), (1_000_003, 10_000, 2), (37, 5, 1), (640, 40, 2),
+                         (256, 40, 2)]:
+        plan = TK.topk_plan(block, k, nb)
+        assert lib.block_topk_smem_f32(block, k, plan["stages"], plan["cap"]) == plan["smem"], \
+            (block, k)
+    g = torch.Generator(device=card).manual_seed(3)
+    for nb, block, k, stages in [(2000, 4096, 40, 1), (600, 640, 40, 2), (600, 256, 40, 3),
+                                 (12, 65_536, 655, 0)]:
+        assert TK.topk_plan(block, k, nb)["stages"] == stages
+        x = torch.randn(nb, block, generator=g, device=card)
+        x[1::2] *= 100.0  # every other row's boundary digit differs
+        x[2::6] = 1.0  # the whole row in one bin
+        x[4::6] = 1.0 + 0.5 * torch.rand(x[4::6].shape, generator=g, device=card)
+        got, want = TK.block_topk(x, k), block_topk_ref(x, k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (block, k)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_raw_stream_is_the_current_stream(card):
+    """``_build.stream`` reads torch's private ``_cuda_getCurrentRawStream``
+    (every wrapper's launch path): it exists in this torch and gives the
+    current stream's handle, on a side stream too."""
+    from repro_torch.kernels import _build
+
+    assert hasattr(torch._C, "_cuda_getCurrentRawStream")
+    x = torch.zeros(1, device=card)
+    assert _build.stream(x) == torch.cuda.current_stream(card).cuda_stream
+    side = torch.cuda.Stream(card)
+    with torch.cuda.stream(side):
+        assert _build.stream(x) == side.cuda_stream != 0
 
 
 # (B, nc, Q, nh, hd, ds, log-decay range): the main paths' shapes (train,

@@ -35,3 +35,17 @@ def test_port_imports_no_jax_and_no_repro():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def test_private_torch_api_only_in_build():
+    """The port reaches torch's private ``torch._C`` in one place:
+    ``_build.stream`` reads ``_cuda_getCurrentRawStream`` (the card tests
+    check it exists), so a torch that renames it fails there alone."""
+    uses = {}
+    for path in sorted((REPO / "src/repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]:
+        for n, line in enumerate(path.read_text().splitlines(), 1):
+            code = line.split("#")[0]
+            if "torch._C" in code and "``" not in code:
+                uses[f"{path.relative_to(REPO)}:{n}"] = code.strip()
+    assert list(uses.values()) == ["return torch._C._cuda_getCurrentRawStream(t.get_device())"], uses
+    assert all(k.startswith("src/repro_torch/kernels/_build.py:") for k in uses), uses

@@ -8,7 +8,11 @@ lower index first among equal magnitudes, and the CUDA kernel is held
 bit-equal to the plain version on the card (tests/test_torch_cuda.py,
 chip_smoke.py). Ties are common on the gossip path (every norm-scale leaf
 is 1.0 at step 0), so the inputs include rows with many ties, constant
-rows and rows of zeros. The compression helpers (``topk_compress``,
+rows and rows of zeros. Rows of the 'nan' kind hold NaNs of several
+payloads and both signs, +-inf and +-0: the plain version ranks every NaN
+equal, above +inf, in index order, as the Pallas body's first-occurrence
+argmax does; ``jax.lax.top_k`` orders NaNs by their bits, so the oracle is
+held exactly everywhere but in the order among the NaNs. The compression helpers (``topk_compress``,
 ``block_topk_compress``, ``scatter_decompress``, ``leaf_k``) and the
 circulant mixing weights equal JAX exactly as well.
 """
@@ -29,10 +33,15 @@ from repro_torch.kernels.ref import block_topk_ref
 # final_norm 2304 with 23; the reduced configs' 64 and 16 with 1), k = block
 SHAPES = [(4096, 40), (2304, 23), (64, 1), (16, 16), (4096, 4096)]
 KINDS = ["random", "ties", "constant", "zeros"]
+# NaNs of several payloads and both signs, +-inf, +-0 (uint32 bits)
+SPECIALS = np.array([0x7FC00000, 0x7FC00005, 0xFFC00003, 0x7F800001, 0xFF812345, 0x7F800000,
+                     0xFF800000, 0x80000000, 0x00000000], np.uint32)
 
 
 def rows(nb, block, kind, seed=0):
-    """float32 (nb, block) rows of one kind; 'ties' rounds to a few values."""
+    """float32 (nb, block) rows of one kind; 'ties' rounds to a few values;
+    'nan' puts block // 100 (at least 2: a NaN and +inf) ``SPECIALS`` into
+    normal rows."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((nb, block)).astype(np.float32)
     if kind == "ties":
@@ -42,7 +51,18 @@ def rows(nb, block, kind, seed=0):
         x[1::2] = -0.25  # odd rows: another constant, negative
     elif kind == "zeros":
         x = np.zeros((nb, block), np.float32)
+    elif kind == "nan":
+        m = max(2, block // 100)
+        for r in range(nb):
+            put = rng.choice(SPECIALS, m)
+            put[:2] = (0xFFC00003, 0x7F800000)  # every row: a NaN and +inf at least
+            x[r].view(np.uint32)[rng.choice(block, m, replace=False)] = put
     return x
+
+
+def bits(a) -> np.ndarray:
+    """float32 values as their uint32 bits (NaN payloads compared too)."""
+    return np.asarray(a, np.float32).view(np.uint32)
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -56,17 +76,39 @@ def test_plain_equals_jax_oracle_exactly(block, k, kind):
     np.testing.assert_array_equal(vals.numpy(), np.asarray(jv))
 
 
-@pytest.mark.parametrize("kind", ["random", "ties", "constant"])
+@pytest.mark.parametrize("block,k", SHAPES)
+def test_plain_nan_kind_against_jax_oracle(block, k):
+    """NaNs, +-inf and +-0: the oracle exactly wherever it returns a number;
+    where it returns NaNs (first, above +inf), the same NaN entries, which
+    the plain version orders by index (``lax.top_k`` by their bits)."""
+    x = rows(3, block, "nan", seed=7)
+    vals, idx = block_topk_ref(torch.as_tensor(x), k)
+    jv, ji = JR.block_topk_ref(jnp.asarray(x), k)
+    vals, idx, jv, ji = vals.numpy(), idx.numpy(), np.asarray(jv), np.asarray(ji)
+    nan = np.isnan(jv)
+    np.testing.assert_array_equal(np.isnan(vals), nan)
+    np.testing.assert_array_equal(idx[~nan], ji[~nan])
+    np.testing.assert_array_equal(bits(vals[~nan]), bits(jv[~nan]))
+    assert nan[:, 0].all()  # every row's top entry is a NaN
+    for r in range(x.shape[0]):
+        mine = idx[r][nan[r]]
+        assert (np.diff(mine) > 0).all()  # NaNs in index order
+        np.testing.assert_array_equal(mine, np.sort(ji[r][nan[r]]))
+        np.testing.assert_array_equal(bits(vals[r][nan[r]]), bits(x[r][mine]))
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "constant", "nan"])
 @pytest.mark.parametrize("block,k", [(4096, 40), (2304, 23), (64, 1), (16, 16), (256, 256)])
 def test_plain_equals_pallas_body_exactly(block, k, kind):
     """The TPU kernel's body in interpret mode: k rounds of first-occurrence
-    argmax. (k = block at 256 rather than 4096: interpret mode runs the
-    rounds one by one.)"""
+    argmax; NaNs (which argmax takes first, in index order), infinities and
+    signed zeros included, values compared as bits. (k = block at 256
+    rather than 4096: interpret mode runs the rounds one by one.)"""
     x = rows(2, block, kind, seed=1)
     vals, idx = block_topk_ref(torch.as_tensor(x), k)
     pv, pi = pallas_block_topk(jnp.asarray(x), k, interpret=True)
     np.testing.assert_array_equal(idx.numpy(), np.asarray(pi))
-    np.testing.assert_array_equal(vals.numpy(), np.asarray(pv))
+    np.testing.assert_array_equal(bits(vals.numpy()), bits(pv))
 
 
 def test_plain_chunks_rows():
@@ -121,9 +163,13 @@ def test_wrapper_routes_and_checks():
         chk(x.double(), 4)
     with pytest.raises(ValueError, match="contiguous"):
         chk(torch.zeros(64, 3).T, 1)
-    with pytest.raises(ValueError, match="8192"):
-        chk(torch.zeros(1, 8193), 1)
+    # any block: staged rows above 8192, streamed rows; k up to K_MAX
+    assert chk(torch.zeros(1, 8193), 1) == (1, 8193)
+    assert chk(torch.zeros(2, 65_536), 655) == (2, 65_536)
     assert chk(torch.zeros(1, 8192), 8192) == (1, 8192)
+    assert chk(torch.zeros(1, topk_compress.K_MAX), topk_compress.K_MAX)[1] == topk_compress.K_MAX
+    with pytest.raises(ValueError, match="K_MAX"):
+        chk(torch.zeros(1, topk_compress.K_MAX + 1), topk_compress.K_MAX + 1)
     for k in (0, 65):
         with pytest.raises(ValueError, match="k="):
             chk(x, k)
