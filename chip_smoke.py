@@ -70,9 +70,15 @@ printed with its seconds:
    pool of layer 0, in bf16: its K/V reach ~100, far from the unit scale
    the f32 bar is set for), lengths 0, 1, a partial page and a full table, null
    pages past each length, GQA group 4 and MQA, window and softcap at
-   small sizes. decode is timed by CUDA events and by profiler device
-   time, beside the bound, the plain version and SDPA over the gathered
-   pages, which only the timing table uses. gemma2-2b's attention is held
+   small sizes; at long contexts (minitron-8b's heads, every length
+   32,768) the whole batch at B = 8 and 8 of the 128 sequences at the
+   reference's decode_32k; two calls bit-equal (the split merge is
+   deterministic), with no host sync in a call. Then, in a fresh process
+   (``chip_smoke.py --decode-profile LENGTHS``), decode is timed at a
+   snapshot of the serve shape (the busiest step's lengths) and at both
+   long shapes by CUDA events and by profiler device time, beside the
+   bound, the plain version, SDPA over the gathered pages (which only the
+   timing table uses) and the plan's splits. gemma2-2b's attention is held
    too (8/4 heads, D=256, causal, window 4096, softcap 50, at S=2048 and at
    S=4608, where the window bites), forward and backward, bf16 and f32.
    Then, in a fresh process (``chip_smoke.py --attention-profile``; late
@@ -219,13 +225,14 @@ from repro_torch.core.gossip import (  # noqa: E402
     wire_bytes_per_pod,
 )
 from repro_torch.kernels import _build, ops  # noqa: E402
-from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_attention, decode_plan  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     bwd_kernels, flash_attention, flash_attention_bwd, tile_plan,
 )
 from repro_torch.kernels.ref import (  # noqa: E402
-    attention_ref, block_topk_ref, decode_attention_ref, flash_attention_bwd_ref, magnitude_key,
-    sparse_axpy_ref, sparse_dot_ref, ssd_chunk_bwd_ref, ssd_chunk_ref,
+    attention_ref, block_topk_ref, decode_attention_ref, decode_split_ranges,
+    flash_attention_bwd_ref, magnitude_key, sparse_axpy_ref, sparse_dot_ref, ssd_chunk_bwd_ref,
+    ssd_chunk_ref,
 )
 from repro_torch.kernels.sparse_saga import sparse_axpy, sparse_dot  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_chunk_bwd, ssd_chunk_fwd, ssd_plan  # noqa: E402
@@ -447,7 +454,7 @@ def time_kernels(device, n, d, k, dtype=torch.float64) -> dict[str, dict]:
         # the kernels' own device time (ms above includes the host's launch
         # path whenever that is slower than the device)
         "device_ms": kernel_device_ms(lambda: sparse_axpy(psi, idx, val, coef, rho),
-                                      ("axpy_scale_kernel", "axpy_scatter_kernel")),
+                                      ("sparse_axpy_kernel",)),
         "plain_ms": cuda_ms(lambda: sparse_axpy_ref(psi, idx, val, coef, rho), iters=50),
         "bound_ms": b_axpy[0], "bound_by": b_axpy[1],
         "library_ms": None,  # no single PyTorch call computes rho*psi + coef*scatter
@@ -612,9 +619,9 @@ def paper_problem(task, d, k, n_nodes=10, q=100, seed=0):
 def expected_launches(steps: int, comm: str) -> dict[str, int]:
     """The kernel launches of one solve(): 1 sparse_axpy call for init,
     4 sparse_axpy + 1 sparse_dot calls a step and 1 more sparse_axpy call a
-    relay step; each sparse_axpy call launches 2 kernels (scale, scatter)."""
+    relay step; each call of either launches one kernel."""
     axpy_calls = 1 + 4 * steps + (steps if comm == "sparse" else 0)
-    return {"sparse_dot": steps, "sparse_axpy": 2 * axpy_calls}
+    return {"sparse_dot": steps, "sparse_axpy": axpy_calls}
 
 
 def counted_solve(problem, method, comm, device, steps, total, **kw):
@@ -856,10 +863,126 @@ def attention_parity(device, decode_main) -> dict[str, float]:
     # from the unit scale the float32 bar is set for)
     err = ops.parity_check("decode_attention", *decode_main)
     torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # the wrapper never reads lengths to the host
+    try:
+        first, second = decode_attention(*decode_main), decode_attention(*decode_main)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    same = torch.equal(first, second)
+    torch.cuda.synchronize()
     log("attention", f"decode {decode_main[0].dtype} at the serve snapshot "
-        f"lengths={decode_main[4].tolist()}: max_abs_err={err!r}")
+        f"lengths={decode_main[4].tolist()}: max_abs_err={err!r} repeat_bit_equal={same}")
+    if not same:
+        raise AssertionError("decode_attention: two calls on the serve snapshot differ")
     worst["decode_attention"] = err
+    decode_long_parity(device)
     return worst
+
+
+# decode at long contexts with minitron-8b's heads (bf16, 32/8, D=128, pages
+# of 16), every length 32,768: B = 8 (1.07 GB of K/V) and the reference's
+# decode_32k shape, B = 128 (src/repro/launch/shapes.py; 17.2 GB)
+DECODE_LONG = {"b8_32k": (8, 32_768), "decode_32k": (128, 32_768)}
+
+
+def decode_long_inputs(b, length, device, seed=0):
+    """Seeded bf16 (q, k_pool, v_pool, table, lengths), every length
+    `length`: minitron-8b's heads, pages of 16 drawn as a random permutation
+    of the pool (page 0 stays the null page)."""
+    hq, hkv, d, bs = 32, 8, 128, 16
+    n_pages = -(-length // bs)
+    nb = b * n_pages + 1
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(b, hq, d, generator=g, device=device).to(torch.bfloat16)
+    kp = torch.empty(nb, bs, hkv, d, dtype=torch.bfloat16, device=device).normal_(generator=g)
+    vp = torch.empty_like(kp).normal_(generator=g)
+    table = (torch.randperm(nb - 1, generator=g, device=device) + 1).int().reshape(b, n_pages)
+    lengths = torch.full((b,), length, dtype=torch.int32, device=device)
+    return q, kp, vp, table, lengths
+
+
+def decode_rows(b):
+    """The sequences a long shape's plain version is computed for: all of
+    them up to 8, else 8 spread over the batch (the plain version's float32
+    gather of all 128 of decode_32k would take 34 GB)."""
+    return list(range(b)) if b <= 8 else list(range(0, b, b // 8))[:8]
+
+
+# The long shapes are also held to a relative Frobenius error,
+# ||got - want|| / ||want||. With N(0, 1) inputs the softmax over 32,768
+# positions is nearly flat, each output element is ~0.009, and the registry's
+# bar (0.02 + 0.02 |want|) would pass a kernel that skipped a tile or a whole
+# split. Leaving out m of n positions moves the output by ~sqrt(m / n) of its
+# norm (0.044 for one 64-position tile of 32,768); rounding the output to
+# bf16 moves it by ~0.002.
+DECODE_LONG_REL = 0.01
+
+
+def rel_norm(got, want) -> float:
+    """||got - want|| / ||want||, in float32."""
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def decode_long_faults(q, kp, vp, table, lengths, tile, splits) -> dict:
+    """The plain version of what a split kernel would give if it left out
+    part of each sequence's positions (every length equal): its last tile,
+    and, with splits > 1, its first split (a window that starts where the
+    second split does). Each must miss DECODE_LONG_REL, which shows that the
+    bar catches such a fault at these inputs."""
+    length = int(lengths[0])
+    faults = {"last tile skipped": decode_attention_ref(q, kp, vp, table, lengths - tile)}
+    if splits > 1:
+        second = decode_split_ranges(length, table.shape[1] * kp.shape[1], None, tile, splits)[1]
+        faults["first split dropped"] = decode_attention_ref(q, kp, vp, table, lengths,
+                                                             window=length - second[0])
+    return faults
+
+
+def decode_long_parity(device) -> None:
+    """decode_attention at DECODE_LONG against its plain version: the bf16
+    bar and DECODE_LONG_REL, over the whole batch at B = 8 and 8 of the 128
+    sequences at decode_32k; the plain version of a skipped tile and of a
+    dropped split must each miss DECODE_LONG_REL; two calls bit-equal (the
+    deterministic merge of the splits)."""
+    tol = ops.get_kernel("decode_attention").tolerance(torch.bfloat16)
+    for name, (b, length) in DECODE_LONG.items():
+        q, kp, vp, table, lengths = decode_long_inputs(b, length, device)
+        plan = decode_plan(b, kp.shape[2], q.shape[1] // kp.shape[2], q.shape[2], q.dtype,
+                           table.shape[1], kp.shape[1], _build.sm_count(q.device))
+        before = decode_attention.launches
+        got = decode_attention(q, kp, vp, table, lengths)
+        again = decode_attention(q, kp, vp, table, lengths)
+        launched = decode_attention.launches - before
+        rows = torch.tensor(decode_rows(b), device=device)
+        sub = (q[rows], kp, vp, table[rows], lengths[rows])
+        want = decode_attention_ref(*sub)
+        err = ops.assert_close(got[rows], want, tol)
+        rel = rel_norm(got[rows], want)
+        faults = {k: rel_norm(v, want) for k, v in
+                  decode_long_faults(*sub, plan["tile"], plan["splits"]).items()}
+        same = torch.equal(got, again)
+        torch.cuda.synchronize()
+        log("attention", f"decode bf16 {name} B={b} lengths={length}: max_abs_err={err!r} "
+            f"rel_norm={rel!r} (limit {DECODE_LONG_REL}; plain version with a fault: "
+            f"{json.dumps(faults)}) over {len(rows)} sequences, repeat_bit_equal={same}, "
+            f"launches={launched}, splits={plan['splits']}")
+        if not same or launched != 2:
+            raise AssertionError(f"decode {name}: repeat_bit_equal={same}, {launched} launches")
+        if not rel <= DECODE_LONG_REL:
+            raise AssertionError(f"decode {name}: relative error {rel} > {DECODE_LONG_REL}")
+        if not min(faults.values()) > DECODE_LONG_REL:
+            raise AssertionError(f"decode {name}: a fault's plain version is within "
+                                 f"{DECODE_LONG_REL}: {faults}")
+        del q, kp, vp, table, lengths, got, again, want, sub
+        torch.cuda.empty_cache()
+
+
+def decode_split_count(q, kp, table) -> int:
+    """The splits decode_attention's plan takes for these inputs."""
+    b, hq, d = q.shape
+    hkv = kp.shape[2]
+    return decode_plan(b, hkv, hq // hkv, d, q.dtype, table.shape[1], kp.shape[1],
+                       _build.sm_count(q.device))["splits"]
 
 
 # the bf16 kernels' names in the profiler (the main paths' dtype): the
@@ -899,36 +1022,87 @@ def time_attention(device) -> dict:
     return out
 
 
-def time_decode(device, decode_main) -> dict:
-    """decode_attention at the serve snapshot (bf16): kernel, plain version
-    and SDPA over the gathered pages, beside the bound."""
-    qd, kp, vp, table, lengths = decode_main
+DECODE_KERNELS = ("flash_decode_kernel",)
+
+
+def time_decode_shape(device, args, label, iters) -> dict:
+    """decode_attention (bf16) on `args`: CUDA events, profiler device time,
+    the bound, the plain version (on ``decode_rows`` of the batch: the
+    share it covers is logged) and SDPA over the pages gathered beforehand
+    (the gather is not timed; skipped when the card lacks the memory)."""
+    qd, kp, vp, table, lengths = args
     B, Hq, D = qd.shape
     hkv = kp.shape[2]
-    live = int(lengths.sum())
+    live = int(lengths.clamp(min=0).sum())
     esize = kp.element_size()
     bound_d = bound(2 * qd.numel() * esize + 2 * live * hkv * D * esize
                     + 4 * (table.numel() + B), 4 * Hq * D * live, torch.bfloat16)
-    L = table.shape[1] * kp.shape[1]
-    kg = kp[table.long()].reshape(B, L, hkv, D).transpose(1, 2)
-    vg = vp[table.long()].reshape(B, L, hkv, D).transpose(1, 2)
-    mask = (torch.arange(L, device=device)[None] < lengths[:, None].long())[:, None, None]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = lambda: sdpa(qd[:, :, None], kg, vg, attn_mask=mask, enable_gqa=True)  # noqa: E731
-    lib_out, plain_out = lib()[:, :, 0].float(), decode_attention_ref(*decode_main).float()
-    if not same_function(lib_out, plain_out):
-        raise AssertionError("SDPA decode yardstick disagrees: "
-                             f"{(lib_out - plain_out).abs().max().item()}")
+    rows = torch.tensor(decode_rows(B), device=device)
+    sub = (qd[rows], kp, vp, table[rows], lengths[rows])
+    kern = lambda: decode_attention(*args)  # noqa: E731
     out = {
-        "ms": cuda_ms(lambda: decode_attention(*decode_main), iters=100),
-        "device_ms": kernel_device_ms(lambda: decode_attention(*decode_main),
-                                      ("decode_attention_kernel",)),
-        "plain_ms": cuda_ms(lambda: decode_attention_ref(*decode_main), iters=20),
+        "ms": cuda_ms(kern, iters=iters, warmup=max(3, iters // 10)),
+        "device_ms": kernel_device_ms(kern, DECODE_KERNELS, iters=min(50, iters)),
+        "plain_ms": cuda_ms(lambda: decode_attention_ref(*sub), iters=max(3, iters // 10),
+                            warmup=1),
+        "plain_rows": f"{len(rows)} of {B}",
         "bound_ms": bound_d[0], "bound_by": bound_d[1],
-        # SDPA over the pages gathered beforehand (the gather is not timed)
-        "library_ms": cuda_ms(lib, iters=100),
+        "library_ms": None,
+        "splits": decode_split_count(qd, kp, table),
+        "live_positions": live,
     }
-    log("attention", f"decode_attention: {json.dumps(out)}")
+    L = table.shape[1] * kp.shape[1]
+    gathered = 2 * B * L * hkv * D * esize
+    if torch.cuda.mem_get_info(device)[0] > 1.5 * gathered + (2 << 30):
+        kg = kp[table.long()].reshape(B, L, hkv, D).transpose(1, 2)
+        vg = vp[table.long()].reshape(B, L, hkv, D).transpose(1, 2)
+        mask = (torch.arange(L, device=device)[None] < lengths[:, None].long())[:, None, None]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = lambda: sdpa(qd[:, :, None], kg, vg, attn_mask=mask, enable_gqa=True)  # noqa: E731
+        lib_out = lib()[rows, :, 0].float()
+        plain_out = decode_attention_ref(*sub).float()
+        if not same_function(lib_out, plain_out):
+            raise AssertionError(f"SDPA decode yardstick disagrees at {label}: "
+                                 f"{(lib_out - plain_out).abs().max().item()}")
+        out["library_ms"] = cuda_ms(lib, iters=iters, warmup=max(3, iters // 10))
+        del kg, vg, mask, lib_out, plain_out
+        torch.cuda.empty_cache()
+    log("decode-profile", f"decode_attention {label}: {json.dumps(out)}")
+    return out
+
+
+# the busiest decode step's lengths (+1: the token being decoded) of the
+# serve phase (1,862 live positions), for a --decode-profile run on its
+# own; the full run passes the ones its serve phase logged
+SERVE_BUSIEST_LENGTHS = [170, 251, 253, 238, 285, 194, 247, 224]
+
+
+def decode_profile(device, lengths=None) -> dict:
+    """``chip_smoke.py --decode-profile [LENGTHS_JSON]`` (a fresh process;
+    late in the main process torch.profiler drops kernel events):
+    decode_attention at a serve snapshot (minitron-8b's heads over the serve
+    pool's shape, the busiest step's `lengths`), at B = 8 and at decode_32k
+    (every length 32,768): events, device time, bound, plain version, SDPA
+    where memory allows, splits."""
+    log("decode-profile", subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    built = _build.build_all()
+    log("decode-profile", "ptxas: " + json.dumps(
+        {k: v for k, v in ptxas_report(built).items() if k.startswith("flash_decode")}))
+    lengths = lengths or SERVE_BUSIEST_LENGTHS
+    snap = decode_inputs(lengths, 32, 8, 128, SERVE_POOL.n_blocks, SERVE_POOL.block_size,
+                         SERVE_POOL.max_len // SERVE_POOL.block_size, torch.bfloat16, device)
+    out = time_decode_shape(device, snap, "serve snapshot", iters=200)
+    out["lengths"] = list(lengths)
+    del snap
+    out["long"] = {}
+    for name, (b, length) in DECODE_LONG.items():
+        args = decode_long_inputs(b, length, device)
+        out["long"][name] = time_decode_shape(device, args, name,
+                                              iters=50 if b <= 8 else 10)
+        del args
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2237,8 +2411,8 @@ def ptxas_report(outputs) -> dict:
             if m:
                 mangled = m.group(1)
                 base = re.search(r"([a-z_]+_kernel)I", mangled)
-                dt = "bf16" if "nv_bfloat16" in mangled else ("f32" if "_kernelIf" in mangled
-                                                             else "")
+                dt = ("bf16" if "nv_bfloat16" in mangled else "f32" if "_kernelIf" in mangled
+                      else "f64" if "_kernelId" in mangled else "")
                 ints = ",".join(re.findall(r"Li(\d+)E", mangled))
                 name = f"{base.group(1) if base else mangled}<{','.join(filter(None, (dt, ints)))}>"
                 rep[name] = {}
@@ -2336,13 +2510,13 @@ def attention_profile(device) -> dict:
             "flash_attention_bwd": time_flash_bwd(device), "d256": time_flash_d256(device)}
 
 
-def profile_subprocess(flag: str, timeout: float = 900) -> dict:
-    """``chip_smoke.py <flag>`` in a fresh process on the same card; its
-    JSON result (the last line of its output)."""
+def profile_subprocess(flag: str, *args: str, timeout: float = 900) -> dict:
+    """``chip_smoke.py <flag> [args]`` in a fresh process on the same card;
+    its JSON result (the last line of its output)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src")
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), flag], cwd=ROOT,
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), flag, *args], cwd=ROOT,
                        env=env, capture_output=True, text=True, timeout=timeout)
     tag = flag.removeprefix("--")
     log(tag, f"rc={r.returncode} in {time.perf_counter() - t0:.1f} s\n{r.stdout.strip()}")
@@ -2373,12 +2547,13 @@ def main() -> int:
     log("build", f"{sorted(built)} built, {len(_build.SIGNATURES)} loaded in "
         f"{time.perf_counter() - t0:.1f} s")
     ptxas = ptxas_report(built)
-    log("build", "ptxas (the flash kernels at head_dim 128 and 256, block_topk, the ssd kernels "
-        "at mamba2's hd 64): " + json.dumps(
+    log("build", "ptxas (the flash and decode kernels at head_dim 128 and 256, block_topk, "
+        "sparse_axpy, the ssd kernels at mamba2's hd 64): " + json.dumps(
             {k: v for k, v in ptxas.items()
-             if (k.startswith("flash_") and k.endswith((",128>", ",256>")))
-             or k.startswith("block_topk") or (k.startswith("ssd_") and k.endswith("<64>"))
-             or "ssd_bwd_finish_kernel" in k}))
+             if (k.startswith("flash_") and (k.endswith((",128>", ",256>"))
+                                             or ",128," in k or ",256," in k))
+             or k.startswith(("block_topk", "sparse_axpy"))
+             or (k.startswith("ssd_") and k.endswith("<64>")) or "ssd_bwd_finish_kernel" in k}))
     for d in (128, 256):
         log("build", f"dynamic shared memory a block at head_dim {d}, bytes: "
             f"{json.dumps(flash_smem_bytes(d))}")
@@ -2425,10 +2600,14 @@ def main() -> int:
 
     t0 = time.perf_counter()
     errs.update(attention_parity(dev, decode_main))
-    times["decode_attention"] = time_decode(dev, decode_main)
     errs["flash_attention_bwd"] = flash_bwd_parity(dev)
+    busiest = decode_main[4].tolist()
     del decode_main  # holds views of the serve pool
     log("attention", f"done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    times["decode_attention"] = profile_subprocess("--decode-profile", json.dumps(busiest))
+    log("decode-profile", f"done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     aprof = profile_subprocess("--attention-profile")
     times["flash_attention"] = aprof["flash_attention"]
@@ -2538,10 +2717,11 @@ def main() -> int:
 if __name__ == "__main__":
     PROFILES = {"--ssm-profile": ssm_profile, "--attention-profile": attention_profile,
                 "--topk-profile": topk_profile,
-                "--gossip-profile": lambda dev: gossip_phase(dev, topk_rows=True)[0]}
-    if len(sys.argv) == 2 and sys.argv[1] in PROFILES:
+                "--gossip-profile": lambda dev: gossip_phase(dev, topk_rows=True)[0],
+                "--decode-profile": lambda dev, *a: decode_profile(dev, *map(json.loads, a))}
+    if len(sys.argv) >= 2 and sys.argv[1] in PROFILES:
         if not torch.cuda.is_available():
             sys.exit(1)
-        print(json.dumps(PROFILES[sys.argv[1]](torch.device("cuda"))))
+        print(json.dumps(PROFILES[sys.argv[1]](torch.device("cuda"), *sys.argv[2:])))
         sys.exit(0)
     sys.exit(main())

@@ -34,10 +34,11 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# decode_attention_<dt>(q, k_pool, v_pool, table, lengths, out, B, Hq, Hkv, D,
-#   n_blocks, block_size, n_pages, has_window, window, has_softcap, softcap,
-#   scale, device, stream)
-_DECODE = [_P] * 6 + [_I] * 10 + [_F, _F, _I, _P]
+# decode_attention_<dt>(q, k_pool, v_pool, table, lengths, out, partials,
+#   counters, B, Hq, Hkv, D, n_blocks, block_size, n_pages, has_window, window,
+#   has_softcap, softcap, scale, splits, smem, sms, device, stream): splits and
+#   smem from decode_attention.decode_plan
+_DECODE = [_P] * 8 + [_I] * 10 + [_F, _F] + [_I] * 4 + [_P]
 # flash_attention_fwd_<dt>(q, k, v, o, lse, B, Hq, Hkv, S, Sk, D, causal,
 #   has_window, window, has_softcap, softcap, scale, device, stream)
 _FLASH = [_P] * 5 + [_I] * 10 + [_F, _F, _I, _P]

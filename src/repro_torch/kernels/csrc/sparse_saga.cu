@@ -10,11 +10,19 @@
 //
 // What bounds them on an H100 at the main path's shapes (N = 10 nodes,
 // D = 47,236, k = 74, float64):
-//   sparse_axpy moves 2*N*D*8 B (read psi, write out), about 7.6 MB: memory
-//     bound in principle (~2.3 us at 3.35 TB/s), launch-latency bound in
-//     practice. Pass 1 is a coalesced elementwise rho*psi over an (D-blocks,
-//     N) grid; pass 2 scatters the k entries of each node, one warp per
-//     node walking k in chunks of 32.
+//   sparse_axpy moves 2*N*D*8 B (read psi once, write out once), about 7.6 MB:
+//     memory bound (~2.3 us at 3.35 TB/s), and called 4-5 times in a
+//     host-bound solver step, so it is one launch (a scale pass and a
+//     scatter pass would read and write the output twice and cost two
+//     launches of host time): grid (column
+//     chunks of 16 KB, N); a CTA reads its chunk of psi[n] (coalesced),
+//     scales it into shared memory, stages node n's (idx, val) entries
+//     (1,024 at a time) beside it, applies those whose column falls in its
+//     chunk, and writes the chunk once (coalesced). No two CTAs share a
+//     column, so there are no atomics. Each CTA scans all k indices of its
+//     node: 74 at the step shape, 450 at news20 (D = 1,355,191), 7,400 in
+//     init_state's phibar scatter (the one call a solve where the scan, not
+//     the bytes, sets the time).
 //   sparse_dot moves about N*k*20 B (~15 KB): launch-latency bound. One warp
 //     per node gathers psi[n, idx] from global memory and reduces with
 //     shuffles.
@@ -24,12 +32,11 @@
 // __fmul_rn/__fadd_rn) so nvcc cannot contract rho*psi + coef*val into an
 // FMA: the float64 result is then bit-equal to the plain version
 // ((rho*psi) then sequential += coef*val in k order), duplicates included.
-// Pass 2 takes no atomics. Within a chunk of 32 entries, __match_any_sync
-// groups the lanes that hold the same column; the group's lowest lane (its
-// first occurrence in k order) adds the group's products in lane order.
-// Chunks follow one another in k order, ordered by __syncwarp. Distinct
-// columns touch distinct memory, so this equals one serial loop over k per
-// node, bit for bit, and is the same from run to run.
+// Warp w of a CTA owns the columns u with u % 8 == w; it walks the staged
+// entries in k order, 32 at a time, and its lanes that hold an owned column
+// apply their entries one after another in lane order (__syncwarp between),
+// so every column sees its entries in k order, as one serial loop over k
+// would, bit for bit, from run to run.
 // sparse_dot sums in another order than the plain version (1e-12 in f64).
 //
 // Index contract: idx lies in [0, D); padded entries are idx = 0, val = 0.
@@ -38,7 +45,7 @@
 //
 // Plain C entry points (bound with ctypes by kernels/_build.py). Each
 // launches on the given stream, allocates nothing, does not synchronise,
-// and returns cudaGetLastError() right after its launches.
+// and returns cudaGetLastError() right after its launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,48 +60,76 @@ template <typename T> __device__ __forceinline__ T add_rn(T a, T b);
 template <> __device__ __forceinline__ double add_rn<double>(double a, double b) { return __dadd_rn(a, b); }
 template <> __device__ __forceinline__ float add_rn<float>(float a, float b) { return __fadd_rn(a, b); }
 
-constexpr int kScaleThreads = 256;
-constexpr int kScatterWarps = 4;  // nodes per pass-2 block
+constexpr int kAxpyChunkBytes = 16384;  // bytes of a row a sparse_axpy CTA owns
+constexpr int kAxpyThreads = 256;
+constexpr int kAxpyWarps = kAxpyThreads / 32;
+constexpr int kAxpyEntries = 1024;  // (idx, val) entries staged at a time
 constexpr int kDotWarps = 4;  // nodes per sparse_dot block
 
-// Pass 1: out[n, j] = rho[n] * psi[n, j]; grid (D-blocks, N).
+// out[n, c0:c0+len] = rho[n] * psi[n, c0:c0+len], then += coef[n] * val[n, i]
+// at idx[n, i] for the entries in the chunk, in k order; grid (chunks, N).
 template <typename T>
-__global__ void axpy_scale_kernel(const T* __restrict__ psi, const T* __restrict__ rho,
-                                  T* __restrict__ out, int D) {
-  const int64_t row = (int64_t)blockIdx.y * D;
-  const T r = rho[blockIdx.y];
-  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < D; j += gridDim.x * blockDim.x) {
-    out[row + j] = mul_rn(r, psi[row + j]);
-  }
-}
-
-// Pass 2: out[n, idx[n, i]] += coef[n] * val[n, i] for i in k order; one warp per node.
-template <typename T>
-__global__ void axpy_scatter_kernel(const int* __restrict__ idx, const T* __restrict__ val,
-                                    const T* __restrict__ coef, T* __restrict__ out,
-                                    int N, int D, int K) {
-  __shared__ T s_prod[kScatterWarps][32];
-  const int w = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * kScatterWarps + w;
-  if (n >= N) return;  // warp-uniform
-  const int64_t row = (int64_t)n * D;
+__global__ void __launch_bounds__(kAxpyThreads) sparse_axpy_kernel(
+    const T* __restrict__ psi, const int* __restrict__ idx, const T* __restrict__ val,
+    const T* __restrict__ coef, const T* __restrict__ rho, T* __restrict__ out, int D, int K) {
+  constexpr int kChunk = kAxpyChunkBytes / (int)sizeof(T);
+  constexpr int kPer = kChunk / kAxpyThreads;
+  static_assert(kPer * kAxpyThreads == kChunk, "chunk");
+  __shared__ T s_out[kChunk];
+  __shared__ int s_idx[kAxpyEntries];
+  __shared__ T s_val[kAxpyEntries];
+  const int n = blockIdx.y, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t c0 = (int64_t)blockIdx.x * kChunk;
+  const int len = (int)min((int64_t)kChunk, (int64_t)D - c0);
+  const T* psi_c = psi + (int64_t)n * D + c0;
   const int* idx_n = idx + (int64_t)n * K;
   const T* val_n = val + (int64_t)n * K;
+
+  T x[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int i = tid + j * kAxpyThreads;
+    x[j] = i < len ? psi_c[i] : T(0);
+  }
+  const int staged = K < kAxpyEntries ? K : kAxpyEntries;
+  for (int e = tid; e < staged; e += kAxpyThreads) {
+    s_idx[e] = idx_n[e];
+    s_val[e] = val_n[e];
+  }
+  const T r = rho[n];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int i = tid + j * kAxpyThreads;
+    if (i < len) s_out[i] = mul_rn(r, x[j]);
+  }
   const T c = coef[n];
-  for (int base = 0; base < K; base += 32) {
-    const int j = base + lane;
-    const int u = j < K ? idx_n[j] : -1;  // -1: past the end, never in [0, D)
-    s_prod[w][lane] = j < K ? mul_rn(c, val_n[j]) : T(0);
-    const unsigned group = __match_any_sync(0xffffffffu, u);
-    __syncwarp();
-    if ((unsigned)u < (unsigned)D && __ffs(group) - 1 == lane) {
-      T acc = out[row + u];
-      for (unsigned m = group; m; m &= m - 1) acc = add_rn(acc, s_prod[w][__ffs(m) - 1]);
-      out[row + u] = acc;
+  __syncthreads();
+  for (int base = 0; base < K; base += kAxpyEntries) {
+    const int count = min(K - base, kAxpyEntries);
+    if (base > 0) {
+      __syncthreads();  // every warp is done with the previous entries
+      for (int e = tid; e < count; e += kAxpyThreads) {
+        s_idx[e] = idx_n[base + e];
+        s_val[e] = val_n[base + e];
+      }
+      __syncthreads();
     }
-    // the next chunk may revisit a column written here, and reuses s_prod
-    __syncwarp();
+    for (int j0 = 0; j0 < count; j0 += 32) {
+      const int j = j0 + lane;
+      const int64_t rel = (j < count ? (int64_t)s_idx[j] : (int64_t)-1) - c0;
+      const bool owned = rel >= 0 && rel < len && ((rel + c0) & (kAxpyWarps - 1)) == warp;
+      for (unsigned mask = __ballot_sync(0xffffffffu, owned); mask; mask &= mask - 1) {
+        if (lane == __ffs(mask) - 1) s_out[rel] = add_rn(s_out[rel], mul_rn(c, s_val[j]));
+        __syncwarp();  // the next lane may add to the same column
+      }
+    }
+  }
+  __syncthreads();
+  T* out_c = out + (int64_t)n * D + c0;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int i = tid + j * kAxpyThreads;
+    if (i < len) out_c[i] = s_out[i];
   }
 }
 
@@ -132,15 +167,10 @@ int launch_axpy(const T* psi, const int* idx, const T* val, const T* coef, const
                 T* out, int N, int D, int K, int device, void* stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int blocks_d = min((D + kScaleThreads - 1) / kScaleThreads, 4096);
-  axpy_scale_kernel<T><<<dim3(blocks_d, N), kScaleThreads, 0, s>>>(psi, rho, out, D);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (K > 0) {
-    const int blocks_n = (N + kScatterWarps - 1) / kScatterWarps;
-    axpy_scatter_kernel<T><<<blocks_n, 32 * kScatterWarps, 0, s>>>(idx, val, coef, out, N, D, K);
-  }
+  constexpr int kChunk = kAxpyChunkBytes / (int)sizeof(T);
+  const int chunks = (int)(((int64_t)D + kChunk - 1) / kChunk);
+  sparse_axpy_kernel<T><<<dim3(chunks, N), kAxpyThreads, 0, (cudaStream_t)stream>>>(
+      psi, idx, val, coef, rho, out, D, K);
   return (int)cudaGetLastError();
 }
 

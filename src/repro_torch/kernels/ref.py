@@ -151,6 +151,68 @@ def decode_attention_ref(q, k_pool, v_pool, table, lengths, window=None, softcap
     return o.reshape(B, Hq, D).to(q.dtype)
 
 
+def decode_split_ranges(length: int, n_valid_max: int, window, tile: int, splits: int):
+    """The positions [lo, hi) each split of a sequence takes, as
+    ``csrc/decode_attention.cu`` cuts them: [start, n_valid) (start =
+    max(0, length - window) with a window, n_valid = length clipped to the
+    table's n_valid_max positions) is covered by whole tiles from the tile
+    holding start; the splits take ceil(tiles / splits) tiles each, in
+    order (the last ones may take none); a range is clipped to [start,
+    n_valid) and is empty (lo >= hi) for a split with no valid position."""
+    n_valid = min(max(length, 0), n_valid_max)
+    start = max(0, length - window) if window is not None else 0
+    t0 = start // tile * tile
+    n_tiles = -(-(n_valid - t0) // tile) if n_valid > start else 0
+    per = -(-n_tiles // splits)
+    out = []
+    for s in range(splits):
+        first = min(s * per, n_tiles)
+        last = min(first + per, n_tiles)
+        out.append((max(start, t0 + first * tile), min(n_valid, t0 + last * tile)))
+    return out
+
+
+def decode_attention_split_ref(q, k_pool, v_pool, table, lengths, window=None, softcap=None,
+                               *, splits: int, tile: int):
+    """``decode_attention_ref`` computed as the CUDA kernel splits it: each
+    split's (m, l, acc) over its range (``decode_split_ranges``; an empty
+    split leaves m = NEG_INF, l = 0, acc = 0), then merged in split order,
+    acc / max(l, 1e-30). Float32; for the tests (it loops over sequences
+    and splits in Python)."""
+    B, Hq, D = q.shape
+    block_size, Hkv = k_pool.shape[1], k_pool.shape[2]
+    g = Hq // Hkv
+    n_pages = table.shape[1]
+    L = n_pages * block_size
+    k = k_pool[table.long()].reshape(B, L, Hkv, D).float()
+    v = v_pool[table.long()].reshape(B, L, Hkv, D).float()
+    qg = q.reshape(B, Hkv, g, D).float() / math.sqrt(D)
+    out = torch.zeros(B, Hkv, g, D, dtype=torch.float32, device=q.device)
+    for b in range(B):
+        parts = []
+        for lo, hi in decode_split_ranges(int(lengths[b]), L, window, tile, splits):
+            if lo >= hi:
+                parts.append((torch.full((Hkv, g), NEG_INF, device=q.device),
+                              torch.zeros(Hkv, g, device=q.device),
+                              torch.zeros(Hkv, g, D, device=q.device)))
+                continue
+            s = torch.einsum("kgd,tkd->kgt", qg[b], k[b, lo:hi])
+            if softcap is not None:
+                s = softcap * torch.tanh(s / softcap)
+            m = s.amax(-1)
+            p = torch.exp(s - m[..., None])
+            parts.append((m, p.sum(-1), torch.einsum("kgt,tkd->kgd", p, v[b, lo:hi])))
+        m_all = torch.stack([m for m, _, _ in parts]).amax(0)
+        acc = torch.zeros(Hkv, g, D, device=q.device)
+        l_all = torch.zeros(Hkv, g, device=q.device)
+        for m, l_s, a in parts:  # in split order
+            f = torch.exp(m - m_all)
+            acc = acc + a * f[..., None]
+            l_all = l_all + l_s * f
+        out[b] = acc / torch.clamp(l_all, min=1e-30)[..., None]
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
 _INT_OF = {torch.float64: torch.int64, torch.float32: torch.int32,
            torch.bfloat16: torch.int16, torch.float16: torch.int16}
 

@@ -9,11 +9,12 @@ directly.
 
 Bound on an H100 at the main path's shapes (N = 10, D = 47,236, k = 74,
 float64): ``sparse_axpy`` moves 2*N*D*8 B (about 7.6 MB, ~2.3 us at
-3.35 TB/s) and ``sparse_dot`` about 15 KB; both are launch-latency bound at
-this size. The design answers that only in part: pass 1 of ``sparse_axpy``
-is one coalesced elementwise sweep, its pass 2 and ``sparse_dot`` give each
-node one warp that walks its k entries 32 at a time; folding the whole step
-into fewer launches is later work. See the header of the ``.cu`` file for the arithmetic policy
+3.35 TB/s) and ``sparse_dot`` about 15 KB. ``sparse_axpy`` is one launch:
+each block owns a 16 KB chunk of a node's row, scales it into shared
+memory, applies the node's entries that fall in it in k order and writes
+it once, so ``psi`` is read once and ``out`` written once with no atomics;
+``sparse_dot`` gives each node one warp that walks its k entries 32 at a
+time. See the header of the ``.cu`` file for the arithmetic policy
 (f64 ``sparse_axpy`` is bit-equal to ``ref.sparse_axpy_ref``). Since a
 ``solve()`` step is host-bound, the wrappers keep the path to the launch
 short: every input is checked in one expression (``_refuse`` names what
@@ -22,9 +23,7 @@ failed), entry points are bound once, and the stream handle is read raw.
 Each wrapper takes the plain version (``kernels.ref``) for a tensor on the
 CPU, and only then; for a CUDA tensor it launches the kernel or raises.
 ``<wrapper>.launches`` counts ``__global__`` launches, so a run can show
-that it went through the kernel: one per ``sparse_dot`` call, two per
-``sparse_axpy`` call (pass 1 and pass 2; one when k = 0, which skips
-pass 2).
+that it went through the kernel: one per call of either.
 
 Index contract: ``idx`` is int32 in ``[0, D)``; padded entries are
 ``idx = 0, val = 0``. Out-of-range indices are skipped by the kernel and
@@ -40,7 +39,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import sparse_axpy_ref, sparse_dot_ref
 
 _DTYPES = {torch.float64: "f64", torch.float32: "f32"}
-_MAX_GRID_Y = 65535  # pass 1 puts the node index on the grid's y axis
+_MAX_GRID_Y = 65535  # sparse_axpy puts the node index on the grid's y axis
 _MAX_INT = 2**31 - 1
 
 
@@ -140,7 +139,7 @@ def sparse_axpy(
                                      psi.get_device(), _build.stream(psi))
     if code:
         _build.check(_build.load_library(), code, "sparse_axpy launch")
-    sparse_axpy.launches += 2 if k > 0 else 1
+    sparse_axpy.launches += 1
     return out
 
 

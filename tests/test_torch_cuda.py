@@ -48,7 +48,7 @@ def test_cuda_kernels_match_plain(card, dtype):
                 for a in _sparse_inputs(n, d, k, np_dtype, seed=6, dups=True)]
         n0 = sparse_saga.sparse_axpy.launches
         ops.parity_check("sparse_axpy", *args, mode="on")
-        assert sparse_saga.sparse_axpy.launches == n0 + 2  # scale + scatter
+        assert sparse_saga.sparse_axpy.launches == n0 + 1  # one fused launch
         clean = [torch.as_tensor(a, device=card)
                  for a in _sparse_inputs(n, d, k, np_dtype, seed=6)]
         ops.parity_check("sparse_dot", *clean[:3], mode="on")
@@ -105,6 +105,60 @@ def test_cuda_attention_kernels_match_plain(card, dtype):
                          torch.as_tensor(lengths, dtype=torch.int32, device=card),
                          window=window, softcap=cap)
         assert decode_attention.launches == before + 1
+    torch.cuda.synchronize()
+
+
+# (lengths, Hq, Hkv, D, n_blocks, block_size, n_pages, window, softcap): shapes
+# whose plan splits every sequence over several CTAs: the serve pool's with
+# lengths 0, 1 and a full table, MQA, gemma2-2b's heads with a window that
+# empties whole splits, and a short table (one split)
+DECODE_SPLIT = [([0, 1, 17, 1024, 16, 31, 300, 5], 32, 8, 128, 600, 16, 64, None, None),
+                ([700, 3, 64], 8, 1, 64, 60, 16, 48, None, None),
+                ([2000, 4096, 9], 8, 4, 256, 400, 16, 256, 100, 50.0),
+                ([7, 12], 4, 2, 32, 8, 4, 3, None, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_splits_merge_repeatably(card, dtype):
+    """decode_attention where its plan splits the positions: held to the
+    plain version, one launch a call, two calls bit-equal (the last CTA of
+    a sequence merges the splits in split order), and no host sync in the
+    call (the wrapper never reads lengths to the host)."""
+    from repro_torch.kernels.decode_attention import decode_plan
+
+    g = torch.Generator(device=card).manual_seed(2)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=card).to(dtype)
+
+    rng = np.random.default_rng(2)
+    for lengths, hq, hkv, d, nb, bs, n_pages, window, cap in DECODE_SPLIT:
+        table = np.zeros((len(lengths), n_pages), np.int32)
+        pages = rng.permutation(np.arange(1, nb))
+        used = 0
+        for i, n in enumerate(lengths):
+            need = -(-n // bs)
+            table[i, :need] = pages[used:used + need]
+            used += need
+        args = (rnd(len(lengths), hq, d), rnd(nb, bs, hkv, d), rnd(nb, bs, hkv, d),
+                torch.as_tensor(table, device=card),
+                torch.as_tensor(lengths, dtype=torch.int32, device=card))
+        plan = decode_plan(len(lengths), hkv, hq // hkv, d, dtype, n_pages, bs,
+                           torch.cuda.get_device_properties(card).multi_processor_count)
+        assert plan["splits"] > 1 or n_pages * bs < 2 * plan["tile"]
+        decode_attention(*args, window=window, softcap=cap)  # workspace allocated
+        torch.cuda.synchronize()
+        before = decode_attention.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            first = decode_attention(*args, window=window, softcap=cap)
+            second = decode_attention(*args, window=window, softcap=cap)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert decode_attention.launches == before + 2
+        assert torch.equal(first, second)
+        ops.parity_check("decode_attention", *args, window=window, softcap=cap)
     torch.cuda.synchronize()
 
 

@@ -176,5 +176,6 @@ def test_chip_smoke_phases_on_cpu():
         assert row["doubles_per_iter"] == 4 * (8 + {"auc": 3}.get(row["task"], 0))
     out = chip_smoke.widest_run(cpu, 300, 12, steps=3)
     assert out["steps"] == 3
+    # 1 + 4*7 + 7 sparse_axpy calls, one launch each
     assert chip_smoke.expected_launches(7, "sparse") == {"sparse_dot": 7,
-                                                         "sparse_axpy": 72}
+                                                         "sparse_axpy": 36}

@@ -27,19 +27,15 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import json
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
-
-from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
-from repro_torch.kernels.ref import ssd_chunk_bwd_ref, ssd_chunk_ref  # noqa: E402
+from in_turns import build, cuda_ms, device_ms, emit, emit_device, in_turns  # puts src/ on the path
+from repro_torch.kernels import _build
+from repro_torch.kernels import ssd_scan as SSD
+from repro_torch.kernels.ref import ssd_chunk_bwd_ref, ssd_chunk_ref
 
 SHAPES = {"train": (4, 8, 256, 64, 64, 128), "score": (1, 8, 256, 64, 64, 128),
           "prefill": (1, 1, 256, 64, 64, 128)}
@@ -122,23 +118,6 @@ extern "C" int run(int load, int blocks, int threads, int iters, float* out, flo
 """
 
 
-def emit(tag: str, obj) -> None:
-    print(json.dumps({tag: obj}), flush=True)
-
-
-def build(src: Path, name: str) -> ctypes.CDLL:
-    """nvcc with the port's flags into the build directory."""
-    out = _build.BUILD_DIR / f"lib{name}.so"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    r = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out), str(src)],
-                       capture_output=True, text=True)
-    if r.returncode:
-        raise RuntimeError(f"nvcc failed on {src}:\n{r.stderr}")
-    emit("ptxas", {name: [ln.strip() for ln in (r.stdout + r.stderr).splitlines()
-                          if "registers" in ln or "spill" in ln]})
-    return ctypes.CDLL(str(out))
-
-
 def inputs(shape, scale, decay, seed=40):
     B, nc, Q, nh, hd, ds = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -159,7 +138,6 @@ def baseline_calls(lib):
     lib.ssd_chunk_bwd_f32.argtypes = [_P] * 11 + [_I] * 6 + [_P]
     lib.ssd_chunk_bwd_scratch_f32.argtypes = [_I] * 5
     lib.ssd_chunk_bwd_scratch_f32.restype = ctypes.c_int64
-    lib.error_string.argtypes, lib.error_string.restype = [_I], ctypes.c_char_p
 
     def fwd(xdt, cum, Bc, Cc):
         B, nc, Q, nh, hd = xdt.shape
@@ -194,33 +172,6 @@ def bar_ratios(got, want):
     return out
 
 
-def cuda_ms(fn, iters, warmup=3):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_ms(fn, iters=5):
-    """Device ms per call, summed over the ssd kernels it launches (profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
-               if "ssd_" in e.key) / iters / 1e3
-
-
 def mma_ceiling() -> None:
     src = _build.BUILD_DIR / "mma_ceiling.cu"
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -249,9 +200,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA card", file=sys.stderr)
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
-    emit("device", smi)
+    emit_device()
     _build.load_library("ssd_scan")
     base = baseline_calls(build(args.baseline, "ssd_baseline")) if args.baseline else None
     for name, shape, scale, decay in CASES:
@@ -272,14 +221,14 @@ def main() -> int:
         runs = {"port": (lambda: SSD.ssd_chunk_fwd(*a), lambda: SSD.ssd_chunk_bwd(*a, *c))}
         if base:
             runs["baseline"] = (lambda: base[0](*a), lambda: base[1](*a, *c))
-        order = ["baseline", "port", "port", "baseline"] if base else ["port", "port"]
-        times = {}
-        for who in order:
+        order = ["baseline", "port"] if base else ["port"]
+
+        def measure(who):
             f, b = runs[who]
-            times.setdefault(who, []).append({
-                "fwd_ms": cuda_ms(f, it), "bwd_ms": cuda_ms(b, it // 2),
-                "fwd_device_ms": device_ms(f), "bwd_device_ms": device_ms(b)})
-        emit("times", {"shape": name, **times})
+            return {"fwd_ms": cuda_ms(f, it, warmup=3), "bwd_ms": cuda_ms(b, it // 2, warmup=3),
+                    "fwd_device_ms": device_ms(f, ("ssd_",), 5),
+                    "bwd_device_ms": device_ms(b, ("ssd_",), 5)}
+        emit("times", {"shape": name, **in_turns(order, measure, rounds=1)})
     if args.mma_ceiling:
         mma_ceiling()
     return 0
