@@ -180,6 +180,36 @@ printed with its seconds:
    the train, score and prefill shapes (events and profiler, beside both
    bounds and the plain version) and a train step is profiled (device
    busy, idle share).
+19. hybrid -- in a fresh process (``chip_smoke.py --hybrid``; it runs alone
+   too): zamba2-1.2b at full width and depth (38 Mamba2 layers, d 2048, 64
+   heads of 64, state 64; one shared attention block, MHA 32/32 of head_dim
+   64, d_ff 8192, after every 6th layer; vocab 32,000; random bf16 weights
+   from seed 0). First the kernels at its new shapes: the flash forward at
+   B=1, S=2048 and the backward at B=4, S=2048 (D=64, 32/32, causal; SDPA
+   beside them computes the same function), the SSD pair at state 64 at
+   the train, score and prefill shapes. Serve: the serve phase's pool and
+   24 requests; token counts, decode_attention launches = decode steps x 6,
+   ssd_chunk = prefills x 38, no flash launch, the pools never
+   reallocated, every decode_attention call (D=64, group 1) of the first 4
+   decode steps and every ssd call of the first step's prefills held to the
+   plain version; decode timed at the busiest step's snapshot; a replayed
+   decode step's wall, device busy and idle share. Score: ``forward`` at
+   B=1, S=2048, 6 flash and 38 ssd launches, each held. long_500k (the
+   reference's decode from a 524,288-token cache, batch 1): a pool of
+   random K/V (25.8 GB), ssm state and a permuted page table from a seeded
+   generator, not prefilled; a unit-normal query over all of the first
+   use's pages held to the bf16 bar and DECODE_LONG_REL, with the
+   skipped-tile and dropped-split controls, and timed (splits, bound,
+   SDPA); then 3 ``decode_step_paged`` steps ending at the full cache, each
+   decode_attention call held the same way; a step's wall and device time
+   against its read bound. Conditioned (the shared attention rescaled as
+   ``condition_attention`` does): forward "on" vs "off" and request 0's
+   first decode step paged vs ``generate``, within the bf16 bar in
+   relative norm. Train: 5 steps at B=4, S=2048, remat "full", AdamW at
+   the launcher's defaults; step 0 holds every flash forward (12) and
+   backward (6) and every ssd forward (76) and backward (38) call;
+   launches asserted every step; steps 1-3 timed, step 4 profiled; peak
+   memory. Its launches join the kernels line.
 Before phase 9, flash_attention_bwd is held to its plain version at the
 train shape and at ragged small shapes (every head dim, GQA, MQA, window,
 softcap), bf16 and f32 (bars 5e-2, 2e-4); its times come from the
@@ -385,6 +415,23 @@ def device_profile(fn, iters):
     kern = {e.key: (e.device_time_total, e.count) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA}
     return sum(t for t, _ in kern.values()), kern
+
+
+def replay_step(step, n=10) -> dict:
+    """Wall (no profiler) and device-busy ms of `step` over `n` calls, its
+    idle share and launches (profiler)."""
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    busy_us, kern = device_profile(step, n)
+    busy = busy_us / 1e3 / n
+    return {"wall_ms": wall, "device_ms": busy, "idle_share": 1.0 - busy / wall,
+            "launches": sum(c for _, c in kern.values()) / n,
+            "top_kernels_us": top_by_prefix({k: t / n for k, (t, _) in kern.items()}, 6)}
 
 
 def kernel_device_ms(fn, names, iters=50, windows=3):
@@ -996,10 +1043,10 @@ def flash_bwd_kernels(d: int) -> tuple[str, ...]:
     return tuple(bwd_kernels(tile_plan(torch.bfloat16, d)))
 
 
-def time_attention(device) -> dict:
+def time_attention(device, b=1, hq=32, hkv=8, s=2048, d=128) -> dict:
     """The flash forward at the score phase's shape (bf16, B=1, 32/8 heads,
-    S=2048, D=128, causal): kernel, plain version and SDPA, beside the bound."""
-    b, hq, hkv, s, d = 1, 32, 8, 2048, 128
+    S=2048, D=128, causal; or the one given): kernel, plain version and
+    SDPA, beside the bound."""
     q, k, v = flash_inputs(b, hq, hkv, s, s, d, torch.bfloat16, device)
     pairs = b * hq * s * (s + 1) // 2  # causal: what this run's mask keeps
     bound_f = bound(2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * b * hq * s,
@@ -1018,7 +1065,8 @@ def time_attention(device) -> dict:
         "library_ms": cuda_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
                               iters=50, warmup=5),
     }
-    log("attention-profile", f"flash_attention D=128: {json.dumps(out)}")
+    log("attention-profile", f"flash_attention B={b} {hq}/{hkv} heads S={s} D={d}: "
+        f"{json.dumps(out)}")
     return out
 
 
@@ -1193,24 +1241,12 @@ def serve_phase(device, cfg, params) -> tuple[dict, tuple, dict]:
                    max_new_tokens=1)
     paged_err = (first_step["logits"] - gen.logits[1][0]).abs().max().item()
 
-    # a decode step at the busiest state, replayed: wall without the
-    # profiler, device busy with it (the pages are free again, so the
-    # replay's writes land in unused pages)
+    # a decode step at the busiest state, replayed (the pages are free
+    # again, so the replay's writes land in unused pages)
     args = (params, busiest["tokens"], sch.pool.pools, busiest["table"], busiest["lengths"])
-    step = lambda: T.decode_step_paged(cfg, *args)  # noqa: E731
-    step()
-    torch.cuda.synchronize()
-    n = 10
-    t0 = time.perf_counter()
-    for _ in range(n):
-        step()
-    torch.cuda.synchronize()
-    step_wall = (time.perf_counter() - t0) * 1e3 / n
-    busy_us, kern = device_profile(step, n)
-    step_busy = busy_us / 1e3 / n
+    step = replay_step(lambda: T.decode_step_paged(cfg, *args))
     weight_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params)
                        if t.dtype == cfg.compute_dtype)
-    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:6]
     n_tokens = int(sum(len(v) for v in results.values()))
     summary = {
         "requests": len(reqs), "tokens": n_tokens,
@@ -1223,13 +1259,9 @@ def serve_phase(device, cfg, params) -> tuple[dict, tuple, dict]:
         "reported_on_vs_off_within_bar": [ok for _, ok in mode_errs],
         "reported_paged_vs_contiguous_max_abs": paged_err,
         "reported_paged_vs_contiguous_same_first_token": int(gen.tokens[0, 0]) == int(results[0][0]),
-        "busiest_live_tokens": busiest["live"],
-        "decode_step_wall_ms": step_wall, "decode_step_device_ms": step_busy,
-        "decode_step_idle_share": 1.0 - step_busy / step_wall,
-        "decode_step_launches": sum(c for _, c in kern.values()) / n,
+        "busiest_live_tokens": busiest["live"], "decode_step": step,
         "weight_bytes_read_per_step": weight_bytes,
         "decode_step_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
-        "top_kernels_us_per_step": {key[:60]: t / n for key, (t, _) in top},
     }
     log("serve", json.dumps(summary))
     gen_q = torch.Generator(device=device).manual_seed(1)
@@ -1283,9 +1315,10 @@ def score_phase(device, cfg, params, s=2048) -> tuple[dict, dict]:
     return out, got
 
 
-def condition_attention(cfg, params) -> None:
-    """Rescale the attention projections in place to a 1/sqrt(fan_in) init
-    over the contracted width (d_model for wq, wk, wv; q_dim for wo).
+def condition_attention(cfg, attn) -> None:
+    """Rescale the attention projections `attn` (stacked, or the hybrid's
+    shared block) in place to a 1/sqrt(fan_in) init over the contracted
+    width (d_model for wq, wk, wv; q_dim for wo).
 
     The reference's ParamDef takes shape[-2] as fan_in, which for the 3-D
     attention weights is the head count (32, 8) or head_dim (128): at
@@ -1294,7 +1327,6 @@ def condition_attention(cfg, params) -> None:
     layer's attention output flips later layers' argmax: whole-model logits
     are a chaotic function of the attention outputs. With this scale the
     scores are O(1) and logits are a smooth function of them."""
-    attn = params["blocks"]["attn"]
     d, q_dim = cfg.d_model, cfg.q_dim
     with torch.no_grad():
         attn["wq"].mul_(math.sqrt(cfg.n_heads / d))
@@ -1310,7 +1342,7 @@ def conditioned_phase(device, cfg, params, s=2048) -> dict:
     bf16 bar times the layer count (test_serve.py's rule for logits that see
     one attention tolerance through every layer); forward at S=2048 on vs
     off within the bf16 bar."""
-    condition_attention(cfg, params)
+    condition_attention(cfg, params["blocks"]["attn"])
     sch = Scheduler(cfg, params, SERVE_POOL, device=device)
     reqs = serve_requests(cfg)
     for r in reqs:
@@ -1382,10 +1414,9 @@ def flash_bwd_parity(device) -> float:
     return worst
 
 
-def time_flash_bwd(device) -> dict:
-    """flash_attention_bwd at the train step's shape (bf16): kernel, plain
-    version and SDPA's backward, beside the bound."""
-    b, hq, hkv, s, d = TRAIN_B, 32, 8, TRAIN_S, 128
+def time_flash_bwd(device, b=TRAIN_B, hq=32, hkv=8, s=TRAIN_S, d=128) -> dict:
+    """flash_attention_bwd at the train step's shape (bf16; or the one
+    given): kernel, plain version and SDPA's backward, beside the bound."""
     q, k, v = flash_inputs(b, hq, hkv, s, s, d, torch.bfloat16, device)
     do = flash_inputs(b, hq, hq, s, s, d, torch.bfloat16, device, seed=1)[0]
     o, lse = flash_attention(q, k, v, return_lse=True)
@@ -1415,8 +1446,8 @@ def time_flash_bwd(device) -> dict:
         "library_ms": cuda_ms(lib, iters=20, warmup=3),
     }
     split = {n: kernel_device_ms(kern, (n,), iters=5) for n in flash_bwd_kernels(d)}
-    log("attention-profile", f"flash_attention_bwd D=128: {json.dumps(out_t)}; device ms by "
-        f"kernel {json.dumps(split)}")
+    log("attention-profile", f"flash_attention_bwd B={b} {hq}/{hkv} heads S={s} D={d}: "
+        f"{json.dumps(out_t)}; device ms by kernel {json.dumps(split)}")
     return out_t
 
 
@@ -1528,7 +1559,7 @@ def train_on_off(state) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     params = state["params"]
-    condition_attention(cfg, params)
+    condition_attention(cfg, params["blocks"]["attn"])
     tc = TrainConfig(optimizer=AdamConfig())
     batch = batch_at(LoaderConfig(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=0), 0)
     l_on, g_on = local_grads(dataclasses.replace(cfg, attention_kernel="on"), tc, params, batch)
@@ -2020,17 +2051,17 @@ def ssd_bounds(shape) -> dict[str, dict]:
     return out
 
 
-def time_ssd(device) -> dict[str, dict]:
+def time_ssd(device, shapes=SSD_MAIN) -> dict[str, dict]:
     """Both SSD kernels at each main-path shape (train, score, serve
-    prefill): CUDA events, profiler device time, the plain version (float32,
-    on the card) and the bounds. The kernels line carries the train shape's
-    numbers, and every shape's under ``shapes``. No single PyTorch call
-    computes them: library "none"."""
+    prefill; mamba2's, or the ones given): CUDA events, profiler device
+    time, the plain version (float32, on the card) and the bounds. The
+    kernels line carries the train shape's numbers, and every shape's under
+    ``shapes``. No single PyTorch call computes them: library "none"."""
     fwd_names = ("ssd_fwd_kernel",)
     bwd_names = ("ssd_bwd_rows_kernel", "ssd_bwd_cols_kernel", "ssd_bwd_finish_kernel")
     out = {"ssd_chunk": {"shapes": {}}, "ssd_chunk_bwd": {"shapes": {}}}
     for label in ("train", "score", "prefill"):
-        shape = SSD_MAIN[label]
+        shape = shapes[label]
         args, cts = ssd_inputs(shape, device)
         bounds = ssd_bounds(shape)
         fwd = lambda: ssd_chunk_fwd(*args)  # noqa: E731
@@ -2157,17 +2188,7 @@ def ssm_serve_phase(device, cfg, params) -> tuple[dict, dict]:
     # a decode step at the busiest state, replayed (the run is over: its
     # state writes land in finished slots)
     args = (params, busiest["tokens"], sch.pool.pools, busiest["table"], busiest["lengths"])
-    step = lambda: T.decode_step_paged(cfg, *args)  # noqa: E731
-    step()
-    torch.cuda.synchronize()
-    n = 10
-    t0 = time.perf_counter()
-    for _ in range(n):
-        step()
-    torch.cuda.synchronize()
-    step_wall = (time.perf_counter() - t0) * 1e3 / n
-    busy_us, kern = device_profile(step, n)
-    step_busy = busy_us / 1e3 / n
+    step = replay_step(lambda: T.decode_step_paged(cfg, *args))
     weight_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params)
                        if t.dtype == cfg.compute_dtype)
     state_bytes = sum(t.numel() * t.element_size() for t in sch.pool.pools.values())
@@ -2191,13 +2212,9 @@ def ssm_serve_phase(device, cfg, params) -> tuple[dict, dict]:
         "paged_vs_contiguous_logits_rel": paged_rel,
         "paged_vs_contiguous_logits_max_abs": (first["logits"] - gen.logits[1][0]).abs().max().item(),
         "reported_paged_vs_contiguous_same_first_token": int(gen.tokens[0, 0]) == int(results[0][0]),
-        "busiest_live_slots": busiest["live"],
-        "decode_step_wall_ms": step_wall, "decode_step_device_ms": step_busy,
-        "decode_step_idle_share": 1.0 - step_busy / step_wall,
-        "decode_step_launches": sum(c for _, c in kern.values()) / n,
+        "busiest_live_slots": busiest["live"], "decode_step": step,
         "weight_bytes_read_per_step": weight_bytes,
         "decode_step_bound_ms": (weight_bytes + 2 * state_bytes) / HBM_BYTES_PER_S * 1e3,
-        "top_kernels_us_per_step": top_by_prefix({k: t / n for k, (t, _) in kern.items()}, 6),
     }
     log("ssm-serve", json.dumps(summary))
     return summary, got
@@ -2401,6 +2418,458 @@ def ssm_profile_subprocess() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the hybrid family (zamba2-1.2b), in a fresh process (--hybrid)
+# ---------------------------------------------------------------------------
+
+HYBRID_TRAIN_B, HYBRID_TRAIN_S, HYBRID_TRAIN_STEPS = 4, 2048, 5
+# the reference's long_500k (src/repro/launch/shapes.py): one sequence
+# decoding from a 524,288-token cache; LONG_STEPS decode steps, the last of
+# which attends over the whole cache
+LONG_500K, LONG_STEPS = 524_288, 3
+# the hybrid's ssd calls (B, nc, Q, nh, hd, ds): mamba2's, at state 64
+SSD_HYBRID = {name: (*shape[:5], 64) for name, shape in SSD_MAIN.items()}
+
+
+def hybrid_config():
+    """zamba2-1.2b at full width and depth (38 ssm layers, d 2048, 64 heads
+    of 64, state 64; one shared block, 32/32 heads of 64 and d_ff 8192,
+    after every 6th layer; vocab 32,000), every kernel route "on"."""
+    return dataclasses.replace(get_config("zamba2-1.2b"), attention_kernel="on",
+                               ssm_kernel="on", decode_kernel="on")
+
+
+def n_shared(cfg) -> int:
+    """Uses of the shared block a pass: n_layers // hybrid_period (6)."""
+    return cfg.n_layers // cfg.hybrid_period
+
+
+def hybrid_serve_phase(device, cfg, params) -> tuple[dict, dict, tuple]:
+    """The Scheduler at full width and depth with zamba2-1.2b's random init,
+    the serve phase's pool and 24 requests.
+
+    Hard checks: every request ends with its token count; decode_attention
+    launches = decode steps x 6 (one a use of the shared block), ssd_chunk
+    = prefills x 38, no flash launch (prefill passes a cache); the pools
+    never reallocated; every decode_attention call of the first 4 decode
+    steps (D = 64, group 1) and every ssd call of the first step's prefills
+    held to the plain version. Reported: tokens/s, a replayed decode step,
+    and request 0's first decode-step logits paged vs the contiguous
+    ``generate`` (the shared attention has the reference's init, chaotic as
+    minitron-8b's: ``condition_attention``). Returns (summary, launches, a
+    decode snapshot (q, k_pool, v_pool, table, lengths) of the shared
+    block's first use at the busiest step)."""
+    n_attn = n_shared(cfg)
+    sch = Scheduler(cfg, params, SERVE_POOL, device=device)
+    ptrs = sch.pool.data_ptrs()
+    reqs = serve_requests(cfg)
+    for r in reqs:
+        sch.submit(r)
+    inner = sch.decode_fn
+    held, first, busiest = [], {}, {}
+
+    def decode_fn(params_, tokens, pools, table, lengths):
+        if len(held) < 4:
+            with ops.held_to_plain("decode_attention") as errs:
+                out = inner(params_, tokens, pools, table, lengths)
+            held.append(errs)
+        else:
+            out = inner(params_, tokens, pools, table, lengths)
+        live = int(lengths.sum())
+        if live > busiest.get("live", -1):
+            busiest.update(live=live, tokens=tokens.clone(), table=table.clone(),
+                           lengths=lengths.clone())
+        for slot, st in sch.active.items():
+            if st.req.rid == 0 and len(st.generated) == 1:
+                first["logits"] = out[1][slot].float().clone()
+        return out
+
+    sch.decode_fn = decode_fn
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ops.held_to_plain("ssd_chunk") as held_ssd:
+        sch.step()  # admits the first max_batch requests
+    held_prefills = sch.stats.steps[0].admitted
+    results, stats = sch.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = launches()
+    prefills = sum(st.admitted for st in stats.steps)
+    want = {**dict.fromkeys(WRAPPERS, 0), "ssd_chunk": prefills * cfg.n_layers,
+            "decode_attention": stats.decode_steps * n_attn}
+    if got != want or stats.decode_steps == 0:
+        raise AssertionError(f"hybrid serve launches {got} != {want}")
+    if [len(e) for e in held] != [n_attn] * 4:
+        raise AssertionError(f"held decode calls a step: {[len(e) for e in held]}")
+    if len(held_ssd) != held_prefills * cfg.n_layers or held_prefills == 0:
+        raise AssertionError(f"{len(held_ssd)} ssd calls held for {held_prefills} prefills")
+    for r in reqs:
+        toks = results[r.rid]
+        if toks.shape != (r.max_new_tokens,) or not np.all((0 <= toks) & (toks < cfg.vocab_size)):
+            raise AssertionError(f"hybrid request {r.rid}: tokens {toks.shape}")
+    if sch.pool.data_ptrs() != ptrs:
+        raise AssertionError("the hybrid pools were reallocated")
+    gen = generate(cfg, params, torch.as_tensor(reqs[0].tokens, device=device)[None],
+                   max_new_tokens=1)
+    args = (params, busiest["tokens"], sch.pool.pools, busiest["table"], busiest["lengths"])
+    step = replay_step(lambda: T.decode_step_paged(cfg, *args))
+    weight_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params)
+                       if t.dtype == cfg.compute_dtype)
+    state_bytes = sum(t.numel() * t.element_size() for t in sch.pool.pools["ssm"].values())
+    kv_bytes = 2 * busiest["live"] * n_attn * cfg.kv_dim * 2
+    n_tokens = int(sum(len(v) for v in results.values()))
+    summary = {
+        "requests": len(reqs), "tokens": n_tokens, "prefills": prefills,
+        "decode_steps": stats.decode_steps, "preemptions": stats.preemptions,
+        "peak_active": stats.peak_active, "peak_occupancy": stats.peak_occupancy,
+        "wall_s": wall, "tokens_per_s": n_tokens / wall,
+        "decode_ms_per_step_incl_admission": wall * 1e3 / stats.decode_steps,
+        "decode_vs_plain_max_abs_per_step": [max(e) for e in held],
+        "decode_vs_plain_rel_norm_max": max(r for e in held for r in e.rel),
+        "held_prefills": held_prefills, "ssd_vs_plain_max_abs": max(held_ssd),
+        "ssd_vs_plain_rel_norm_max": max(held_ssd.rel),
+        "reported_paged_vs_contiguous_logits_rel": ops.rel_err(first["logits"], gen.logits[1][0]),
+        "reported_paged_vs_contiguous_same_first_token":
+            int(gen.tokens[0, 0]) == int(results[0][0]),
+        "busiest_live_tokens": busiest["live"],
+        "decode_step": step, "weight_bytes_read_per_step": weight_bytes,
+        "decode_step_bound_ms": (weight_bytes + 2 * state_bytes + kv_bytes)
+        / HBM_BYTES_PER_S * 1e3,
+    }
+    log("hybrid-serve", json.dumps(summary))
+    gen_q = torch.Generator(device=device).manual_seed(1)
+    snap = (torch.randn(SERVE_POOL.max_batch, cfg.n_heads, cfg.head_dim, device=device,
+                        generator=gen_q).to(cfg.compute_dtype),
+            sch.pool.pools["attn"]["k"][0], sch.pool.pools["attn"]["v"][0],
+            busiest["table"], busiest["lengths"] + 1)
+    return summary, got, snap
+
+
+def hybrid_score_phase(device, cfg, params, s=2048) -> tuple[dict, dict]:
+    """forward() at full width and depth, B=1, S=2048: 6 flash_attention
+    launches (D = 64, 32/32 heads, causal) and 38 ssd_chunk launches (state
+    64), each held to the plain version on its own inputs; finite logits.
+    The on vs off logit difference is reported (chaotic at this init)."""
+    tokens = score_tokens(cfg, device, s)
+    T.forward(cfg, params, tokens[:, :256])  # warm-up (cuBLAS plans)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on = T.forward(cfg, params, tokens)
+    torch.cuda.synchronize()
+    t_on = time.perf_counter() - t0
+    got = launches()
+    want = {**dict.fromkeys(WRAPPERS, 0), "flash_attention": n_shared(cfg),
+            "ssd_chunk": cfg.n_layers}
+    if got != want:
+        raise AssertionError(f"hybrid score launches {got} != {want}")
+    if on.shape != (1, s, cfg.vocab_size) or not torch.isfinite(on).all():
+        raise AssertionError(f"hybrid score logits {tuple(on.shape)} not finite")
+    with ops.held_to_plain("flash_attention") as flash, ops.held_to_plain("ssd_chunk") as ssd:
+        T.forward(cfg, params, tokens)
+    if len(flash) != n_shared(cfg) or len(ssd) != cfg.n_layers:
+        raise AssertionError(f"{len(flash)} flash and {len(ssd)} ssd calls held")
+    off = T.forward(dataclasses.replace(cfg, attention_kernel="off", ssm_kernel="off"), params,
+                    tokens)
+    out = {"B": 1, "S": s, "seconds_on": t_on, "tokens_per_s_on": s / t_on,
+           "flash_vs_plain_max_abs": list(flash), "flash_vs_plain_rel_norm": flash.rel,
+           "ssd_vs_plain_max_abs": max(ssd), "ssd_vs_plain_rel_norm_max": max(ssd.rel),
+           "reported_on_vs_off_logits_rel_norm": ops.rel_err(on, off),
+           "logits_abs_max": off.abs().max().item()}
+    log("hybrid-score", json.dumps(out))
+    return out, got
+
+
+def long_500k_inputs(cfg, device, seed=0) -> tuple[dict, torch.Tensor]:
+    """A serving pool for one sequence of LONG_500K positions (pages of 16,
+    the null page 0 beside them) with random K/V (unit normal, bf16), ssm
+    state and conv history, and a table that is a random permutation of the
+    pages, all from one seeded torch.Generator on the card."""
+    bs = SERVE_POOL.block_size
+    n_pages = LONG_500K // bs
+    g = torch.Generator(device=device).manual_seed(seed)
+    pools = tree_map(lambda _, sp: torch.empty(sp.shape, dtype=sp.dtype, device=device)
+                     .normal_(generator=g),
+                     T.paged_cache_defs(cfg, 1, n_pages + 1, bs, n_pages))
+    table = (torch.randperm(n_pages, generator=g, device=device) + 1).int()[None]
+    return pools, table
+
+
+def long_500k_phase(device, cfg, params) -> tuple[dict, dict, dict]:
+    """long_500k over a pool filled as ``long_500k_inputs`` says (not
+    prefilled). First, on the first use's pages as drawn, with a seeded
+    unit-normal query (``decode_long_parity``'s setting: a nearly flat
+    softmax, where a skipped part moves the output most): the kernel over
+    all 524,288 positions held to the plain version by the registry's bar
+    and by DECODE_LONG_REL, two calls bit-equal, the plain version with a
+    skipped tile or a dropped split missing DECODE_LONG_REL
+    (``decode_long_faults``), and the call's times, splits and bound. Then
+    LONG_STEPS ``decode_step_paged`` steps of one sequence at lengths
+    524,285-524,287, the last attending over the whole cache: every
+    decode_attention call held by the bar and by DECODE_LONG_REL, and a
+    step's wall and device time against its read bound. Returns (summary,
+    launches of the steps, the call's times)."""
+    n_attn = n_shared(cfg)
+    pools, table = long_500k_inputs(cfg, device)
+    kv_bytes = sum(t.numel() * t.element_size() for t in pools["attn"].values())
+    kp, vp = pools["attn"]["k"][0], pools["attn"]["v"][0]
+    full = torch.tensor([LONG_500K], dtype=torch.int32, device=device)
+    g = torch.Generator(device=device).manual_seed(2)
+    q = torch.randn(1, cfg.n_heads, cfg.head_dim, generator=g, device=device).to(torch.bfloat16)
+    plan = decode_plan(1, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim,
+                       torch.bfloat16, table.shape[1], kp.shape[1], _build.sm_count(device))
+    kern, again = decode_attention(q, kp, vp, table, full), decode_attention(q, kp, vp, table, full)
+    want = decode_attention_ref(q, kp, vp, table, full)
+    err = ops.assert_close(kern, want, ops.get_kernel("decode_attention").tolerance(torch.bfloat16))
+    rel = rel_norm(kern, want)
+    faults = {k: rel_norm(v, want) for k, v in
+              decode_long_faults(q, kp, vp, table, full, plan["tile"], plan["splits"]).items()}
+    same = torch.equal(kern, again)
+    del kern, again, want
+    log("long-500k", f"unit query over {LONG_500K} positions: max_abs_err={err!r} "
+        f"rel_norm={rel!r} (limit {DECODE_LONG_REL}; plain version with a fault: "
+        f"{json.dumps(faults)}), repeat_bit_equal={same}, splits={plan['splits']}")
+    if not same or not rel <= DECODE_LONG_REL or not min(faults.values()) > DECODE_LONG_REL:
+        raise AssertionError(f"long_500k unit query: repeat_bit_equal={same}, relative {rel}, "
+                             f"faults {faults}")
+    times = time_decode_shape(device, (q, kp, vp, table, full), "long_500k", iters=20)
+    tok = torch.tensor([[1]], device=device)
+    reset_launches()
+    errs, rels = [], []
+    for i in range(LONG_STEPS):
+        lengths = torch.tensor([LONG_500K - LONG_STEPS + i], dtype=torch.int32, device=device)
+        with ops.held_to_plain("decode_attention") as held:
+            _, logits = T.decode_step_paged(cfg, params, tok, pools, table, lengths)
+        if len(held) != n_attn or not torch.isfinite(logits).all():
+            raise AssertionError(f"long_500k step {i}: {len(held)} calls held, logits finite "
+                                 f"{bool(torch.isfinite(logits).all())}")
+        errs += list(held)
+        rels += held.rel
+        tok = logits.argmax(-1, keepdim=True)
+    got = launches()
+    if got != {**dict.fromkeys(WRAPPERS, 0), "decode_attention": LONG_STEPS * n_attn}:
+        raise AssertionError(f"long_500k launches {got}")
+    if not max(rels) <= DECODE_LONG_REL:
+        raise AssertionError(f"long_500k: relative error {max(rels)} > {DECODE_LONG_REL}")
+    step = replay_step(lambda: T.decode_step_paged(cfg, params, tok, pools, table, lengths), n=5)
+    weight_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params)
+                       if t.dtype == cfg.compute_dtype)
+    state_bytes = sum(t.numel() * t.element_size() for t in pools["ssm"].values())
+    read = weight_bytes + kv_bytes + 2 * state_bytes
+    summary = {
+        "positions": LONG_500K, "steps": LONG_STEPS, "kv_pool_gb": kv_bytes / 1e9,
+        "kv_bytes_a_shared_layer": kv_bytes // n_attn,
+        "held_max_abs": max(errs), "held_rel_norm": rels, "rel_limit": DECODE_LONG_REL,
+        "unit_query_max_abs_err": err, "unit_query_rel_norm": rel,
+        "plain_version_with_a_fault_rel_norm": faults, "repeat_bit_equal": same,
+        "splits": plan["splits"], "decode_step": step,
+        "step_read_bytes": read, "step_read_bound_ms": read / HBM_BYTES_PER_S * 1e3,
+    }
+    log("long-500k", json.dumps(summary))
+    del pools
+    torch.cuda.empty_cache()
+    return summary, got, times
+
+
+def hybrid_conditioned_phase(device, cfg, params, s=2048) -> dict:
+    """End-to-end checks on the weights with the shared block's attention
+    rescaled by ``condition_attention`` (with the reference's init its
+    softmax is near an argmax, and whole-model logits are a chaotic
+    function of one bf16 ulp: the serve and score phases report that).
+    Hard checks, each within the bf16 bar in relative norm: forward at
+    S=2048 with every kernel "on" against "off"; request 0's first token
+    and first decode-step logits through the Scheduler against the
+    contiguous ``generate``."""
+    condition_attention(cfg, params["shared_attn"]["attn"])
+    tokens = score_tokens(cfg, device, s)
+    on = T.forward(cfg, params, tokens)
+    off = T.forward(dataclasses.replace(cfg, attention_kernel="off", ssm_kernel="off"), params,
+                    tokens)
+    score_rel = ops.rel_err(on, off)
+    del on, off
+    sch = Scheduler(cfg, params, SERVE_POOL, device=device)
+    reqs = serve_requests(cfg)[:SERVE_POOL.max_batch]
+    for r in reqs:
+        sch.submit(r)
+    inner, first = sch.decode_fn, {}
+
+    def decode_fn(*args):
+        out = inner(*args)
+        slot = next(sl for sl, st in sch.active.items() if st.req.rid == 0)
+        first["token"] = sch.active[slot].generated[0]
+        first["logits"] = out[1][slot].float().clone()
+        return out
+
+    sch.decode_fn = decode_fn
+    sch.step()  # admits every request, then one decode step
+    gen = generate(cfg, params, torch.as_tensor(reqs[0].tokens, device=device)[None],
+                   max_new_tokens=1)
+    paged_rel = ops.rel_err(first["logits"], gen.logits[1][0])
+    out = {"score_on_vs_off_rel_norm": score_rel, "paged_vs_contiguous_rel_norm": paged_rel,
+           "same_first_token": int(gen.tokens[0, 0]) == int(first["token"])}
+    log("hybrid-conditioned", json.dumps(out))
+    if score_rel > BF16_BAR or paged_rel > BF16_BAR or not out["same_first_token"]:
+        raise AssertionError(f"hybrid conditioned: {out}")
+    return out
+
+
+def expected_hybrid_train_launches(cfg) -> dict[str, int]:
+    """One hybrid train step with remat 'full': each ssm layer's and each
+    shared-block use's forward kernel twice (forward, recompute), the ssd
+    backward's three kernels a layer and the flash backward's two a use."""
+    return {**dict.fromkeys(WRAPPERS, 0), "flash_attention": 2 * n_shared(cfg),
+            "flash_attention_bwd": 2 * n_shared(cfg), "ssd_chunk": 2 * cfg.n_layers,
+            "ssd_chunk_bwd": 3 * cfg.n_layers}
+
+
+def hybrid_train_phase(device) -> tuple[dict, dict]:
+    """HYBRID_TRAIN_STEPS steps of zamba2-1.2b at full width and depth
+    (B=4, S=2048 from batch_at, AdamW at the launcher's defaults, remat
+    "full"). Step 0 holds every flash forward and backward call and every
+    ssd forward and backward call to the plain version (their bars;
+    gradients also in relative norm); launches asserted every step; steps
+    1-3 timed, step 4 profiled (device busy, idle share); peak memory.
+    Returns (summary, launches over every step)."""
+    cfg = hybrid_config()
+    tc = TrainConfig(optimizer=AdamConfig())
+    ld = LoaderConfig(cfg.vocab_size, HYBRID_TRAIN_B, HYBRID_TRAIN_S, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, tc, 0, device)
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in tree_leaves({"p": state["params"], "o": state["opt"]})) / 1e9
+    log("hybrid-train", f"{cfg.name} x{cfg.n_layers} layers, {cfg.param_count()} params "
+        f"({tree_num_params(T.model_defs(cfg))} in the tree), train state (params, mu, nu) "
+        f"{state_gb:.2f} GB")
+    want = expected_hybrid_train_launches(cfg)
+    total = dict.fromkeys(WRAPPERS, 0)
+    losses, gnorms, walls = [], [], []
+
+    def one_step(i):
+        nonlocal state
+        before = launches()
+        state, m = train_step(cfg, tc, state, batch_at(ld, i))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        got = {n: c - before[n] for n, c in launches().items()}
+        if got != want:
+            raise AssertionError(f"hybrid train step {i}: launches {got} != {want}")
+        for n, c in got.items():
+            total[n] += c
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with ops.held_to_plain("flash_attention") as ffwd, \
+            ops.held_to_plain("flash_attention_bwd") as fbwd, \
+            ops.held_to_plain("ssd_chunk") as sfwd, ops.held_to_plain("ssd_chunk_bwd") as sbwd:
+        one_step(0)
+    torch.cuda.synchronize()
+    t_held = time.perf_counter() - t0
+    held = [len(ffwd), len(fbwd), len(sfwd), len(sbwd)]
+    if held != [2 * n_shared(cfg), n_shared(cfg), 2 * cfg.n_layers, cfg.n_layers]:
+        raise AssertionError(f"step 0 held {held} flash fwd/bwd and ssd fwd/bwd calls")
+    peak_step0 = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(1, HYBRID_TRAIN_STEPS - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step(i)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    busy_us, kern = device_profile(lambda: one_step(HYBRID_TRAIN_STEPS - 1), 1)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"hybrid train losses {losses} grad norms {gnorms}")
+    wall_ms = float(np.median(walls)) * 1e3
+    names = ("flash_fwd_wgmma_kernel", *flash_bwd_kernels(cfg.head_dim), "ssd_fwd_kernel",
+             "ssd_bwd_rows_kernel", "ssd_bwd_cols_kernel", "ssd_bwd_finish_kernel")
+    summary = {
+        "layers": cfg.n_layers, "shared_block_uses": n_shared(cfg), "B": HYBRID_TRAIN_B,
+        "S": HYBRID_TRAIN_S, "tokens_per_step": HYBRID_TRAIN_B * HYBRID_TRAIN_S,
+        "train_state_gb": state_gb, "losses": losses, "grad_norms": gnorms,
+        "step0_s_held_to_plain": t_held,
+        "step0_flash_fwd_vs_plain_max_abs": list(ffwd), "step0_flash_fwd_rel_norm": ffwd.rel,
+        "step0_flash_bwd_vs_plain_max_abs": list(fbwd), "step0_flash_bwd_rel_norm": fbwd.rel,
+        "step0_flash_bwd_plain_max_abs_grad": fbwd.scale,
+        "step0_ssd_fwd_vs_plain_max_abs": max(sfwd), "step0_ssd_fwd_rel_norm_max": max(sfwd.rel),
+        "step0_ssd_bwd_vs_plain_max_abs": max(sbwd), "step0_ssd_bwd_rel_norm_max": max(sbwd.rel),
+        "step_wall_ms": [w * 1e3 for w in walls], "step_wall_ms_median": wall_ms,
+        "tokens_per_s": HYBRID_TRAIN_B * HYBRID_TRAIN_S / (wall_ms / 1e3),
+        "step_device_busy_ms": busy_us / 1e3, "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+        "kernel_launches_per_step_profiled": sum(c for _, c in kern.values()),
+        "port_kernel_launches_per_step": {k: c for k, c in want.items() if c},
+        # against the launches above: whether the profiler dropped events
+        "profiled_port_kernels": {n: sum(c for k, (_, c) in kern.items() if n in k)
+                                  for n in names},
+        "port_kernel_device_ms": {n: sum(t for k, (t, _) in kern.items() if n in k) / 1e3
+                                  for n in names},
+        "peak_gb_steps_1_4": peak / 1e9, "peak_gb_step0_held": peak_step0 / 1e9,
+        "top_kernels_us_per_step": top_by_prefix({k: t for k, (t, _) in kern.items()}, 10),
+    }
+    log("hybrid-train", json.dumps(summary))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary, total
+
+
+def hybrid_run(device) -> dict:
+    """``chip_smoke.py --hybrid`` (a fresh process): zamba2-1.2b at full
+    width and depth. First the kernels alone at the hybrid's new shapes
+    (flash forward at the score shape and backward at the train shape, D =
+    64, 32/32 heads, beside SDPA; the SSD pair at state 64 at the train,
+    score and prefill shapes), then serve (with decode timed at the busiest
+    step's snapshot, group 1), score, long_500k and train. Returns the
+    launches of every main path by kernel, the times of the new shapes and
+    each phase's summary."""
+    log("hybrid", subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    _build.build_all()
+    cfg = hybrid_config()
+    sms = _build.sm_count(device)
+    for label, (b, nc, *rest) in SSD_HYBRID.items():
+        log("hybrid", f"ssd plan at the {label} shape: {json.dumps(ssd_plan(b * nc, *rest, sms))}")
+    times = {"flash_attention": time_attention(device, 1, 32, 32, 2048, 64),
+             "flash_attention_bwd": time_flash_bwd(device, HYBRID_TRAIN_B, 32, 32,
+                                                   HYBRID_TRAIN_S, 64),
+             **time_ssd(device, SSD_HYBRID)}
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    log("hybrid", f"{cfg.name}: {cfg.n_layers} ssm layers + {n_shared(cfg)} uses of the shared "
+        f"block, {tree_num_params(T.model_defs(cfg))} params ({cfg.param_count()} counted), "
+        f"{nbytes / 1e9:.2f} GB on the card, drawn in {time.perf_counter() - t0:.1f} s")
+    out, total, decode = {}, dict.fromkeys(WRAPPERS, 0), {}
+    times["decode_attention"] = decode
+
+    def done(phase, t0, got):
+        for n, c in got.items():
+            total[n] += c
+        log(phase, f"launches {got}; done in {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    out["serve"], got, snap = hybrid_serve_phase(device, cfg, params)
+    decode["serve"] = time_decode_shape(device, snap, "hybrid serve snapshot", iters=200)
+    del snap
+    done("hybrid-serve", t0, got)
+    t0 = time.perf_counter()
+    out["score"], got = hybrid_score_phase(device, cfg, params)
+    done("hybrid-score", t0, got)
+    t0 = time.perf_counter()
+    out["long_500k"], got, decode["long_500k"] = long_500k_phase(device, cfg, params)
+    done("long-500k", t0, got)
+    out["conditioned"] = hybrid_conditioned_phase(device, cfg, params)
+    del params
+    t0 = time.perf_counter()
+    out["train"], got = hybrid_train_phase(device)
+    done("hybrid-train", t0, got)
+    return {"launches": total, "times": times, "phases": out}
+
+
 def ptxas_report(outputs) -> dict:
     """{kernel<dtype,template ints>: registers, spills, static smem} from
     the nvcc -Xptxas -v output of each library (``_build.build_all``)."""
@@ -2547,14 +3016,14 @@ def main() -> int:
     log("build", f"{sorted(built)} built, {len(_build.SIGNATURES)} loaded in "
         f"{time.perf_counter() - t0:.1f} s")
     ptxas = ptxas_report(built)
-    log("build", "ptxas (the flash and decode kernels at head_dim 128 and 256, block_topk, "
-        "sparse_axpy, the ssd kernels at mamba2's hd 64): " + json.dumps(
+    log("build", "ptxas (the flash and decode kernels at head_dim 64, 128 and 256, block_topk, "
+        "sparse_axpy, the ssd kernels at hd 64): " + json.dumps(
             {k: v for k, v in ptxas.items()
-             if (k.startswith("flash_") and (k.endswith((",128>", ",256>"))
-                                             or ",128," in k or ",256," in k))
+             if (k.startswith("flash_") and (k.endswith((",64>", ",128>", ",256>"))
+                                             or ",64," in k or ",128," in k or ",256," in k))
              or k.startswith(("block_topk", "sparse_axpy"))
              or (k.startswith("ssd_") and k.endswith("<64>")) or "ssd_bwd_finish_kernel" in k}))
-    for d in (128, 256):
+    for d in (64, 128, 256):
         log("build", f"dynamic shared memory a block at head_dim {d}, bytes: "
             f"{json.dumps(flash_smem_bytes(d))}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -2684,6 +3153,9 @@ def main() -> int:
     prof = ssm_profile_subprocess()
     times.update(prof["ssd"])
     log("ssm-profile", f"done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    hybrid = profile_subprocess("--hybrid")
+    log("hybrid", f"done in {time.perf_counter() - t0:.1f} s")
 
     total["decode_attention"] = serve_launches["decode_attention"]
     # flash_attention runs on three main paths: the score phase, the train
@@ -2699,6 +3171,9 @@ def main() -> int:
     total["ssd_chunk"] = (ssm_serve_launches["ssd_chunk"] + ssm_score_launches["ssd_chunk"]
                           + ssm_train_launches["ssd_chunk"])
     total["ssd_chunk_bwd"] = ssm_train_launches["ssd_chunk_bwd"]
+    # and the hybrid's serve, score, long_500k and train paths (--hybrid)
+    for name, n in hybrid["launches"].items():
+        total[name] += n
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": total[name],
@@ -2716,6 +3191,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     PROFILES = {"--ssm-profile": ssm_profile, "--attention-profile": attention_profile,
+                "--hybrid": hybrid_run,
                 "--topk-profile": topk_profile,
                 "--gossip-profile": lambda dev: gossip_phase(dev, topk_rows=True)[0],
                 "--decode-profile": lambda dev, *a: decode_profile(dev, *map(json.loads, a))}

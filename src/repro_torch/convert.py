@@ -7,7 +7,8 @@ can start from one state. ``dataset_to_torch`` moves a ``SparseDataset``
 (numpy, from either package's ``data.synthetic``) onto a device once.
 ``model_params_from_numpy`` does the same for a model's weights: the JAX
 ``model_defs`` tree with numpy leaves (layers stacked on axis 0 under
-``blocks``) becomes the port's parameters, each leaf in the dtype the port
+``blocks``; the hybrid's one ``shared_attn`` block unstacked beside them)
+becomes the port's parameters, each leaf in the dtype the port
 holds it in (``transformer.storage_dtype``); ``model_params_to_numpy``
 goes back. ``gossip_state_from_numpy`` / ``gossip_state_to_numpy`` carry a
 whole pod-axis gossip state (params, opt, params_prev, g_prev, recon,

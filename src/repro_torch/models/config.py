@@ -2,8 +2,8 @@
 
 Every field of the JAX ``ModelConfig`` is kept, with the same name and
 default, so a JAX configuration copies across field by field; dtypes are
-torch dtypes. The dense and ssm families run in the port so far: the MoE,
-hybrid and enc-dec options are carried but have no effect, and the
+torch dtypes. The dense, ssm and hybrid families run in the port so far:
+the MoE and enc-dec options are carried but have no effect, and the
 families that need them raise in ``models.transformer`` (ROADMAP Queue 1
 item 12).
 
@@ -82,7 +82,7 @@ class ModelConfig:
     ssm_chunk: int = 256
     ssm_head_block: int = 0
 
-    # --- hybrid (zamba2, not ported) ----------------------------------------
+    # --- hybrid (zamba2) ------------------------------------------------------
     hybrid_period: int = 6
 
     # --- enc-dec (whisper, not ported) --------------------------------------

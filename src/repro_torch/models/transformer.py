@@ -1,4 +1,4 @@
-"""Model assembly for the dense and ssm families (counterpart of
+"""Model assembly for the dense, ssm and hybrid families (counterpart of
 ``repro.models.transformer``).
 
 Public API, as in the JAX package:
@@ -15,11 +15,18 @@ Serving API (the paged twin, driven by ``repro_torch.serve``):
                                        -> (pools, logits)
 
 Families: ``dense`` (attention + MLP blocks; gemma2's local/global
-alternation) and ``ssm`` (Mamba2 blocks, ``models.ssm``: the SSD
+alternation), ``ssm`` (Mamba2 blocks, ``models.ssm``: the SSD
 within-chunk part through the registry's ``ssd_chunk`` under
-``cfg.ssm_kernel``). An ssm cache is length-independent: per layer a
-recurrent state and a conv history, with no position; the serving pool
-holds them per slot, and its decode step is the contiguous recurrent step.
+``cfg.ssm_kernel``) and ``hybrid`` (zamba2: the Mamba2 stack with ONE
+shared attention + MLP block, ``shared_attn``, applied after every
+``cfg.hybrid_period``-th ssm layer, with no window). An ssm cache is
+length-independent: per layer a recurrent state and a conv history, with
+no position; the serving pool holds them per slot, and its decode step is
+the contiguous recurrent step. The hybrid cache nests both kinds:
+``{"ssm": {"state", "conv"} on every layer, "attn": {"k", "v"} on the
+n_layers // hybrid_period uses of the shared block}``, the contiguous one
+with ``attn["pos"]``; its serving pool pages the shared block's K/V and
+holds the ssm state per slot.
 
 Parameters are a nested dict of tensors laid out as the JAX tree: layers
 stacked on axis 0 under ``blocks``; a Python loop over layers takes the
@@ -35,17 +42,19 @@ gradient flows back through the casts to those master weights.
 Training runs each layer of ``forward`` under activation checkpointing
 (``torch.utils.checkpoint``, non-reentrant) unless ``cfg.remat`` is
 ``"none"``: ``"full"`` saves each layer's input and recomputes the layer in
-the backward pass. The JAX ``"dots"`` policy (also save the matmul
-outputs) runs as ``"full"`` here: the gradients are the same, only the
-memory/recompute trade differs.
+the backward pass (the hybrid family checkpoints each use of the shared
+block too, where the JAX package wraps only the ssm layers: memory and
+recompute differ, the gradients do not). The JAX ``"dots"`` policy (also
+save the matmul outputs) runs as ``"full"`` here: the gradients are the
+same, only the memory/recompute trade differs.
 
 Caches are updated in place: the contiguous cache's K/V (or SSM state and
 conv) tensors and the paged pools are allocated once and written by
 indexed assignment, where the JAX package returns updated copies. The
-dense cache position ``pos`` is a host integer.
+dense (and hybrid ``attn``) cache position ``pos`` is a host integer.
 
-The moe, hybrid and encdec families raise ``NotImplementedError`` (ROADMAP
-Queue 1 item 12).
+The moe and encdec families raise ``NotImplementedError`` (ROADMAP Queue 1
+item 12).
 """
 from __future__ import annotations
 
@@ -60,7 +69,7 @@ from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef, TensorSpec, tree_map, tree_materialize
 
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -108,6 +117,8 @@ def model_defs(cfg: ModelConfig) -> dict:
         defs["lm_head"] = ParamDef((d, cfg.vocab_size), ("embed", "vocab"))
     blk = _block_defs(cfg) if cfg.family == "dense" else _ssm_block_defs(cfg)
     defs["blocks"] = _stack(blk, cfg.n_layers)
+    if cfg.family == "hybrid":
+        defs["shared_attn"] = _block_defs(cfg)  # one attention + MLP block, reused
     return defs
 
 
@@ -213,24 +224,50 @@ def _ssm_layer(cfg: ModelConfig, p, x, cache, valid_len=None):
     return x + h, new_cache
 
 
+def _remat_on(cfg: ModelConfig, caches) -> bool:
+    """Checkpoint the layers: no cache, grad mode on, ``cfg.remat`` not "none"."""
+    return caches is None and cfg.remat != "none" and torch.is_grad_enabled()
+
+
+def _ssm_stack_layer(cfg, p, x, caches, i, valid_len, remat):
+    """Layer i of an ssm stack. With a cache (contiguous, or the serving
+    pools) its state and conv history are read from ``caches[...][i]`` and
+    the new ones written back in place; with `remat` it is checkpointed."""
+    if remat:
+        return torch.utils.checkpoint.checkpoint(
+            lambda x_in: _ssm_layer(cfg, p, x_in, None)[0], x, use_reentrant=False)
+    cache = None if caches is None else {k: caches[k][i] for k in ("state", "conv")}
+    x, new = _ssm_layer(cfg, p, x, cache, valid_len)
+    if cache is not None:
+        for k in ("state", "conv"):
+            cache[k].copy_(new[k])
+    return x
+
+
 def _run_ssm_stack(cfg, blocks, x, caches, valid_len=None):
-    """The layer loop of ``_scan_ssm_stack``. With a cache (contiguous, or
-    the serving pools) each layer's state and conv history are read from
-    ``caches[...][i]`` and the new ones written back in place. Without a
-    cache and with grad mode on, each layer is checkpointed unless
+    """The layer loop of ``_scan_ssm_stack`` (``_ssm_stack_layer`` per layer).
+    Without a cache and with grad mode on, each layer is checkpointed unless
     ``cfg.remat == "none"``."""
-    remat = caches is None and cfg.remat != "none" and torch.is_grad_enabled()
+    remat = _remat_on(cfg, caches)
     for i, p in enumerate(_layers(blocks, cfg.n_layers)):
-        if remat:
-            x = torch.utils.checkpoint.checkpoint(
-                lambda x_in, p=p: _ssm_layer(cfg, p, x_in, None)[0], x, use_reentrant=False)
-            continue
-        cache = None if caches is None else {k: caches[k][i] for k in ("state", "conv")}
-        x, new = _ssm_layer(cfg, p, x, cache, valid_len)
-        if cache is not None:
-            for k in ("state", "conv"):
-                cache[k].copy_(new[k])
+        x = _ssm_stack_layer(cfg, p, x, caches, i, valid_len, remat)
     return x, caches
+
+
+def _run_hybrid(cfg, params, x, ssm_caches, shared, valid_len=None):
+    """The loop of ``_hybrid_forward``: the ssm layers in order (as
+    ``_run_ssm_stack``; `valid_len` reaches them only), and after layer i,
+    when ``(i + 1) % cfg.hybrid_period == 0``, ``shared(ai, x)``: the ai-th
+    use of the shared block, which returns the new x. Autograd sums the
+    shared block's gradient over its uses."""
+    remat = _remat_on(cfg, ssm_caches)
+    ai = 0
+    for i, p in enumerate(_layers(params["blocks"], cfg.n_layers)):
+        x = _ssm_stack_layer(cfg, p, x, ssm_caches, i, valid_len, remat)
+        if (i + 1) % cfg.hybrid_period == 0:
+            x = shared(ai, x)
+            ai += 1
+    return x
 
 
 def _run_stack(cfg, blocks, x, positions, caches):
@@ -239,7 +276,7 @@ def _run_stack(cfg, blocks, x, positions, caches):
     unless ``cfg.remat == "none"``."""
     windows = _layer_windows(cfg)
     pos = caches["pos"] if caches is not None else None
-    remat = caches is None and cfg.remat != "none" and torch.is_grad_enabled()
+    remat = _remat_on(cfg, caches)
     for i, p in enumerate(_layers(blocks, cfg.n_layers)):
         window = windows[i % len(windows)]
         if remat:
@@ -267,10 +304,27 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tenso
     x = _embed(cfg, params, tokens)
     if cfg.family == "ssm":
         x, _ = _run_ssm_stack(cfg, params["blocks"], x, None)
+        return _unembed(cfg, params, x)
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    if cfg.family == "hybrid":
+        x = _run_hybrid(cfg, params, x, None, _shared_full(cfg, params, positions))
     else:
-        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
         x, _ = _run_stack(cfg, params["blocks"], x, positions, None)
     return _unembed(cfg, params, x)
+
+
+def _shared_full(cfg, params, positions):
+    """The shared block over a full sequence (no cache), checkpointed as the
+    ssm layers are."""
+    shared = params["shared_attn"]
+    remat = _remat_on(cfg, None)
+
+    def apply(ai, x):
+        if remat:
+            return _remat_block(cfg, shared, x, positions, None)
+        return _dense_block(cfg, shared, x, positions, None, None)[0]
+
+    return apply
 
 
 # ---------------------------------------------------------------------------
@@ -283,25 +337,41 @@ def _ssm_stacked_defs(cfg: ModelConfig, batch: int) -> dict:
             for k, s in S.ssm_cache_defs(cfg, batch).items()}
 
 
+def _kv_defs(cfg: ModelConfig, n: int, rows: int, cols: int) -> dict:
+    """K and V of `n` attention layers, (n, rows, cols, KV, Dh) each."""
+    shape = (n, rows, cols, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": TensorSpec(shape, cfg.compute_dtype),
+            "v": TensorSpec(shape, cfg.compute_dtype)}
+
+
+def _n_shared(cfg: ModelConfig) -> int:
+    """Uses of the hybrid family's shared block: n_layers // hybrid_period."""
+    return cfg.n_layers // cfg.hybrid_period
+
+
 def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     """TensorSpecs of the contiguous decode cache: dense K/V (``pos``, a
-    host int, is added by ``init_cache``) or the ssm state and conv
-    history, whose size does not depend on `max_len`."""
+    host int, is added by ``init_cache``), the ssm state and conv history,
+    whose size does not depend on `max_len`, or the hybrid's both:
+    ``{"ssm": ..., "attn": K/V of the shared block's uses}``."""
     _require_ported(cfg)
     if cfg.family == "ssm":
         return _ssm_stacked_defs(cfg, batch)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": TensorSpec(shape, cfg.compute_dtype),
-            "v": TensorSpec(shape, cfg.compute_dtype)}
+    if cfg.family == "hybrid":
+        return {"ssm": _ssm_stacked_defs(cfg, batch),
+                "attn": _kv_defs(cfg, _n_shared(cfg), batch, max_len)}
+    return _kv_defs(cfg, cfg.n_layers, batch, max_len)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
     """A zeroed contiguous cache on `device` (the card unless told otherwise)."""
     dev = resolve_device(device)
-    out = {name: torch.zeros(s.shape, dtype=s.dtype, device=dev)
-           for name, s in cache_defs(cfg, batch, max_len).items()}
+    out = tree_map(lambda _, s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
+                   cache_defs(cfg, batch, max_len))
     if cfg.family == "dense":
         out["pos"] = 0
+    elif cfg.family == "hybrid":
+        out["attn"]["pos"] = 0
     return out
 
 
@@ -312,7 +382,17 @@ def _stack_apply(cfg, params, tokens, cache, valid_len=None):
         x, new_cache = _run_ssm_stack(cfg, params["blocks"], x, cache, valid_len)
         return new_cache, x
     B, S = tokens.shape
-    positions = cache["pos"] + torch.arange(S, device=tokens.device)[None].expand(B, S)
+    kv = cache["attn"] if cfg.family == "hybrid" else cache
+    positions = kv["pos"] + torch.arange(S, device=tokens.device)[None].expand(B, S)
+    if cfg.family == "hybrid":
+        # the shared block writes K/V at every (padded) position; pos
+        # advances by the padded S, as in the JAX package
+        def shared(ai, x_in):
+            c = {"k": kv["k"][ai], "v": kv["v"][ai], "pos": kv["pos"]}
+            return _dense_block(cfg, params["shared_attn"], x_in, positions, None, c)[0]
+
+        x = _run_hybrid(cfg, params, x, cache["ssm"], shared, valid_len)
+        return {"ssm": cache["ssm"], "attn": {**kv, "pos": kv["pos"] + S}}, x
     x, new_cache = _run_stack(cfg, params["blocks"], x, positions, cache)
     return new_cache, x
 
@@ -349,15 +429,17 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dict,
 def paged_cache_defs(cfg: ModelConfig, max_batch: int, n_blocks: int,
                      block_size: int, n_pages: int) -> dict:
     """TensorSpecs of the serving pool: per-layer K/V pages shared by slots
-    (dense), or per-slot ssm state and conv history indexed by slot id
-    (ssm: length-independent, so nothing is paged)."""
+    (dense), per-slot ssm state and conv history indexed by slot id (ssm:
+    length-independent, so nothing is paged), or the hybrid's both:
+    ``{"ssm": per slot, "attn": the shared block's uses' K/V pages}``."""
     del n_pages  # the table shape is scheduler state
     _require_ported(cfg)
     if cfg.family == "ssm":
         return _ssm_stacked_defs(cfg, max_batch)
-    shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": TensorSpec(shape, cfg.compute_dtype),
-            "v": TensorSpec(shape, cfg.compute_dtype)}
+    if cfg.family == "hybrid":
+        return {"ssm": _ssm_stacked_defs(cfg, max_batch),
+                "attn": _kv_defs(cfg, _n_shared(cfg), n_blocks, block_size)}
+    return _kv_defs(cfg, cfg.n_layers, n_blocks, block_size)
 
 
 def _paged_block(cfg, p, x, positions, window, pk, pv, table, lengths):
@@ -378,6 +460,18 @@ def _paged_stack(cfg, blocks, x, positions, pools, table, lengths):
     return x
 
 
+def _paged_hybrid(cfg, params, x, positions, pools, table, lengths):
+    """The hybrid's paged decode: the ssm layers' recurrent step on the
+    slot rows, the shared block through ``paged_attention`` on pool ai."""
+    pk, pv = pools["attn"]["k"], pools["attn"]["v"]
+
+    def shared(ai, x_in):
+        return _paged_block(cfg, params["shared_attn"], x_in, positions, None, pk[ai], pv[ai],
+                            table, lengths)
+
+    return _run_hybrid(cfg, params, x, pools["ssm"], shared)
+
+
 def decode_step_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                       pools: dict, table: torch.Tensor,
                       lengths: torch.Tensor) -> tuple[dict, torch.Tensor]:
@@ -389,8 +483,10 @@ def decode_step_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     ``lengths + 1`` tokens. Padding slots carry length 0 and null table rows.
     For the ssm family the pools are the slot-indexed states, stepped with
     the contiguous recurrent step (table and lengths are not read); padding
-    slots step their stale state harmlessly. Returns (pools, logits (B,
-    vocab) float32).
+    slots step their stale state harmlessly. The hybrid family does both
+    (``_paged_hybrid``): its ssm layers step ``pools["ssm"]``, each use ai
+    of the shared block attends over the pages of ``pools["attn"]``'s
+    layer ai. Returns (pools, logits (B, vocab) float32).
     """
     _require_ported(cfg)
     x = _embed(cfg, params, tokens)
@@ -398,5 +494,8 @@ def decode_step_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         x, _ = _run_ssm_stack(cfg, params["blocks"], x, pools)
         return pools, _unembed(cfg, params, x[:, -1:])[:, 0]
     positions = lengths[:, None].long()
-    x = _paged_stack(cfg, params["blocks"], x, positions, pools, table, lengths)
+    if cfg.family == "hybrid":
+        x = _paged_hybrid(cfg, params, x, positions, pools, table, lengths)
+    else:
+        x = _paged_stack(cfg, params["blocks"], x, positions, pools, table, lengths)
     return pools, _unembed(cfg, params, x[:, -1:])[:, 0]

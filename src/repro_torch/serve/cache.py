@@ -27,8 +27,10 @@ tensors indexed by slot id (``transformer.paged_cache_defs``), the pool
 hands out no pages for it (``paged`` is False), and ``write_prefill``
 overwrites the slot's rows in place. A released slot keeps its stale state
 until the next prefill into it overwrites it, as in the JAX package. The
-cross caches of the encdec family wait for that family (ROADMAP Queue 1
-item 12).
+hybrid family's pools nest both kinds, ``{"ssm": {"state", "conv"},
+"attn": {"k", "v"}}``: per-slot ssm state beside the pages of its shared
+attention block, so it is paged. The cross caches of the encdec family
+wait for that family (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,12 +110,10 @@ class CachePool:
         self.pc = pc
         self.device = resolve_device(device)
         self.n_pages = pc.n_pages
-        self.pools = {
-            name: torch.zeros(s.shape, dtype=s.dtype, device=self.device)
-            for name, s in T.paged_cache_defs(
-                cfg, pc.max_batch, pc.n_blocks, pc.block_size, self.n_pages
-            ).items()
-        }
+        self.pools = tree_map(
+            lambda _, s: torch.zeros(s.shape, dtype=s.dtype, device=self.device),
+            T.paged_cache_defs(cfg, pc.max_batch, pc.n_blocks, pc.block_size, self.n_pages),
+        )
         # an attention-free family (ssm) never takes a page; its null table
         # still feeds decode_step_paged's (unread) arguments
         self.paged = cfg.family != "ssm"
@@ -147,9 +148,10 @@ class CachePool:
         denom = self.pc.n_blocks - 1
         return self.used_page_count / denom if denom else 0.0
 
-    def data_ptrs(self) -> dict[str, int]:
-        """Device addresses of the pool tensors (they never change)."""
-        return {name: t.data_ptr() for name, t in self.pools.items()}
+    def data_ptrs(self) -> dict:
+        """Device addresses of the pool tensors (they never change), laid
+        out as the pools (nested for the hybrid)."""
+        return tree_map(lambda _, t: t.data_ptr(), self.pools)
 
     def pages_needed(self, n_tokens: int) -> int:
         """Pages that cover n_tokens tokens (none for an unpaged family)."""
@@ -242,26 +244,37 @@ class CachePool:
 
         `cache` comes from ``transformer.prefill`` at shape (1, prompt_pad).
         Dense K/V slabs are scattered onto the slot's pages; ssm state and
-        conv history overwrite row `slot` (never added to it). Call
+        conv history overwrite row `slot` (never added to it); the hybrid
+        does both (its ``"ssm"`` rows, its ``"attn"`` K/V). Call
         ``set_length`` afterwards with the TRUE prompt length (pad blocks
         land in the null page; pad positions inside the last valid block
         are masked by length).
         """
-        if not self.paged:
+        fam = self.cfg.family
+        if fam == "hybrid":
+            states, pages = self.pools["ssm"], self.pools["attn"]
+            state_src, kv_src = cache["ssm"], cache["attn"]
+        else:
+            states = pages = self.pools
+            state_src = kv_src = cache
+        if fam != "dense":
             for name in ("state", "conv"):
-                self.pools[name][:, slot] = cache[name][:, 0].to(self.pools[name].dtype)
+                states[name][:, slot] = state_src[name][:, 0].to(states[name].dtype)
+        if not self.paged:
             return
         ids = self._prompt_page_ids(slot)
         for name in ("k", "v"):
-            _scatter_blocks(self.pools[name], cache[name][:, 0], ids)
+            _scatter_blocks(pages[name], kv_src[name][:, 0], ids)
 
     # -- parity helper ------------------------------------------------------
 
     def gather_kv(self, slot: int, n_tokens: int) -> dict:
         """Slot's K/V as contiguous (n_layers, n_tokens, KV, Dh) numpy arrays
-        (the dense family's pages)."""
-        if not self.paged:
-            raise ValueError(f"the {self.cfg.family} family keeps no K/V pages")
+        (the dense family's pages; the JAX package reads back no other
+        family's, so the ssm and hybrid families raise)."""
+        if self.cfg.family != "dense":
+            raise ValueError(f"the {self.cfg.family} family has no K/V pages that "
+                             "gather_kv reads back")
         pages = self._pages_of[slot]
         out = {}
         for name, pool in self.pools.items():

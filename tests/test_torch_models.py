@@ -95,7 +95,7 @@ def test_registry_names_every_arch_and_ports_only_minitron():
     from repro.configs import ALIASES, ARCH_IDS
 
     assert C.ARCH_IDS == ARCH_IDS and C.ALIASES == ALIASES
-    assert C.PORTED == ("minitron_8b", "gemma2_2b", "mamba2_1p3b")
+    assert C.PORTED == ("minitron_8b", "gemma2_2b", "mamba2_1p3b", "zamba2_1p2b")
     for arch in ARCH_IDS:
         if arch in C.PORTED:
             continue
