@@ -210,6 +210,19 @@ printed with its seconds:
    backward (6) and every ssd forward (76) and backward (38) call;
    launches asserted every step; steps 1-3 timed, step 4 profiled; peak
    memory. Its launches join the kernels line.
+20. solvers -- in a fresh process (``chip_smoke.py --solvers``; it runs
+   alone too): the registry's other methods (extra, dlm, ssda, mudag,
+   sliding, dsgda, personal) through ``solve()`` at the paper's rcv1
+   Section-7 setup, every (method, family) pair the registry supports
+   (personal with a per-node lam of 1x-2x 1/(10Q); SSDA cut to d=4,096 for
+   ridge and 1,024 for logistic: its grad f* holds a d x d factor a node),
+   10 steps on the card (SSDA 4, at eta = lam) held to the same run on the
+   CPU (<= 1e-10, DOUBLEs equal), no registry kernel launched. Each method with a step of its own
+   profiled (wall, device busy, idle share, launches a step, top
+   kernels). Then benchmarks/bench_table1.py's setup (N=6, q=30, d=200,
+   k=8, ER(0.4)): every method's iterations to dist2 <= 1e-10 on the card
+   and on the CPU equal the reference's counts (``TABLE1_COUNTS``); each run
+   stops one record period past the count; dsba/dsa launch as predicted.
 Before phase 9, flash_attention_bwd is held to its plain version at the
 train shape and at ragged small shapes (every head dim, GQA, MQA, window,
 softcap), bf16 and f32 (bars 5e-2, 2e-4); its times come from the
@@ -242,7 +255,10 @@ import torch  # noqa: E402
 
 from repro_torch.configs.dsba_paper import EXPERIMENTS  # noqa: E402
 from repro_torch.core import mixing  # noqa: E402
-from repro_torch.core.solvers import get_solver, make_problem, solve  # noqa: E402
+from repro_torch.core.operators import FAMILIES  # noqa: E402
+from repro_torch.core.solvers import (  # noqa: E402
+    available_solvers, get_solver, make_problem, solve,
+)
 from repro_torch.core.sparse_comm import sparse_doubles_per_iter  # noqa: E402
 from repro_torch.data.synthetic import (  # noqa: E402
     DATASET_PRESETS, make_classification, make_regression,
@@ -654,8 +670,9 @@ def time_topk(device) -> dict:
 
 
 def paper_problem(task, d, k, n_nodes=10, q=100, seed=0):
-    """The Section-7 problem at preset widths (d, k): the data from_preset makes."""
-    if task == "ridge":
+    """The Section-7 problem at preset widths (d, k): the data from_preset
+    makes (regression rows for ridge and the bilinear saddle)."""
+    if task in ("ridge", "bilinear"):
         data = make_regression(n_nodes, q, d, k, seed=seed)
     else:
         data = make_classification(n_nodes, q, d, k, seed=seed)
@@ -789,11 +806,11 @@ def _profile_row(name, run, steps):
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     busy_us, kern = device_profile(run, 1)
     busy_ms = busy_us / 1e3 / steps
-    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:5]
     row = {"what": name, "wall_ms_per_step": wall_ms,
            "device_busy_ms_per_step": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
            "kernel_launches_per_step": sum(c for _, c in kern.values()) / steps,
-           "top_kernels_us_per_step": {key[:70]: t / steps for key, (t, _) in top}}
+           "top_kernels_us_per_step": top_by_prefix(
+               {key: t / steps for key, (t, _) in kern.items()}, 5, 70)}
     log("profile", json.dumps(row))
     return row
 
@@ -2870,6 +2887,208 @@ def hybrid_run(device) -> dict:
     return {"launches": total, "times": times, "phases": out}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the rest of the paper's methods, in a fresh process (--solvers)
+# ---------------------------------------------------------------------------
+
+NEW_METHODS = ("extra", "dlm", "ssda", "mudag", "sliding", "dsgda", "personal")
+# SSDA's grad f* holds a d x d factor a node (17.8 GB a node at rcv1's d), so
+# it runs at a cut width; logistic's 8 Newton solves a node a step are
+# also run on the CPU for the comparison, hence the narrower cut
+SSDA_D = {"ridge": 4096, "logistic": 1024}
+SSDA_STEPS = 4
+PROFILED = (("extra", "ridge"), ("dlm", "ridge"), ("mudag", "ridge"),
+            ("sliding", "ridge"), ("dsgda", "auc"), ("personal", "ridge"))
+
+
+def method_pairs() -> list[tuple[str, str]]:
+    """Every (new method, family) the registry supports on comm="dense"."""
+    caps = available_solvers()
+    return [(m, f) for m in NEW_METHODS for f in FAMILIES if caps[m].supports("dense", f)]
+
+
+def solver_problem(method, task, d, k, n_nodes=10, q=100):
+    """``paper_problem``; ``personal`` gets a per-node lam (1x to 2x the
+    paper's 1/(10Q)), the capability it exists for."""
+    problem = paper_problem(task, d, k, n_nodes, q)
+    if method == "personal":
+        problem = dataclasses.replace(problem, lam=problem.lam * np.linspace(1.0, 2.0, n_nodes))
+    return problem
+
+
+def solver_pairs(device, d, k, steps=10, ssda_d=SSDA_D, n_nodes=10, q=100) -> list[dict]:
+    """Every new (method, family) pair through solve() on `device`, held to
+    the same run on the CPU (z within DENSE_TOL_CPU, DOUBLEs equal) with no
+    registry kernel launched. SSDA at its cut widths ``ssda_d`` for
+    ``SSDA_STEPS`` steps, with its dual step at lam (its default, 0.05,
+    diverges at lam = 1/(10 Q) in both packages); the others at their
+    defaults."""
+    cpu = torch.device("cpu")
+    rows = []
+    for method, task in method_pairs():
+        width = ssda_d[task] if method == "ssda" else d
+        problem = solver_problem(method, task, width, k, n_nodes, q)
+        n_steps = min(steps, SSDA_STEPS) if method == "ssda" else steps
+        kw = dict(steps=n_steps, record_every=max(1, n_steps // 2))
+        if method == "ssda":
+            kw["eta"] = float(problem.lam)
+        reset_launches()
+        t0 = time.perf_counter()
+        res = solve(problem, method, device=device, **kw)
+        t_dev = time.perf_counter() - t0
+        got = launches()
+        if any(got.values()):
+            raise AssertionError(f"{method}/{task}: registry kernels launched {got}")
+        t0 = time.perf_counter()
+        ref = solve(problem, method, device=cpu, **kw)
+        t_cpu = time.perf_counter() - t0
+        err = float(np.max(np.abs(res.z - ref.z)))
+        if not np.all(np.isfinite(res.z)) or err > DENSE_TOL_CPU:
+            raise AssertionError(f"{method}/{task}: device vs CPU {err}")
+        if not np.array_equal(res.doubles_received, ref.doubles_received):
+            raise AssertionError(f"{method}/{task}: DOUBLEs differ")
+        row = {"method": method, "task": task, "d": width, "steps": n_steps, "device_vs_cpu": err,
+               "consensus": float(res.consensus[-1]), "z_max": float(np.max(np.abs(res.z))),
+               "doubles_per_node": int(res.doubles_received[-1, 0]),
+               "s_device": t_dev, "s_cpu": t_cpu}
+        rows.append(row)
+        log("solvers", json.dumps(row))
+    return rows
+
+
+def solver_profiles(device, d, k, steps=30) -> list[dict]:
+    """``_profile_row`` of every new method with a step of its own, at the
+    paper's rcv1 setup (CUDA only)."""
+    from repro_torch.convert import dataset_to_torch
+    from repro_torch.core.comm import DenseComm
+
+    i_t = torch.as_tensor(np.random.default_rng(0).integers(0, 100, (steps, 10)), device=device)
+    rows = []
+    for method, task in PROFILED:
+        problem = solver_problem(method, task, d, k)
+        spec = get_solver(method)
+        hp = dict(spec.defaults)
+        data = dataset_to_torch(problem.data, device)
+        z0 = torch.zeros((10, problem.dim), dtype=torch.float64, device=device)
+        state0 = spec.init(problem, hp, data, z0)
+        step = spec.step(problem, hp, data, DenseComm(problem.graph, device))
+
+        def run(state=state0, step=step):
+            for t in range(steps):
+                state = step(state, i_t[t])
+
+        rows.append(_profile_row(f"dense {method} {task}", run, steps))
+        del data, state0, step
+    return rows
+
+
+# benchmarks/bench_table1.py's setup: data, graph, eps, and for each method
+# its record period (the run is MAX_PASSES periods) and hyperparameters
+TABLE1_DATA = dict(n_nodes=6, q=30, d=200, k=8, seed=0)
+TABLE1_GRAPH = dict(n=6, p=0.4, seed=1)
+TABLE1_EPS = 1e-10
+TABLE1_MAX_PASSES = 400
+TABLE1_RUNS = {
+    "dsba": (30, {"alpha": 1.0}),
+    "dsa": (30, {"alpha": 0.15}),
+    "extra": (4, {"alpha": 0.3}),
+    "mudag": (4, {"eta": 2.0, "momentum": 0.9, "gossip_rounds": 3}),
+    "sliding": (4, {"alpha": 0.5, "comm_period": 4}),
+    "dsgda": (30, {"alpha": 0.3, "eta": 0.3}),
+}
+# iterations to dist2 <= eps that bench_table1.py prints (the JAX package);
+# None: not within the run. tests/test_torch_table1.py recomputes them
+# from the JAX package and holds the port to them.
+TABLE1_COUNTS = {
+    ("ridge", 1e-1): {"dsba": 690, "dsa": 690, "extra": 340, "mudag": 64, "sliding": 1220},
+    ("ridge", 1e-2): {"dsba": 1170, "dsa": 6570, "extra": None, "mudag": 180, "sliding": None},
+    ("ridge", 1e-3): {"dsba": 9810, "dsa": None, "extra": None, "mudag": 376, "sliding": None},
+    ("bilinear", 1e-2): {"dsba": 1680, "dsa": 6090, "dsgda": 3060},
+}
+
+
+def iters_to_eps(dist2, record_every):
+    """bench_table1.py's count: the first record point with dist2 <= eps."""
+    idx = int(np.argmax(dist2 <= TABLE1_EPS))
+    if dist2[idx] > TABLE1_EPS:
+        return None
+    return (idx + 1) * record_every
+
+
+def table1_problem(task, lam):
+    """bench_table1.py's problem at ``lam``, with its root (on the CPU)."""
+    data = make_regression(**TABLE1_DATA)
+    graph = mixing.erdos_renyi_graph(**TABLE1_GRAPH)
+    problem = make_problem(task, data, graph, lam=lam)
+    problem.solve_star(device="cpu")
+    return problem
+
+
+def table1_count(problem, method, device, stop=None):
+    """(iterations to eps or None, launches) of one bench_table1.py run,
+    cut at `stop` iterations (a multiple of the record period)."""
+    every, hp = TABLE1_RUNS[method]
+    steps = min(stop or TABLE1_MAX_PASSES * every, TABLE1_MAX_PASSES * every)
+    reset_launches()
+    res = solve(problem, method, steps=steps, record_every=every, device=device, **hp)
+    return iters_to_eps(res.dist2, every), launches(), steps
+
+
+def table1_phase(device, counts=TABLE1_COUNTS) -> dict:
+    """Every Table-1 count on `device` and on the CPU in this process: each
+    run stops one record period past the expected count (or runs whole
+    where it is None), and both counts must equal it. dsba/dsa launch
+    exactly ``expected_launches`` on the card, the other methods none."""
+    cpu = torch.device("cpu")
+    out = {}
+    for (task, lam), want in counts.items():
+        problem = table1_problem(task, lam)
+        for method, count in want.items():
+            stop = None if count is None else count + TABLE1_RUNS[method][0]
+            t0 = time.perf_counter()
+            c_dev, got, steps = table1_count(problem, method, device, stop)
+            t_dev = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            c_cpu, _, _ = table1_count(problem, method, cpu, stop)
+            t_cpu = time.perf_counter() - t0
+            if not c_dev == c_cpu == count:
+                raise AssertionError(f"table1 {task} lam={lam} {method}: device {c_dev}, "
+                                     f"CPU {c_cpu}, reference {count}")
+            if device.type == "cuda":
+                want_l = expected_launches(steps, "dense") if method in ("dsba", "dsa") else {}
+                if got != {**dict.fromkeys(got, 0), **want_l}:
+                    raise AssertionError(f"table1 {method}: launches {got} != {want_l}")
+            out[f"{task} {lam:g} {method}"] = {"count": c_dev, "steps": steps,
+                                               "s_device": t_dev, "s_cpu": t_cpu}
+            log("table1", f"{task} lam={lam:g} {method}: {c_dev} (device {t_dev:.1f} s, "
+                f"CPU {t_cpu:.1f} s, {steps} steps)")
+    return out
+
+
+def solvers_run(device) -> dict:
+    """``chip_smoke.py --solvers`` (a fresh process): every new method of
+    the registry through solve() at the paper's rcv1 width (SSDA cut)
+    against the CPU, their steps profiled, and the Table-1 counts."""
+    t_all = time.perf_counter()
+    log("solvers", subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    rcv1 = DATASET_PRESETS["rcv1"]
+    out = {}
+    t0 = time.perf_counter()
+    out["pairs"] = solver_pairs(device, rcv1["d"], rcv1["k"])
+    log("solvers", f"pairs done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["profiles"] = solver_profiles(device, rcv1["d"], rcv1["k"])
+    log("solvers", f"profiles done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["table1"] = table1_phase(device)
+    log("solvers", f"table1 done in {time.perf_counter() - t0:.1f} s")
+    out["seconds"] = time.perf_counter() - t_all
+    log("solvers", f"all done in {out['seconds']:.1f} s")
+    return out
+
+
 def ptxas_report(outputs) -> dict:
     """{kernel<dtype,template ints>: registers, spills, static smem} from
     the nvcc -Xptxas -v output of each library (``_build.build_all``)."""
@@ -3156,6 +3375,9 @@ def main() -> int:
     t0 = time.perf_counter()
     hybrid = profile_subprocess("--hybrid")
     log("hybrid", f"done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    profile_subprocess("--solvers")  # launches no kernel of the line below
+    log("solvers", f"done in {time.perf_counter() - t0:.1f} s")
 
     total["decode_attention"] = serve_launches["decode_attention"]
     # flash_attention runs on three main paths: the score phase, the train
@@ -3191,7 +3413,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     PROFILES = {"--ssm-profile": ssm_profile, "--attention-profile": attention_profile,
-                "--hybrid": hybrid_run,
+                "--hybrid": hybrid_run, "--solvers": solvers_run,
                 "--topk-profile": topk_profile,
                 "--gossip-profile": lambda dev: gossip_phase(dev, topk_rows=True)[0],
                 "--decode-profile": lambda dev, *a: decode_profile(dev, *map(json.loads, a))}

@@ -30,12 +30,18 @@ from repro_torch.models.params import tree_map
 
 @dataclasses.dataclass(frozen=True)
 class TensorDataset:
-    """A ``SparseDataset`` on a device: padded-CSR rows split over N nodes."""
+    """A ``SparseDataset`` on a device: padded-CSR rows split over N nodes.
+
+    ``derived`` holds device arrays a run builds from the data once and
+    shares between a solver's factories (the dense features, SSDA's
+    factorization); ``solve()`` makes one ``TensorDataset`` a run.
+    """
 
     idx: torch.Tensor  # (N, q, k) int32
     val: torch.Tensor  # (N, q, k) float
     y: torch.Tensor  # (N, q) float
     d: int
+    derived: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
 
 def dataset_to_torch(data, device=None) -> TensorDataset:

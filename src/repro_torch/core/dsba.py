@@ -244,3 +244,70 @@ def draw_indices(steps: int, n_nodes: int, q: int, seed: int = 0) -> np.ndarray:
     """(steps, N) uniform sample indices — shared by dense and sparse runs."""
     rng = np.random.default_rng(seed)
     return rng.integers(0, q, size=(steps, n_nodes)).astype(np.int32)
+
+
+@dataclasses.dataclass
+class RunResult:
+    """Legacy result shape of `run` and the `core.baselines.run_*` shims."""
+
+    state: DSBAState
+    iters: np.ndarray  # iteration counts at record points
+    dist2: np.ndarray  # mean_n ||z_n - z*||^2 (if z_star given)
+    consensus: np.ndarray  # mean_n ||z_n - zbar||^2
+    zs: np.ndarray | None  # optional snapshots (chunks, N, D)
+
+
+def run(
+    cfg: DSBAConfig,
+    data,
+    w: np.ndarray,
+    steps: int,
+    z0: np.ndarray | None = None,
+    z_star: np.ndarray | None = None,
+    record_every: int = 50,
+    seed: int = 0,
+    keep_snapshots: bool = False,
+    indices: np.ndarray | None = None,
+    device=None,
+) -> RunResult:
+    """Deprecated: ``core.solvers.solve(problem, method=cfg.method)``.
+
+    Thin shim over the registry entrypoint, kept for legacy callers. The
+    communication graph is recovered from the support of ``w`` (Section
+    4's sparsity condition makes the two equivalent). Runs on CUDA unless
+    the caller passes ``device="cpu"``.
+
+    indices: optional (steps, N) pre-drawn sample indices (replayable runs).
+    """
+    from repro_torch.core import solvers
+    from repro_torch.core.deprecation import warn_once
+
+    warn_once(
+        "dsba.run",
+        "core.dsba.run is deprecated and will be REMOVED in v0.2 (final "
+        "warning); use core.solvers.solve("
+        f"problem, method={cfg.method!r}) instead",
+        stacklevel=2,
+    )
+    problem = solvers.Problem(
+        spec=cfg.spec,
+        data=data,
+        graph=solvers.graph_from_mixing(w),
+        w=w,
+        lam=cfg.lam,
+        z_star=z_star,
+    )
+    res = solvers.solve(
+        problem,
+        method=cfg.method,
+        comm="dense",
+        steps=steps,
+        record_every=record_every,
+        seed=seed,
+        z0=z0,
+        indices=indices,
+        keep_snapshots=keep_snapshots,
+        device=device,
+        alpha=cfg.alpha,
+    )
+    return RunResult(res.state, res.iters, res.dist2, res.consensus, res.zs)

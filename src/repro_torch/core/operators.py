@@ -142,6 +142,11 @@ def auc_resolvent(s, psi_tail, y, p, a_eff, xsq):
 #: operator families ("problem families" in solver capability records)
 FAMILIES = ("ridge", "logistic", "auc", "bilinear")
 
+#: families whose regularized mean operator is the gradient of a convex
+#: objective (vs. a genuine saddle operator): descent-only methods such as
+#: Nesterov-accelerated consensus apply only to these.
+MINIMIZATION_FAMILIES = ("ridge", "logistic")
+
 _TAIL_DIMS = {"ridge": 0, "logistic": 0, "auc": 3, "bilinear": 1}
 
 
@@ -190,3 +195,32 @@ class OperatorSpec:
         if self.kind == "bilinear":
             return bilinear_resolvent(s, psi_tail, y, self.gamma, a_eff, xsq)
         raise ValueError(self.kind)
+
+
+def full_operator_dense(spec: OperatorSpec, z, feats, labels, lam):
+    """Mean_i B^lam_{n,i}(z) for one node, dense features (q, d).
+
+    z: (d + tail_dim,). Returns same shape.
+    """
+    t = spec.tail_dim
+    d = feats.shape[-1]
+    head, tail = z[:d], z[d:]
+    u = feats @ head  # (q,)
+    tails = tail.expand(feats.shape[0], t)
+    g, tail_out = spec.coeff_and_tail(u, labels, tails)
+    out_head = (g[:, None] * feats).mean(0)
+    out_tail = tail_out.mean(0) if t else z.new_zeros((0,))
+    return torch.cat([out_head, out_tail]) + lam * z
+
+
+def sample_operator_sparse(spec: OperatorSpec, z, idx, val, y, lam=0.0):
+    """B_{n,i}(z) coefficient form for ONE sparse sample (no lam term).
+
+    idx/val: (k,) padded sparse row (pad idx with 0 and val with 0).
+    Returns (g, tail_out, u).
+    """
+    d = z.shape[0] - spec.tail_dim
+    u = torch.sum(val * z[idx.long()])
+    tail = z[d:]
+    g, tail_out = spec.coeff_and_tail(u, y, tail)
+    return g, tail_out, u

@@ -157,8 +157,11 @@ def test_option_and_capability_errors():
     per_node = dataclasses.replace(tp, lam=np.full(5, 0.01))
     with pytest.raises(TS.CapabilityError):
         TS.solve(per_node, "dsba", "sparse", steps=2, device="cpu")
-    with pytest.raises(KeyError, match="item 7"):
-        TS.solve(tp, "extra", steps=2, device="cpu")
+    with pytest.raises(KeyError) as ei:
+        TS.solve(tp, "sgd", steps=2, device="cpu")
+    assert str(sorted(TS.available_solvers())) in str(ei.value)
+    assert sorted(TS.available_solvers()) == [
+        "dlm", "dsa", "dsba", "dsgda", "extra", "mudag", "personal", "sliding", "ssda"]
 
 
 def test_chip_smoke_phases_on_cpu():
@@ -179,3 +182,23 @@ def test_chip_smoke_phases_on_cpu():
     # 1 + 4*7 + 7 sparse_axpy calls, one launch each
     assert chip_smoke.expected_launches(7, "sparse") == {"sparse_dot": 7,
                                                          "sparse_axpy": 36}
+
+
+def test_chip_smoke_solver_phases_on_cpu():
+    """The --solvers process's phases at a tiny size on the CPU: every new
+    (method, family) pair, and Table-1 counts of the cheap methods."""
+    cpu = torch.device("cpu")
+    rows = chip_smoke.solver_pairs(cpu, 64, 8, steps=4, ssda_d={"ridge": 48, "logistic": 32},
+                                   n_nodes=5, q=10)
+    assert [(r["method"], r["task"]) for r in rows] == chip_smoke.method_pairs()
+    assert len(rows) == 16
+    for row in rows:
+        assert row["device_vs_cpu"] == 0.0 and np.isfinite(row["consensus"])
+    assert {r["d"] for r in rows if r["method"] == "ssda"} == {48, 32}
+    mudag = next(r for r in rows if r["method"] == "mudag")
+    assert mudag["doubles_per_node"] == 2 * 4 * 4 * 2 * 64  # 2K rounds, K=4, deg 2
+    out = chip_smoke.table1_phase(cpu, {("ridge", 1e-1): {"extra": 340, "mudag": 64}})
+    assert {k: v["count"] for k, v in out.items()} == {"ridge 0.1 extra": 340,
+                                                         "ridge 0.1 mudag": 64}
+    with pytest.raises(AssertionError, match="reference 63"):
+        chip_smoke.table1_phase(cpu, {("ridge", 1e-1): {"mudag": 63}})
