@@ -223,6 +223,25 @@ printed with its seconds:
    k=8, ER(0.4)): every method's iterations to dist2 <= 1e-10 on the card
    and on the CPU equal the reference's counts (``TABLE1_COUNTS``); each run
    stops one record period past the count; dsba/dsa launch as predicted.
+21. faults -- in a fresh process (``chip_smoke.py --faults``; it runs alone
+   too): dynamic networks, fault injection and checkpoint/resume through
+   ``solve()`` at the rcv1 Section-7 setup (ridge; dsgda on AUC), each
+   held to the same solve() on the CPU (z and dist2 <= 1e-10; DOUBLEs,
+   ints and the faults/schedule/churn_rows records equal; some CPU sides
+   cut, ``FAULTS_CPU_STEPS``) with dsba/dsa launching as predicted: a p = 0
+   plan bit-equal to the plan-free run (dense and relay); link faults
+   (dsba, dsa, mudag), stragglers and both composed (dense); link faults
+   on the relay; a three-segment schedule (ER seed 0, ring, ER seed 1 at
+   0/60/120 of 180) dense and relay; a kill of the degree-6 hub at 60 and
+   a join at 120 (dsba dense and relay, mudag, dsgda on AUC). Checkpoint/
+   resume: dense dsba 200 steps (every 50, stopped at 100) and relay 100
+   steps (every 50, stopped at 50), bit-equal to the uninterrupted card
+   run, with a save's and a restore's bytes and seconds.
+   benchmarks/bench_faults.py's curve: the p = 0 counts equal
+   ``FAULTS_COUNTS``, the p > 0 plateaus the CPU's within 1e-10 relative.
+   Profiles of the dense step plain, with the link mask and with
+   stragglers, and of the relay with and without a sent_mask. Its
+   launches join the kernels line.
 Before phase 9, flash_attention_bwd is held to its plain version at the
 train shape and at ragged small shapes (every head dim, GQA, MQA, window,
 softcap), bf16 and f32 (bars 5e-2, 2e-4); its times come from the
@@ -257,7 +276,9 @@ from repro_torch.configs.dsba_paper import EXPERIMENTS  # noqa: E402
 from repro_torch.core import mixing  # noqa: E402
 from repro_torch.core.operators import FAMILIES  # noqa: E402
 from repro_torch.core.solvers import (  # noqa: E402
-    available_solvers, get_solver, make_problem, solve,
+    ChurnEvent, ChurnPlan, CheckpointManager, CheckpointSpec, FaultPlan, LinkFault,
+    StragglerSpec, available_solvers, get_solver, link_delivered_mask, make_problem, solve,
+    straggler_delivered_mask,
 )
 from repro_torch.core.sparse_comm import sparse_doubles_per_iter  # noqa: E402
 from repro_torch.data.synthetic import (  # noqa: E402
@@ -3089,6 +3110,287 @@ def solvers_run(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: dynamic networks, fault injection, checkpoint/resume (--faults)
+# ---------------------------------------------------------------------------
+
+# benchmarks/bench_faults.py's iterations to dist2 <= 1e-6 at p = 0 (the JAX
+# package); tests/test_torch_faults.py recomputes them from the JAX package
+FAULTS_COUNTS = {"dsba": 156, "dsa": 258, "mudag": 48}
+FAULTS_HP = {"dsba": {}, "dsa": {}, "mudag": {"eta": 0.5, "momentum": 0.5}}
+FAULTS_DROPS = (0.1, 0.2, 0.4)
+FAULTS_TOL, FAULTS_STEPS = 1e-6, 300
+PLATEAU_RTOL = 1e-10
+# the CPU side's steps where the full run is too slow there (a relay step at
+# rcv1 width is ~0.1 s on the CPU); the card runs the same solve() at the
+# cut length for the comparison, and every cut is logged
+FAULTS_CPU_STEPS = {"p0 sparse": 20, "link sparse": 20, "schedule sparse": 65,
+                    "churn sparse": 125, "churn mudag": 125, "churn dsgda": 125}
+
+
+def faults_graphs(n_nodes=10):
+    """The schedule's three segments and the churn plan's join graph."""
+    er0 = mixing.erdos_renyi_graph(n_nodes, 0.4, seed=0)
+    er1 = mixing.erdos_renyi_graph(n_nodes, 0.4, seed=1)
+    # the join graph: the survivor graph after killing node 6, relabeled
+    # 0..8, plus the newcomer wired to its seed and one other node
+    surv = er0.subgraph([i for i in range(n_nodes) if i != 6])
+    joined = mixing.Graph(n_nodes, tuple(sorted(surv.edges + ((0, 9), (4, 9)))))
+    if not (er1.is_connected() and joined.is_connected()):
+        raise AssertionError("faults graphs are not connected")
+    return ((0, er0), (60, mixing.ring_graph(n_nodes)), (120, er1)), joined
+
+
+def faults_launches(method, comm, steps) -> dict[str, int]:
+    """dsba/dsa launch as ``expected_launches``; the others launch none."""
+    return expected_launches(steps, comm) if method in ("dsba", "dsa") else {}
+
+
+def fault_check(name, problem, method, comm, device, steps, total, **kw):
+    """One solve() on the card held to the same solve() on the CPU: z and
+    dist2 within DENSE_TOL_CPU, DOUBLEs, ints and the faults/schedule/
+    churn_rows records exactly equal; launches as ``faults_launches``
+    predicts. The CPU side runs ``FAULTS_CPU_STEPS[name]`` steps where set
+    (the card then runs that length too for the comparison)."""
+    cpu = torch.device("cpu")
+    reset_launches()
+    t0 = time.perf_counter()
+    res = solve(problem, method, comm, steps=steps, device=device, **kw)
+    t_dev = time.perf_counter() - t0
+    got = launches()
+    want = faults_launches(method, comm, steps) if device.type == "cuda" else {}
+    if got != {**dict.fromkeys(got, 0), **want}:
+        raise AssertionError(f"{name}: launches {got} != {want}")
+    for k, c in got.items():
+        total[k] = total.get(k, 0) + c
+    cut = FAULTS_CPU_STEPS.get(name, steps)
+    dev_cmp = res if cut == steps else solve(problem, method, comm, steps=cut,
+                                             device=device, **kw)
+    t0 = time.perf_counter()
+    ref = solve(problem, method, comm, steps=cut, device=cpu, **kw)
+    t_cpu = time.perf_counter() - t0
+    err = float(np.max(np.abs(dev_cmp.z - ref.z)))
+    if len(ref.dist2):
+        err = max(err, float(np.max(np.abs(dev_cmp.dist2 - ref.dist2))))
+    if not np.all(np.isfinite(res.z)) or err > DENSE_TOL_CPU:
+        raise AssertionError(f"{name}: card vs CPU {err}")
+    for what in ("doubles_received", "ints_received"):
+        if not np.array_equal(getattr(dev_cmp, what), getattr(ref, what)):
+            raise AssertionError(f"{name}: {what} differ")
+    for key in ("faults", "schedule", "churn_rows"):
+        if dev_cmp.extras.get(key) != ref.extras.get(key):
+            raise AssertionError(f"{name}: extras[{key!r}] differ")
+    row = {"check": name, "method": method, "comm": comm, "steps": steps,
+           "cpu_steps": cut, "card_vs_cpu": err, "launches": {k: c for k, c in got.items() if c},
+           "doubles_per_node": int(res.doubles_received[-1].max()),
+           "consensus": float(res.consensus[-1]), "s_card": t_dev, "s_cpu": t_cpu,
+           **{k: res.extras[k] for k in ("faults", "churn_rows") if k in res.extras}}
+    log("faults", json.dumps(row))
+    return res, row
+
+
+def fault_checks(device, d, k, total) -> list[dict]:
+    """Every fault, schedule and churn check of the phase at rcv1 width."""
+    alpha = EXPERIMENTS["ridge_rcv1"].alpha
+    ridge = paper_problem("ridge", d, k)
+    rows = []
+
+    def check(name, method, comm, steps, problem=ridge, **kw):
+        if method == "dsba":
+            kw.setdefault("alpha", alpha)
+        return fault_check(name, problem, method, comm, device, steps, total, **kw)
+
+    link = FaultPlan(link=LinkFault(p=0.1, seed=7))
+    strag = FaultPlan(straggler=StragglerSpec(p=0.2, max_staleness=2, seed=3))
+    both = FaultPlan(link=LinkFault(p=0.1, seed=7),
+                     straggler=StragglerSpec(p=0.2, max_staleness=2, seed=3))
+    # p = 0 is bit-equal to a plan-free run, with the same launches
+    for comm in ("dense", "sparse"):
+        plain, row = check(f"p0 {comm}", "dsba", comm, 50, record_every=25)
+        zero, _ = check(f"p0 {comm}", "dsba", comm, 50, record_every=25,
+                        comm_options={"fault_plan": FaultPlan(link=LinkFault(p=0.0))})
+        same = (np.array_equal(plain.z, zero.z) and np.array_equal(plain.consensus, zero.consensus)
+                and np.array_equal(plain.doubles_received, zero.doubles_received))
+        if not same or zero.extras["faults"]["drop_rate"] != 0.0:
+            raise AssertionError(f"p0 {comm}: not bit-equal to the plan-free run")
+        rows.append(row)
+    for name, method, plan, kw in (
+        ("link dsba", "dsba", link, {}), ("link dsa", "dsa", link, {}),
+        ("straggler dsba", "dsba", strag, {}), ("link+straggler dsba", "dsba", both, {}),
+        ("link mudag", "mudag", link, FAULTS_HP["mudag"]),
+    ):
+        rows.append(check(name, method, "dense", 60, record_every=30,
+                          comm_options={"fault_plan": plan}, **kw)[1])
+    rows.append(check("link sparse", "dsba", "sparse", 60, record_every=10,
+                      comm_options={"fault_plan": link})[1])
+    schedule, joined = faults_graphs()
+    sched = dataclasses.replace(ridge, schedule=schedule)
+    for comm in ("dense", "sparse"):
+        rows.append(check(f"schedule {comm}", "dsba", comm, 180, problem=sched,
+                          record_every=5 if comm == "sparse" else 60)[1])
+    # kill the degree-6 hub at 60; at 120 one node joins, seeded from node 0
+    churn = FaultPlan(churn=ChurnPlan((
+        ChurnEvent(at=60, kind="kill", nodes=(6,)),
+        ChurnEvent(at=120, kind="join", n_new=1, seed_from=0, graph=joined))))
+    auc = paper_problem("auc", d, k)
+    for name, method, comm, problem, kw in (
+        ("churn dense", "dsba", "dense", ridge, {}),
+        ("churn sparse", "dsba", "sparse", ridge, {}),
+        ("churn mudag", "mudag", "dense", ridge, FAULTS_HP["mudag"]),
+        ("churn dsgda", "dsgda", "dense", auc, {}),
+    ):
+        rows.append(check(name, method, comm, 180, problem=problem, record_every=5,
+                          comm_options={"fault_plan": churn}, **kw)[1])
+    return rows
+
+
+def tree_bytes(path) -> int:
+    """Bytes of the files under `path`."""
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def resume_check(device, d, k, comm, steps, every, stop, total) -> dict:
+    """``solve(checkpoint=)`` stopped at `stop`, then ``solve(resume=)`` to
+    `steps`, bit-equal to the uninterrupted card run in z, dist2/consensus
+    and the counts; the bytes and seconds of one save and one restore."""
+    problem = paper_problem("ridge", d, k)
+    kw = dict(record_every=50, seed=3, alpha=EXPERIMENTS["ridge_rcv1"].alpha)
+    full = counted_solve(problem, "dsba", comm, device, steps, total, **kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = Path(tmp) / "ck"
+        t0 = time.perf_counter()
+        counted_solve(problem, "dsba", comm, device, stop, total,
+                      checkpoint=CheckpointSpec(ck, every=every), **kw)
+        t_first = time.perf_counter() - t0
+        if committed_steps(ck) != list(range(every, stop + 1, every)):
+            raise AssertionError(f"{comm} checkpoints {committed_steps(ck)}")
+        reset_launches()
+        t0 = time.perf_counter()
+        res = solve(problem, "dsba", comm, steps=steps, device=device, resume=str(ck), **kw)
+        t_resume = time.perf_counter() - t0
+        got = launches()
+        want = expected_launches(steps - stop, comm) if device.type == "cuda" else {}
+        if got != {**dict.fromkeys(got, 0), **want}:
+            raise AssertionError(f"resume {comm}: launches {got} != {want}")
+        for name, c in got.items():
+            total[name] = total.get(name, 0) + c
+        for what in ("z", "dist2", "consensus", "iters", "doubles_received", "ints_received"):
+            if not np.array_equal(getattr(full, what), getattr(res, what)):
+                raise AssertionError(f"resume {comm}: {what} is not bit-equal")
+        nbytes = tree_bytes(ck / f"step_{stop}")
+        t0 = time.perf_counter()
+        step_r, meta, leaves = load_checkpoint(ck)
+        t_read = time.perf_counter() - t0
+        dev_tree = {p: torch.as_tensor(a, device=device) for p, a in leaves.items()}
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        CheckpointManager(Path(tmp) / "again").save(step_r, dev_tree, metadata=meta, async_=False)
+        t_save = time.perf_counter() - t0
+    out = {"comm": comm, "steps": steps, "every": every, "stopped_at": stop, "bit_equal": True,
+           "checkpoint_bytes": nbytes, "save_s": t_save, "restore_read_s": t_read,
+           "s_checkpointed_run": t_first, "s_resumed_run": t_resume,
+           "resume_launches": {k: c for k, c in got.items() if c}}
+    log("faults", json.dumps(out))
+    return out
+
+
+def faults_curve(device) -> dict:
+    """benchmarks/bench_faults.py's curve (ring of 8, lam 1e-2, 300 steps,
+    record_every=1, seed 1, LinkFault(p, seed=7)) on the card and the CPU:
+    the p = 0 counts equal ``FAULTS_COUNTS``, the last-quarter median
+    plateaus for p > 0 agree within PLATEAU_RTOL."""
+    cpu = torch.device("cpu")
+    problem = make_problem("ridge", make_regression(8, 12, 6, k=3, seed=0),
+                           mixing.ring_graph(8), lam=1e-2)
+    problem.solve_star(device="cpu")
+    out = {}
+    for method, hp in FAULTS_HP.items():
+        for p in (0.0, *FAULTS_DROPS):
+            opts = {"fault_plan": FaultPlan(link=LinkFault(p=p, seed=7))} if p else None
+            got = []
+            for dev in (device, cpu):
+                res = solve(problem, method, steps=FAULTS_STEPS, record_every=1, seed=1,
+                            comm_options=opts, device=dev, **hp)
+                hit = np.flatnonzero(res.dist2 <= FAULTS_TOL)
+                got.append((int(hit[0]) + 1 if hit.size else None,
+                            float(np.median(res.dist2[-(FAULTS_STEPS // 4):]))))
+            (c_dev, pl_dev), (c_cpu, pl_cpu) = got
+            if p == 0.0 and not c_dev == c_cpu == FAULTS_COUNTS[method]:
+                raise AssertionError(f"faults curve {method}: card {c_dev}, CPU {c_cpu}, "
+                                     f"reference {FAULTS_COUNTS[method]}")
+            if p and abs(pl_dev - pl_cpu) > PLATEAU_RTOL * abs(pl_cpu):
+                raise AssertionError(f"faults curve {method} p={p}: plateau {pl_dev} vs {pl_cpu}")
+            out[f"{method} p={p:g}"] = {"iters_to_1e-6": c_dev, "plateau": pl_dev,
+                                        "plateau_cpu": pl_cpu}
+    log("faults", "bench_faults curve: " + json.dumps(out))
+    return out
+
+
+def fault_profiles(device, d, k, steps=30) -> list[dict]:
+    """``_profile_row`` of the dense dsba step plain, with the link mask and
+    with stragglers (the step alone: its comm, masks and state built
+    before), and of the relay solve with and without a sent_mask (setup
+    included), at rcv1 width."""
+    from repro_torch.convert import dataset_to_torch
+    from repro_torch.core.solvers import _advance, _dense_comm
+
+    problem = paper_problem("ridge", d, k)
+    spec = get_solver("dsba")
+    hp = {"alpha": EXPERIMENTS["ridge_rcv1"].alpha}
+    data = dataset_to_torch(problem.data, device)
+    z0 = torch.zeros((10, problem.dim), dtype=torch.float64, device=device)
+    i_t = torch.as_tensor(np.random.default_rng(0).integers(0, 100, (steps, 10)), device=device)
+    link = link_delivered_mask(LinkFault(p=0.1, seed=7), problem.graph, steps)
+    strag = straggler_delivered_mask(StragglerSpec(p=0.2, max_staleness=2, seed=3), 10, steps)
+    state0 = spec.init(problem, hp, data, z0)
+    rows = []
+    for name, lm, sm in (("plain", None, None), ("link mask", link, None),
+                         ("stragglers", None, strag)):
+        comm = _dense_comm(problem.graph, device, lm, sm)
+        step = spec.step(problem, hp, data, comm)
+        rows.append(_profile_row(
+            f"dense dsba ridge, {name}",
+            lambda step=step, comm=comm: _advance(state0, step, comm, i_t, 0, steps), steps))
+    plan = {"fault_plan": FaultPlan(link=LinkFault(p=0.1, seed=7))}
+    for name, opts in (("plain", None), ("sent_mask", plan)):
+        rows.append(_profile_row(
+            f"relay dsba ridge, {name} (whole solve incl. setup)",
+            lambda opts=opts: solve(problem, "dsba", "sparse", steps=steps, device=device,
+                                    comm_options=opts, **hp),
+            steps))
+    return rows
+
+
+def faults_run(device) -> dict:
+    """``chip_smoke.py --faults`` (a fresh process): faults, schedules, churn
+    and checkpoint/resume through solve() at the paper's rcv1 Section-7
+    setup against the CPU, bench_faults' curve, and the profiles. Its
+    launches join the kernels line."""
+    t_all = time.perf_counter()
+    log("faults", subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    log("faults", f"CPU-side cuts (steps): {json.dumps(FAULTS_CPU_STEPS)}")
+    rcv1 = DATASET_PRESETS["rcv1"]
+    total: dict[str, int] = {}
+    out = {}
+    for part, fn in (
+        ("checks", lambda: fault_checks(device, rcv1["d"], rcv1["k"], total)),
+        ("resume", lambda: [resume_check(device, rcv1["d"], rcv1["k"], "dense", 200, 50, 100, total),
+                            resume_check(device, rcv1["d"], rcv1["k"], "sparse", 100, 50, 50, total)]),
+        ("curve", lambda: faults_curve(device)),
+        ("profiles", lambda: fault_profiles(device, rcv1["d"], rcv1["k"])),
+    ):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        log("faults", f"{part} done in {time.perf_counter() - t0:.1f} s")
+    out["launches"] = total
+    out["seconds"] = time.perf_counter() - t_all
+    log("faults", f"launches {total}; all done in {out['seconds']:.1f} s")
+    return out
+
+
 def ptxas_report(outputs) -> dict:
     """{kernel<dtype,template ints>: registers, spills, static smem} from
     the nvcc -Xptxas -v output of each library (``_build.build_all``)."""
@@ -3378,6 +3680,9 @@ def main() -> int:
     t0 = time.perf_counter()
     profile_subprocess("--solvers")  # launches no kernel of the line below
     log("solvers", f"done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    faults = profile_subprocess("--faults")
+    log("faults", f"done in {time.perf_counter() - t0:.1f} s")
 
     total["decode_attention"] = serve_launches["decode_attention"]
     # flash_attention runs on three main paths: the score phase, the train
@@ -3393,8 +3698,9 @@ def main() -> int:
     total["ssd_chunk"] = (ssm_serve_launches["ssd_chunk"] + ssm_score_launches["ssd_chunk"]
                           + ssm_train_launches["ssd_chunk"])
     total["ssd_chunk_bwd"] = ssm_train_launches["ssd_chunk_bwd"]
-    # and the hybrid's serve, score, long_500k and train paths (--hybrid)
-    for name, n in hybrid["launches"].items():
+    # and the hybrid's serve, score, long_500k and train paths (--hybrid),
+    # and the fault, schedule, churn and resume paths (--faults)
+    for name, n in (*hybrid["launches"].items(), *faults["launches"].items()):
         total[name] += n
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -3413,7 +3719,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     PROFILES = {"--ssm-profile": ssm_profile, "--attention-profile": attention_profile,
-                "--hybrid": hybrid_run, "--solvers": solvers_run,
+                "--hybrid": hybrid_run, "--solvers": solvers_run, "--faults": faults_run,
                 "--topk-profile": topk_profile,
                 "--gossip-profile": lambda dev: gossip_phase(dev, topk_rows=True)[0],
                 "--decode-profile": lambda dev, *a: decode_profile(dev, *map(json.loads, a))}

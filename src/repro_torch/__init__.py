@@ -4,7 +4,7 @@ Module names mirror ``repro``'s so each counterpart is easy to find:
 ``data.{synthetic, sharded_loader}``, ``configs``, ``core.{mixing,
 operators, reference, comm, dsba, sparse_comm, solvers, gossip}``,
 ``kernels``, ``models``, ``serve``, ``optim.adam``, ``train.step``,
-``ckpt``, ``ft.elastic``, ``launch.{serve, train}`` and
+``ckpt``, ``ft.{elastic, faults}``, ``launch.{serve, train}`` and
 ``examples.train_lm_gossip``; ``convert`` carries states, datasets, model
 weights and gossip states between the two packages. Importing the package has no side effects: no device is
 probed and nothing is compiled until a kernel is first launched.

@@ -6,11 +6,15 @@
       manifest.json             leaf paths + shapes/dtypes + metadata
       arr_<i>.npy               one file per leaf
 
-A tree is a nested dict whose leaves are tensors, numpy arrays or numbers.
-Leaves are numbered and named as JAX's ``tree_flatten_with_path`` numbers
-and names a dict tree: keys in sorted order at every level, and a leaf's
-path is its keys as ``['key']`` joined by ``/`` (``['params']/['embed']``).
-So a checkpoint written by either package is read by the other.
+A tree nests dicts, dataclasses (a solver's ``DSBAState``), tuples and
+lists; its leaves are tensors, numpy arrays or numbers, and ``None`` holds
+no leaf. Leaves are numbered and named as JAX's ``tree_flatten_with_path``
+numbers and names them: dict keys in sorted order (``['key']``), dataclass
+fields in declaration order (``.name``), sequence items by index
+(``[0]``), a leaf's path being its keys joined by ``/``
+(``['params']/['embed']``, ``['state']/.z``, ``['carry']/[0]/.step``). So
+a checkpoint written by either package is read by the other, a solver's
+as well as a training run's.
 
 Fault-tolerance contract, as in the JAX package:
   * a crash mid-write leaves only a .tmp dir -> ignored on restore
@@ -20,11 +24,12 @@ Fault-tolerance contract, as in the JAX package:
     in place, so the copy must be taken before the next step)
   * keep_last prunes old steps after commit
 
-``CheckpointSpec`` and ``solve(checkpoint=, resume=)`` are not ported
-(ROADMAP Queue 1 item 9): constructing a ``CheckpointSpec`` raises.
+``CheckpointSpec`` is how ``core.solvers.solve(checkpoint=, resume=)``
+snapshots a run.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import shutil
@@ -34,38 +39,76 @@ import numpy as np
 import torch
 
 
+@dataclasses.dataclass(frozen=True)
 class CheckpointSpec:
-    """How ``solve(..., checkpoint=...)`` snapshots a run: not ported."""
+    """How ``solve(..., checkpoint=...)`` snapshots a run.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "CheckpointSpec (solve(checkpoint=, resume=)) is not ported "
-            "(ROADMAP Queue 1 item 9)"
-        )
+    ``directory``: where the ``step_<N>`` checkpoint dirs go.
+    ``every``: checkpoint period in solver ITERATIONS; on the dense
+    backend it must be a multiple of ``record_every`` (snapshots happen at
+    record boundaries).
+    ``keep_last``: how many committed checkpoints to retain.
+
+    ``solve(..., resume=directory)`` restores the newest committed
+    checkpoint and continues BIT-EQUAL to an uninterrupted run: solver
+    state, recorder contents and the sample-stream position all resume
+    exactly (``draw_indices`` fills row-major, so the per-node index
+    streams are prefix-stable in ``steps``).
+    """
+
+    directory: str | pathlib.Path
+    every: int
+    keep_last: int = 3
+
+    def __post_init__(self):
+        """Validate the checkpoint period."""
+        if int(self.every) < 1:
+            raise ValueError(f"checkpoint every={self.every} must be >= 1")
+
+
+def _children(tree):
+    """[(path key, child)] of a container, in JAX's flatten order; None
+    for a leaf."""
+    if isinstance(tree, dict):
+        return [(f"[{key!r}]", tree[key]) for key in sorted(tree)]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [(f".{f.name}", getattr(tree, f.name)) for f in dataclasses.fields(tree)]
+    if isinstance(tree, (tuple, list)):
+        return [(f"[{i}]", item) for i, item in enumerate(tree)]
+    return None
 
 
 def _flatten_with_paths(tree, prefix=""):
-    """(paths, leaves) of a nested dict, keys sorted at every level."""
-    if isinstance(tree, dict):
-        paths, leaves = [], []
-        for key in sorted(tree):
-            p, leaf = _flatten_with_paths(tree[key], f"{prefix}/[{key!r}]" if prefix
-                                          else f"[{key!r}]")
-            paths += p
-            leaves += leaf
-        return paths, leaves
-    return [prefix], [tree]
+    """(paths, leaves) of a tree, in JAX's order and with JAX's path names."""
+    if tree is None:
+        return [], []
+    kids = _children(tree)
+    if kids is None:
+        return [prefix], [tree]
+    paths, leaves = [], []
+    for key, child in kids:
+        p, leaf = _flatten_with_paths(child, f"{prefix}/{key}" if prefix else key)
+        paths += p
+        leaves += leaf
+    return paths, leaves
 
 
 def _unflatten(tree, leaves):
-    """A tree shaped like `tree` (its key order too) with the leaves, given
-    in flatten order, put in."""
+    """A tree shaped like `tree` (a dict's key order too) with the leaves,
+    given in flatten order, put in."""
     it = iter(leaves)
 
     def build(t):
+        if t is None:
+            return None
         if isinstance(t, dict):
             built = {key: build(t[key]) for key in sorted(t)}
             return {key: built[key] for key in t}
+        if dataclasses.is_dataclass(t) and not isinstance(t, type):
+            return dataclasses.replace(
+                t, **{f.name: build(getattr(t, f.name)) for f in dataclasses.fields(t)})
+        if isinstance(t, (tuple, list)):
+            return type(t)(build(item) for item in t)
         return next(it)
 
     return build(tree)
@@ -127,9 +170,12 @@ def committed_steps(directory) -> list[int]:
 
 
 def _like(arr: np.ndarray, like):
-    """`arr` as `like`'s kind: a tensor with its dtype and device, else numpy."""
+    """`arr` as `like`'s kind: a tensor with its dtype and device, a host
+    int or float (a solver's step counter), else numpy."""
     if isinstance(like, torch.Tensor):
         return torch.as_tensor(arr).to(device=like.device, dtype=like.dtype)
+    if isinstance(like, (int, float)) and not isinstance(like, bool):
+        return type(like)(arr.item())
     return np.asarray(arr, dtype=getattr(like, "dtype", None))
 
 

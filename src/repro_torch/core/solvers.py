@@ -19,10 +19,23 @@ PyTorch runs eagerly, so there is no compiled-runner cache: ``solve`` loops
 over the iterations in Python on the chosen device (CUDA unless the caller
 passes ``device="cpu"``). A solver's step counter is a host integer in its
 state, so the ``t == 0`` and communication-round branches are host
-branches and no step waits on the device. Not ported yet, and raising
-``NotImplementedError`` rather than taking another path: ``comm="sharded"``
-(ROADMAP Queue 1 item 10), graph schedules, fault plans and
-checkpoint/resume (item 9) and ``solve_many`` (item 8).
+branches and no step waits on the device.
+
+Dynamic networks and faults run through the same ``solve()``, as in the
+JAX package: a ``Problem.schedule`` of (start, Graph-or-W) segments
+(time-varying W), and ``comm_options={"fault_plan": FaultPlan(...)}``
+composing node churn (kill/join, with each method's ``reanchor`` rule),
+link faults and stragglers (``core.comm.FaultyDenseComm``; on the relay a
+link fault suppresses a broadcast). A run splits into static phases; the
+state carries across them as-is for a W switch and through
+``ft.elastic.ElasticGossip`` for churn. A plan whose masks are all True
+routes through the plain step, so p = 0 is bit-equal to a plan-free run.
+``solve(checkpoint=CheckpointSpec(...))`` snapshots the state and the
+recorder, and ``solve(resume=directory)`` continues bit-equal to an
+uninterrupted run (dense and sparse), in the JAX package's checkpoint
+layout. Not ported yet, and raising ``NotImplementedError`` rather than
+taking another path: ``comm="sharded"`` with its fault and schedule
+branches (ROADMAP Queue 1 item 10) and ``solve_many`` (item 8).
 """
 from __future__ import annotations
 
@@ -33,27 +46,47 @@ from typing import Any, Callable, Mapping
 import numpy as np
 import torch
 
+from repro_torch.ckpt.checkpoint import (  # noqa: F401  (re-exported)
+    CheckpointManager,
+    CheckpointSpec,
+    load_checkpoint,
+    restore_checkpoint,
+)
 from repro_torch.convert import dataset_to_torch
 from repro_torch.core import reference
-from repro_torch.core.comm import DenseComm
+from repro_torch.core.comm import DenseComm, FaultyDenseComm
 from repro_torch.core.dsba import DSBAConfig, draw_indices, init_state, make_step_fn
-from repro_torch.core.mixing import Graph, laplacian_mixing, w_tilde
+from repro_torch.core.mixing import Graph, laplacian_mixing, spectral_gap, w_tilde
 from repro_torch.core.operators import (
     FAMILIES, MINIMIZATION_FAMILIES, OperatorSpec, logistic_coeff_prime,
 )
 from repro_torch.core.sparse_comm import dense_doubles_per_iter, run_sparse
 from repro_torch.device import resolve_device
+from repro_torch.ft.faults import (  # noqa: F401  (re-exported)
+    ChurnEvent,
+    ChurnPlan,
+    FaultPlan,
+    LinkFault,
+    StragglerSpec,
+    as_fault_plan,
+    delivered_in_messages,
+    fault_message_totals,
+    link_delivered_mask,
+    source_sent_mask,
+    straggler_delivered_mask,
+)
 
 COMM_BACKENDS = ("dense", "sparse", "sharded")
 _NOT_PORTED = {
     "sharded": "comm='sharded' is not ported yet (ROADMAP Queue 1 item 10)",
-    "schedule": "graph schedules are not ported yet (ROADMAP Queue 1 item 9)",
-    "fault_plan": "fault plans are not ported yet (ROADMAP Queue 1 item 9)",
-    "checkpoint": "checkpoint/resume is not ported yet (ROADMAP Queue 1 item 9)",
-    "engine": "only the vectorized relay engine is ported (ROADMAP Queue 1 item 6b)",
     "solve_many": "solve_many is not ported yet (ROADMAP Queue 1 item 8)",
 }
-_COMM_OPTION_KEYS = {"dense": (), "sparse": ("verify", "engine")}
+#: per-backend comm_options schema enforced by ``_validate_options``
+_COMM_OPTION_KEYS = {
+    "dense": ("fault_plan",),
+    "sparse": ("verify", "engine", "fault_plan"),
+    "sharded": ("mesh", "fault_plan"),
+}
 
 
 def graph_from_mixing(w: np.ndarray, atol: float = 1e-12) -> Graph:
@@ -78,6 +111,15 @@ class Problem:
     matrix ``w`` (default: the paper's Laplacian weights), the l2
     regularizer ``lam`` (scalar, or (N,) per node on ``comm="dense"``) and
     an optional cached centralized root ``z_star``.
+
+    ``schedule`` makes the network time-varying: a sequence of
+    ``(start_iter, Graph-or-W)`` segments, normalized to ``(start, Graph,
+    W)``. ``solve()`` runs each segment on its own W, carrying the solver
+    state across boundaries, and records each segment's spectral gap in
+    ``SolveResult.extras["schedule"]``. A segment given as a ``Graph``
+    gets the paper's Laplacian mixing; one given as a W matrix recovers
+    its graph from the support. If no segment starts at 0, the problem's
+    own (graph, w) opens the schedule.
     """
 
     spec: OperatorSpec
@@ -90,8 +132,6 @@ class Problem:
 
     def __post_init__(self):
         """Default ``w`` to Laplacian mixing and sanity-check shapes."""
-        if self.schedule is not None:
-            raise NotImplementedError(_NOT_PORTED["schedule"])
         if self.w is None:
             self.w = laplacian_mixing(self.graph)
         self.w = np.asarray(self.w)
@@ -110,6 +150,10 @@ class Problem:
                     f"per-node lam must be ({self.graph.n},), "
                     f"got {self.lam.shape}"
                 )
+        if self.schedule is not None:
+            self.schedule = _normalize_schedule(
+                self.schedule, self.graph, self.w, self.data.n_nodes
+            )
 
     @property
     def dim(self) -> int:
@@ -129,6 +173,41 @@ class Problem:
                 self.spec, self.data, self.lam, **kwargs
             )
         return self.z_star
+
+
+def _normalize_schedule(schedule, graph0: Graph, w0, n: int):
+    """Normalize ``(start, Graph-or-W)`` entries to ``(start, Graph, W)``.
+
+    Starts must be unique non-negative ints; segments are sorted and, when
+    none starts at 0, the problem's own (graph, w) opens the schedule.
+    """
+    segs = []
+    for start, g in schedule:
+        start = int(start)
+        if start < 0:
+            raise ValueError(f"schedule segment start {start} < 0")
+        if isinstance(g, Graph):
+            seg_graph, seg_w = g, laplacian_mixing(g)
+        else:
+            seg_w = np.asarray(g)
+            if seg_w.shape != (n, n):
+                raise ValueError(
+                    f"schedule segment W {seg_w.shape} != ({n}, {n})"
+                )
+            seg_graph = graph_from_mixing(seg_w)
+        if seg_graph.n != n:
+            raise ValueError(
+                f"schedule segment graph has {seg_graph.n} nodes, "
+                f"problem has {n}"
+            )
+        segs.append((start, seg_graph, seg_w))
+    segs.sort(key=lambda s: s[0])
+    starts = [s[0] for s in segs]
+    if len(set(starts)) != len(starts):
+        raise ValueError(f"duplicate schedule segment starts {starts}")
+    if not segs or segs[0][0] != 0:
+        segs.insert(0, (0, graph0, np.asarray(w0)))
+    return tuple(segs)
 
 
 def make_problem(
@@ -185,7 +264,12 @@ class SolverSpec:
       an iteration (Mudag spends 2K, sliding 2 every ``comm_period``).
     - ``supports_schedule`` / ``supports_churn`` / ``supports_link_faults``
       / ``supports_stragglers``: the reference's dynamic-network and
-      fault capabilities (ROADMAP Queue 1 item 9 runs them).
+      fault capabilities, enforced by ``_check_capability``.
+    - ``reanchor``: optional ``(state) -> state`` applied after a churn
+      remap. Difference-form methods (DSBA/DSA) and the trackers (Mudag,
+      sliding, DSGDA) re-run their t = 0 anchor on the new membership, or
+      the run converges to the old system's root. A W-only switch does
+      not reanchor.
     - ``supports_per_node_lam``: the step takes ``lam`` as an (N,) array
       (personalized regularization), dense backend only.
     """
@@ -202,6 +286,7 @@ class SolverSpec:
     supports_schedule: bool = False
     supports_churn: bool = False
     supports_per_node_lam: bool = False
+    reanchor: Callable | None = None
     supports_link_faults: bool = True
     supports_stragglers: bool = True
 
@@ -383,7 +468,9 @@ class SolveResult:
     empty without a cached ``z_star``; ``doubles_received``/
     ``ints_received`` are cumulative per-node message counts. ``state`` is
     the final solver state (``None`` for sparse runs); ``extras`` carries
-    the sparse backend's ``z_trace`` and ``recon_max_err``.
+    the sparse backend's ``z_trace`` and ``recon_max_err``, a dynamic
+    run's per-phase ``schedule`` (and ``churn_rows``, the accounting rows
+    when membership changed) and a fault plan's ``faults`` record.
     """
 
     method: str
@@ -430,14 +517,21 @@ class _Recorder:
         self.consensus: list[float] = []
         self.zs: list[np.ndarray] | None = [] if keep_snapshots else None
 
-    def push(self, it: int, z) -> None:
-        """Record consensus / distance-to-z* of (N, D) iterates at step ``it``."""
+    def push(self, it: int, z, z_star=None) -> None:
+        """Record consensus / distance-to-z* of (N, D) iterates at step ``it``.
+
+        ``z_star`` overrides the recorder's root for this push: churn
+        phases measure dist2 against the current membership's own root
+        (only when the recorder has a root at all, so ``dist2`` stays
+        rectangular).
+        """
         z = np.asarray(z)
         zbar = z.mean(-2, keepdims=True)
         self.iters.append(it)
         self.consensus.append(np.mean(np.sum((z - zbar) ** 2, -1), -1))
         if self.z_star is not None:
-            self.dist2.append(np.mean(np.sum((z - self.z_star) ** 2, -1), -1))
+            ref = self.z_star if z_star is None else np.asarray(z_star)
+            self.dist2.append(np.mean(np.sum((z - ref) ** 2, -1), -1))
         if self.zs is not None:
             self.zs.append(z)
 
@@ -453,23 +547,332 @@ class _Recorder:
 
 
 # ---------------------------------------------------------------------------
+# Dynamic networks: phase resolution for schedules and churn plans
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _Phase:
+    """One static stretch of a dynamic run: fixed graph, W and membership.
+
+    ``entry`` says how the phase was entered: None (run start), "switch"
+    (new W, same membership: the state carries as-is) or "kill"/"join"
+    (elastic remap). ``row_map`` maps this phase's nodes into the global
+    accounting rows (N0 original nodes + one row per joined node);
+    ``cols`` maps them into the columns of the (steps, N0) sample stream.
+    """
+
+    start: int
+    end: int
+    problem: Problem
+    entry: str | None
+    event: ChurnEvent | None
+    row_map: np.ndarray
+    cols: np.ndarray
+
+
+def _graph_fp(g: Graph | None):
+    """Value fingerprint of an optional graph (the churn-child cache key)."""
+    return None if g is None else (g.n, g.edges)
+
+
+def _w_fp(w) -> bytes | None:
+    """Value fingerprint of an optional mixing matrix."""
+    return None if w is None else np.ascontiguousarray(w).tobytes()
+
+
+def _churn_kill_child(problem: Problem, event: ChurnEvent, device):
+    """(survivor Problem, keep list) for a kill event; memoized on problem.
+
+    The child slices the parent's data arrays; a parent with a root gets
+    the survivor system's own root, solved on ``device``.
+    """
+    n = problem.graph.n
+    dead = sorted({int(x) for x in event.nodes})
+    for x in dead:
+        if not 0 <= x < n:
+            raise ValueError(
+                f"kill event names node {x} outside the current "
+                f"membership 0..{n - 1}"
+            )
+    if len(dead) >= n:
+        raise ValueError("kill event leaves no survivors")
+    keep = [i for i in range(n) if i not in set(dead)]
+    cache = problem.__dict__.setdefault("_churn_cache", {})
+    key = ("kill", tuple(dead), _graph_fp(event.graph), _w_fp(event.w))
+    if key not in cache:
+        g = event.graph
+        if g is None:
+            g = problem.graph.subgraph(keep)
+        if g.n != len(keep):
+            raise ValueError(
+                f"kill event graph has {g.n} nodes, {len(keep)} survive"
+            )
+        if not g.is_connected():
+            raise ValueError(
+                "survivor graph after kill is disconnected; pass "
+                "ChurnEvent(graph=...) with a connected replacement"
+            )
+        data = problem.data
+        ka = np.asarray(keep)
+        child_data = dataclasses.replace(
+            data, idx=data.idx[ka], val=data.val[ka], y=data.y[ka]
+        )
+        lam = problem.lam
+        if np.ndim(lam) > 0:
+            lam = np.asarray(lam)[ka]
+        child = Problem(
+            spec=problem.spec, data=child_data, graph=g, w=event.w, lam=lam
+        )
+        if problem.z_star is not None and np.ndim(lam) == 0:
+            child.solve_star(device=device)  # the survivor system's root
+        cache[key] = child
+    return cache[key], keep
+
+
+def _churn_join_child(problem: Problem, event: ChurnEvent, device) -> Problem:
+    """Grown Problem for a join event; newcomers replicate ``seed_from``'s
+    data shard (the seeding ``ElasticGossip.grow`` applies to the state).
+    Memoized like the kill children."""
+    n = problem.graph.n
+    sf = int(event.seed_from)
+    if not 0 <= sf < n:
+        raise ValueError(f"join seed_from {sf} outside membership 0..{n - 1}")
+    cache = problem.__dict__.setdefault("_churn_cache", {})
+    key = ("join", int(event.n_new), sf, _graph_fp(event.graph), _w_fp(event.w))
+    if key not in cache:
+        g = event.graph  # required (validated by ChurnEvent)
+        if g.n != n + event.n_new:
+            raise ValueError(
+                f"join event graph has {g.n} nodes, membership grows "
+                f"{n} -> {n + event.n_new}"
+            )
+        if not g.is_connected():
+            raise ValueError("graph after join is disconnected")
+        data = problem.data
+
+        def rep(a):
+            seed = np.broadcast_to(a[sf][None], (event.n_new,) + a.shape[1:])
+            return np.concatenate([a, seed], axis=0)
+
+        child_data = dataclasses.replace(
+            data, idx=rep(data.idx), val=rep(data.val), y=rep(data.y)
+        )
+        lam = problem.lam
+        if np.ndim(lam) > 0:
+            lam = np.concatenate(
+                [np.asarray(lam), np.full(event.n_new, np.asarray(lam)[sf])]
+            )
+        child = Problem(
+            spec=problem.spec, data=child_data, graph=g, w=event.w, lam=lam
+        )
+        if problem.z_star is not None and np.ndim(lam) == 0:
+            child.solve_star(device=device)  # duplicated shards shift the root
+        cache[key] = child
+    return cache[key]
+
+
+def _resolve_phases(problem: Problem, steps: int, churn_plan, device) -> list[_Phase]:
+    """Split [0, steps) into static phases from a schedule or a churn plan.
+
+    A single static phase is routed through the ordinary static path.
+    """
+    n0 = problem.graph.n
+    rows = np.arange(n0)
+    if churn_plan is None:
+        segs = [s for s in problem.schedule if s[0] < steps]
+        phases = []
+        for k, (start, g, w) in enumerate(segs):
+            end = segs[k + 1][0] if k + 1 < len(segs) else steps
+            if g is problem.graph and w is problem.w:
+                child = problem
+            else:
+                child = dataclasses.replace(problem, graph=g, w=w, schedule=None)
+            phases.append(
+                _Phase(start, end, child, None if k == 0 else "switch",
+                       None, rows, rows)
+            )
+        return phases
+
+    for e in churn_plan.events:
+        if not 0 < e.at < steps:
+            raise ValueError(
+                f"churn event at iteration {e.at} outside (0, {steps})"
+            )
+    phases = []
+    cur, cols, next_row = problem, np.arange(n0), n0
+    start, entry, ev = 0, None, None
+    for e in churn_plan.events:
+        phases.append(_Phase(start, int(e.at), cur, entry, ev, rows, cols))
+        if e.kind == "kill":
+            cur, keep = _churn_kill_child(cur, e, device)
+            keep = np.asarray(keep)
+            rows, cols = rows[keep], cols[keep]
+        else:
+            cur = _churn_join_child(cur, e, device)
+            rows = np.concatenate([rows, np.arange(next_row, next_row + e.n_new)])
+            # newcomers replay seed_from's sample stream, consistent with
+            # their replicated data shard
+            cols = np.concatenate([cols, np.full(e.n_new, cols[int(e.seed_from)])])
+            next_row += e.n_new
+        start, entry, ev = int(e.at), e.kind, e
+    phases.append(_Phase(start, steps, cur, entry, ev, rows, cols))
+    return phases
+
+
+def _schedule_extras(phases: list[_Phase]) -> list[dict]:
+    """The per-phase record for ``SolveResult.extras["schedule"]``."""
+    return [
+        {
+            "start": ph.start,
+            "end": ph.end,
+            "n": ph.problem.graph.n,
+            "spectral_gap": spectral_gap(ph.problem.w),
+            "entry": ph.entry,
+        }
+        for ph in phases
+    ]
+
+
+def _elastic_remap(state, phase: _Phase, n_prev: int, spec: SolverSpec):
+    """Apply a phase's entry transform to the carried solver state.
+
+    Kill/join entries remap leading-N leaves through ``ElasticGossip`` and
+    then apply the solver's ``reanchor`` hook; a "switch" entry carries the
+    state untouched (the mean-drift invariant only needs a doubly
+    stochastic W, which every segment has).
+    """
+    if phase.entry not in ("kill", "join"):
+        return state
+    # imported here: ft.elastic pulls in the training stack via core.gossip
+    from repro_torch.core.gossip import GossipConfig
+    from repro_torch.ft.elastic import ElasticGossip
+
+    eg = ElasticGossip(GossipConfig(n_pods=n_prev))
+    if phase.entry == "kill":
+        state, _ = eg.shrink(state, sorted({int(x) for x in phase.event.nodes}))
+    else:
+        state, _ = eg.grow(state, int(phase.event.n_new), int(phase.event.seed_from))
+    if spec.reanchor is not None:
+        state = spec.reanchor(state)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# Fault masks, delivered-only accounting, checkpoint metadata
+# ---------------------------------------------------------------------------
+
+
+def _static_fault_masks(plan, graph, steps: int, start: int = 0):
+    """A plan's (link_mask, strag_mask) for one static phase, each None
+    when all-delivered: a mask-free phase runs the plain step, which makes
+    a p = 0 plan bit-equal to a plan-free run."""
+    link_mask = strag_mask = None
+    if plan is not None and plan.link is not None:
+        m = link_delivered_mask(plan.link, graph, steps, start=start)
+        if not bool(m.all()):
+            link_mask = m
+    if plan is not None and plan.straggler is not None:
+        m = straggler_delivered_mask(plan.straggler, graph.n, steps, start=start)
+        if not bool(m.all()):
+            strag_mask = m
+    return link_mask, strag_mask
+
+
+def _dense_comm(graph: Graph, device, link_mask, strag_mask):
+    """The phase's comm backend: ``FaultyDenseComm`` with its masks on the
+    device (one copy each) when a mask is set, else ``DenseComm``."""
+    if link_mask is None and strag_mask is None:
+        return DenseComm(graph, device)
+
+    def up(m):
+        return None if m is None else torch.as_tensor(m, device=device)
+
+    return FaultyDenseComm(graph, device, link=up(link_mask), deliv=up(strag_mask))
+
+
+def _advance(state, step_fn, comm, idx_t, lo: int, hi: int):
+    """Steps ``lo..hi-1`` of a phase (``idx_t`` rows and mask rows are the
+    phase's own)."""
+    faulty = isinstance(comm, FaultyDenseComm)
+    for t in range(lo, hi):
+        if faulty:
+            comm.begin_step(t)
+        state = step_fn(state, idx_t[t])
+    return state
+
+
+def _fault_accounting(spec, hp, problem, link_mask, strag_mask, steps, iters):
+    """Delivered-only doubles (R, N) plus the extras["faults"] record.
+
+    One (D,)-double message per DELIVERED directed edge per exchange
+    round; with all-True masks this is the standard ``rounds * degree * D``
+    dense model.
+    """
+    D = problem.dim
+    rr = _cumulative_rounds(spec, hp, np.arange(steps + 1))
+    rdiff = np.diff(rr)  # rounds run during iteration t
+    d_in = delivered_in_messages(problem.graph, link_mask, strag_mask, steps)
+    per_step = rdiff[:, None] * d_in * D  # (steps, N)
+    cumsum = np.cumsum(per_step, axis=0)
+    doubles = cumsum[np.asarray(iters) - 1]  # (R, N)
+    deg = np.asarray(problem.graph.degrees, dtype=np.int64)
+    injected = int(rr[steps] * deg.sum())
+    delivered = int((rdiff * d_in.sum(axis=1)).sum())
+    extras = {
+        "injected_messages": injected,
+        "delivered_messages": delivered,
+        "drop_rate": 0.0 if injected == 0 else 1.0 - delivered / injected,
+    }
+    return doubles, extras
+
+
+def _ckpt_meta(method: str, comm: str, record_every: int, rec) -> dict:
+    """The JSON metadata committed with each dense ``solve()`` checkpoint:
+    the recorder's floats ride in the manifest (``repr`` round-trips them
+    bit-exactly), so resume rebuilds the record history."""
+    return {
+        "method": method,
+        "comm": comm,
+        "record_every": int(record_every),
+        "rec_iters": [int(x) for x in rec.iters],
+        "rec_dist2": [float(x) for x in rec.dist2],
+        "rec_consensus": [float(x) for x in rec.consensus],
+    }
+
+
+def _check_resume_meta(resume, step_r, meta, steps, want: dict) -> None:
+    """The resume errors of the reference: nothing committed, another run's
+    checkpoint, or one beyond ``steps``."""
+    if step_r is None:
+        raise ValueError(f"no committed checkpoint to resume in {resume!r}")
+    for key, val in want.items():
+        if meta.get(key) != val:
+            raise ValueError(
+                f"checkpoint {key}={meta.get(key)!r} does not match the "
+                f"resuming run's {key}={val!r}"
+            )
+    if step_r > steps:
+        raise ValueError(
+            f"checkpoint at step {step_r} is beyond steps={steps}; "
+            "resume with steps >= the checkpointed iteration"
+        )
+
+
+# ---------------------------------------------------------------------------
 # solve()
 # ---------------------------------------------------------------------------
 
 
 def _validate_options(comm: str, comm_options: Mapping | None) -> dict:
-    """Reject unknown comm options and options of parts not ported yet."""
+    """The one comm_options gate: a mutable copy; unknown keys raise."""
     opts = dict(comm_options or {})
-    if "fault_plan" in opts:
-        raise NotImplementedError(_NOT_PORTED["fault_plan"])
-    unknown = sorted(set(opts) - set(_COMM_OPTION_KEYS[comm]))
+    allowed = _COMM_OPTION_KEYS[comm]
+    unknown = sorted(set(opts) - set(allowed))
     if unknown:
         raise ValueError(
-            f"unknown {comm} comm_options {unknown}; accepts "
-            f"{sorted(_COMM_OPTION_KEYS[comm])}"
+            f"unknown {comm} comm_options {unknown}; accepts {sorted(allowed)}"
         )
-    if opts.pop("engine", "vectorized") != "vectorized":
-        raise NotImplementedError(_NOT_PORTED["engine"])
     return opts
 
 
@@ -485,8 +888,8 @@ def solve(
     indices: np.ndarray | None = None,
     keep_snapshots: bool = False,
     comm_options: dict | None = None,
-    checkpoint=None,
-    resume=None,
+    checkpoint: CheckpointSpec | None = None,
+    resume: str | None = None,
     device=None,
     **hyperparams,
 ) -> SolveResult:
@@ -501,7 +904,18 @@ def solve(
         unless an explicit (>= steps, N) ``indices`` array is given (the
         JAX package draws the same stream from the same seed).
     z0: (N, D) numpy starting point, default zeros.
-    comm_options: ``{"verify": bool}`` for ``comm="sparse"``.
+    comm_options: ``verify`` and ``engine`` ("vectorized" or the
+        "reference" oracle) for ``comm="sparse"``; on every backend
+        ``fault_plan``, an ``ft.FaultPlan`` (or a bare ``ChurnPlan`` /
+        ``ChurnEvent``) composing churn, link faults and stragglers
+        (stragglers on the dense backend only); ``extras["faults"]``
+        reports injected-vs-delivered counts and the doubles accounting
+        charges delivered traffic only.
+    checkpoint: a ``CheckpointSpec``: snapshot the solver state and the
+        recorder every ``checkpoint.every`` iterations (dense: at record
+        boundaries).
+    resume: a checkpoint directory: restore the newest committed snapshot
+        and continue bit-equal to an uninterrupted run.
     device: CUDA unless the caller passes ``"cpu"``; without a card and
         without ``device`` this raises.
     **hyperparams: overrides of the solver's ``defaults``.
@@ -509,18 +923,86 @@ def solve(
     spec = get_solver(method)
     if comm not in COMM_BACKENDS:
         raise ValueError(f"unknown comm backend {comm!r}; one of {COMM_BACKENDS}")
+    # peek at fault_plan before the schema check, so an unsupported (method,
+    # comm) x fault-family combination surfaces as a CapabilityError
+    plan = as_fault_plan((comm_options or {}).get("fault_plan"))
+    churn_plan = plan.churn if plan is not None else None
+    want_link = plan is not None and plan.link is not None
+    want_strag = plan is not None and plan.straggler is not None
+    multi = problem.schedule is not None and len(problem.schedule) > 1
+    if problem.schedule is not None and plan is not None:
+        raise ValueError(
+            "a graph schedule and a fault_plan cannot be combined in one "
+            "run; encode the W changes as schedule segments instead"
+        )
     _check_capability(
-        spec, comm, problem.spec.kind, per_node_lam=np.ndim(problem.lam) > 0
+        spec, comm, problem.spec.kind,
+        schedule=multi,
+        churn=churn_plan is not None,
+        per_node_lam=np.ndim(problem.lam) > 0,
+        link_faults=want_link,
+        stragglers=want_strag,
     )
-    if comm == "sharded":
-        raise NotImplementedError(_NOT_PORTED["sharded"])
-    if checkpoint is not None or resume is not None:
-        raise NotImplementedError(_NOT_PORTED["checkpoint"])
     opts = _validate_options(comm, comm_options)
+    opts.pop("fault_plan", None)
+    if churn_plan is not None and keep_snapshots:
+        raise ValueError(
+            "keep_snapshots is unavailable with a fault_plan: snapshot "
+            "shapes change across churn events"
+        )
+    if churn_plan is not None:
+        # node ids are relabeled across membership segments, so explicit
+        # node/edge targets in the other families become ambiguous
+        if want_link and plan.link.edges is not None:
+            raise ValueError(
+                "scheduled link faults (edges=) cannot be combined with "
+                "node churn: node ids are relabeled across membership "
+                "changes; use a probabilistic LinkFault(p=...)"
+            )
+        if want_strag and plan.straggler.nodes is not None:
+            raise ValueError(
+                "a straggler node subset (nodes=) cannot be combined with "
+                "node churn: node ids are relabeled across membership "
+                "changes; use a global StragglerSpec(p=...)"
+            )
     if steps < 1:
         raise ValueError("steps must be >= 1")
     if record_every < 1:
         raise ValueError("record_every must be >= 1")
+    if checkpoint is not None and not isinstance(checkpoint, CheckpointSpec):
+        raise TypeError(
+            f"checkpoint must be a CheckpointSpec, got "
+            f"{type(checkpoint).__name__}"
+        )
+    if checkpoint is not None or resume is not None:
+        if comm == "sharded":
+            raise ValueError(
+                "checkpoint/resume supports comm='dense' and comm='sparse'; "
+                "the sharded backend is not checkpointable"
+            )
+        if problem.schedule is not None:
+            raise ValueError(
+                "checkpoint/resume cannot be combined with a graph schedule "
+                "(phase boundaries are not checkpoint boundaries)"
+            )
+        if plan is not None:
+            raise ValueError(
+                "checkpoint/resume cannot be combined with a fault_plan: "
+                "fault masks and straggler buffers are not part of the "
+                "snapshot schema"
+            )
+        if keep_snapshots:
+            raise ValueError("checkpoint/resume does not support keep_snapshots")
+    if (
+        checkpoint is not None
+        and comm == "dense"
+        and checkpoint.every % record_every != 0
+    ):
+        raise ValueError(
+            f"checkpoint.every={checkpoint.every} must be a multiple of "
+            f"record_every={record_every} on the dense backend (snapshots "
+            "happen at record boundaries)"
+        )
     hp = dict(spec.defaults)
     unknown = set(hyperparams) - set(hp)
     if unknown:
@@ -529,6 +1011,8 @@ def solve(
             f"accepts {sorted(hp)}"
         )
     hp.update(hyperparams)
+    if comm == "sharded":
+        raise NotImplementedError(_NOT_PORTED["sharded"])
     dev = resolve_device(device)
 
     data = problem.data
@@ -543,59 +1027,91 @@ def solve(
             f"indices must be (>= steps, N) = (>={steps}, {n}), "
             f"got {indices.shape}"
         )
+    # a schedule or churn plan becomes a list of static phases; a single
+    # phase runs the static path below (only extras gains the segment log)
+    phases = None
+    sched_x = None
+    if problem.schedule is not None or churn_plan is not None:
+        phases = _resolve_phases(problem, steps, churn_plan, dev)
+        sched_x = _schedule_extras(phases)
+        if len(phases) == 1:
+            problem = phases[0].problem
+            phases = None
+
     pts = _record_points(steps, record_every)
     rec = _Recorder(problem.z_star, keep_snapshots)
 
     if comm == "sparse":
-        t0 = time.perf_counter()
-        sres = spec.sparse_run(problem, hp, steps, indices, z0, opts, dev)
-        wall = time.perf_counter() - t0
-        for pt in pts:
-            rec.push(pt, sres.z_trace[pt])
-        iters, dist2, cons, zs = rec.arrays()
-        sel = np.asarray(pts) - 1
-        return SolveResult(
-            method=method,
-            comm=comm,
-            iters=iters,
-            dist2=dist2,
-            consensus=cons,
-            doubles_received=sres.doubles_received[sel],
-            ints_received=sres.ints_received[sel],
-            wall_time=wall,
-            z=sres.z_trace[-1],
-            state=None,
-            zs=zs,
-            extras={
-                "z_trace": sres.z_trace,
-                "recon_max_err": sres.recon_max_err,
-            },
+        if phases is not None:
+            if any(ph.entry in ("kill", "join") for ph in phases):
+                return _solve_sparse_churn(
+                    spec, method, phases, hp, steps, pts, rec, indices,
+                    z0, opts, sched_x, plan, dev,
+                )
+            return _solve_sparse_schedule(
+                spec, method, phases, hp, steps, pts, rec, indices, z0,
+                opts, sched_x, dev,
+            )
+        return _solve_sparse(
+            spec, method, problem, hp, steps, pts, rec, indices, z0, opts,
+            sched_x, plan, checkpoint, resume, dev,
+        )
+    if phases is not None:
+        return _solve_phased(
+            spec, method, phases, hp, steps, pts, rec, indices, z0,
+            sched_x, plan, dev,
         )
 
     # ---- dense backend: an eager loop on the device -------------------------
     t0 = time.perf_counter()
+    link_mask, strag_mask = _static_fault_masks(plan, problem.graph, steps)
     tdata = dataset_to_torch(data, dev)
-    comm_b = DenseComm(problem.graph, dev)
-    state = spec.init(
-        problem, hp, tdata, torch.as_tensor(np.asarray(z0), device=dev)
-    )
+    comm_b = _dense_comm(problem.graph, dev, link_mask, strag_mask)
     step_fn = spec.step(problem, hp, tdata, comm_b)
     z_read = spec.z_of(problem, hp, tdata, comm_b)
     idx_t = torch.as_tensor(indices[:steps], dtype=torch.long, device=dev)
-    prev = 0
+    z0_t = torch.as_tensor(np.asarray(z0), device=dev)
+    mgr = None
+    if checkpoint is not None:
+        mgr = CheckpointManager(checkpoint.directory, keep_last=checkpoint.keep_last)
+    start = 0
+    if resume is not None:
+        state, start = _restore_dense(
+            resume, spec.init(problem, hp, tdata, z0_t), rec, method=method,
+            comm=comm, record_every=record_every, steps=steps,
+        )
+    else:
+        state = spec.init(problem, hp, tdata, z0_t)
+    prev = start
     z_final = None
     for pt in pts:
-        for t in range(prev, pt):
-            state = step_fn(state, idx_t[t])
+        if pt <= start:
+            continue  # covered by the restored checkpoint
+        state = _advance(state, step_fn, comm_b, idx_t, prev, pt)
         prev = pt
         z_final = z_read(state).cpu().numpy()
         rec.push(pt, z_final)
+        if mgr is not None and pt % checkpoint.every == 0:
+            mgr.save(pt, {"state": state},
+                     metadata=_ckpt_meta(method, comm, record_every, rec))
+    if mgr is not None:
+        mgr.wait()
+    if z_final is None:
+        # resumed at (or past) the final record point: nothing to re-run
+        z_final = z_read(state).cpu().numpy()
     wall = time.perf_counter() - t0
 
     iters, dist2, cons, zs = rec.arrays()
-    per_node = dense_doubles_per_iter(problem.graph, D)  # (N,)
-    rounds = _cumulative_rounds(spec, hp, iters)
-    doubles = rounds[:, None] * per_node[None, :]
+    extras = {} if sched_x is None else {"schedule": sched_x}
+    if want_link or want_strag:
+        # a p = 0 plan ran the plain step and still reports its record
+        doubles, extras["faults"] = _fault_accounting(
+            spec, hp, problem, link_mask, strag_mask, steps, iters
+        )
+    else:
+        per_node = dense_doubles_per_iter(problem.graph, D)  # (N,)
+        rounds = _cumulative_rounds(spec, hp, iters)
+        doubles = rounds[:, None] * per_node[None, :]
     return SolveResult(
         method=method,
         comm=comm,
@@ -608,6 +1124,326 @@ def solve(
         z=z_final,
         state=state,
         zs=zs,
+        extras=extras,
+    )
+
+
+def _restore_dense(resume, template, rec, *, method, comm, record_every, steps):
+    """``(state, start)`` from the newest committed dense checkpoint.
+
+    The recorder history rides in the manifest as Python floats; the state
+    restores strictly against ``template`` (the method's own init).
+    """
+    step_r, meta, _ = load_checkpoint(resume)
+    _check_resume_meta(resume, step_r, meta, steps, {
+        "method": method, "comm": comm, "record_every": record_every})
+    tree, _ = restore_checkpoint(resume, {"state": template}, step=step_r)
+    rec.iters.extend(int(x) for x in meta["rec_iters"])
+    rec.dist2.extend(float(x) for x in meta["rec_dist2"])
+    rec.consensus.extend(float(x) for x in meta["rec_consensus"])
+    return tree["state"], int(step_r)
+
+
+def _solve_sparse(spec, method, problem, hp, steps, pts, rec, indices, z0,
+                  opts, sched_x, plan, checkpoint, resume, dev) -> SolveResult:
+    """One relay run: link faults as a ``sent_mask``, and checkpointing."""
+    fault_x = None
+    if plan is not None and plan.link is not None:
+        sent = source_sent_mask(plan.link, problem.graph, steps)
+        n_bcast = steps * problem.graph.n
+        fault_x = {
+            "injected_broadcasts": int(n_bcast),
+            "delivered_broadcasts": int(sent.sum()),
+            "drop_rate": 1.0 - float(sent.sum()) / n_bcast,
+        }
+        if not bool(sent.all()):
+            # an all-delivered plan runs the plain relay: p = 0 is bit-equal
+            opts["sent_mask"] = sent
+    if checkpoint is not None:
+        mgr = CheckpointManager(checkpoint.directory, keep_last=checkpoint.keep_last)
+        meta = {"method": method, "comm": "sparse"}
+        opts["ckpt_every"] = int(checkpoint.every)
+        opts["ckpt_save"] = lambda t_done, tree: mgr.save(
+            t_done, tree, metadata=meta, async_=False)
+    if resume is not None:
+        step_r, meta_r, leaves = load_checkpoint(resume)
+        _check_resume_meta(resume, step_r, meta_r, steps,
+                           {"method": method, "comm": "sparse"})
+        opts["resume"] = (int(step_r), leaves)
+    t0 = time.perf_counter()
+    sres = spec.sparse_run(problem, hp, steps, indices, z0, opts, dev)
+    wall = time.perf_counter() - t0
+    for pt in pts:
+        rec.push(pt, sres.z_trace[pt])
+    iters, dist2, cons, zs = rec.arrays()
+    sel = np.asarray(pts) - 1
+    extras = {"z_trace": sres.z_trace, "recon_max_err": sres.recon_max_err}
+    if fault_x is not None:
+        extras["faults"] = fault_x
+    if sched_x is not None:
+        extras["schedule"] = sched_x
+    return SolveResult(
+        method=method,
+        comm="sparse",
+        iters=iters,
+        dist2=dist2,
+        consensus=cons,
+        doubles_received=sres.doubles_received[sel],
+        ints_received=sres.ints_received[sel],
+        wall_time=wall,
+        z=sres.z_trace[-1],
+        state=None,
+        zs=zs,
+        extras=extras,
+    )
+
+
+def _solve_phased(spec, method, phases, hp, steps, pts, rec, indices, z0,
+                  sched_x, plan, dev) -> SolveResult:
+    """Dense execution of a multi-phase (dynamic-network) run.
+
+    Each phase builds its own step on its own W (and, after churn, its own
+    data), carrying the state across boundaries: as-is for a W switch,
+    elastically remapped for churn. A fault plan's masks are resolved per
+    phase against the phase graph (their seeds fold the phase's global
+    start, so the stream is one continuous draw), and a phase's straggler
+    buffers start empty (its first iteration delivers). Accounting folds
+    per-phase increments into global per-row cumulative counts: rows are
+    the N0 original nodes plus one row per joined node
+    (``extras["churn_rows"]`` when membership changed).
+    """
+    t0 = time.perf_counter()
+    base = phases[0].problem
+    D = base.dim
+    total_rows = max(int(ph.row_map.max()) for ph in phases) + 1
+    record_set = set(pts)
+    cum = np.zeros(total_rows)
+    doubles_rows: list[np.ndarray] = []
+    state = None
+    z_final = None
+    n_prev = base.graph.n
+    injected_tot = delivered_tot = 0
+    want_fault = plan is not None and (
+        plan.link is not None or plan.straggler is not None
+    )
+    for ph in phases:
+        p = ph.problem
+        seg = ph.end - ph.start
+        if state is not None:
+            state = _elastic_remap(state, ph, n_prev, spec)
+        link_mask, strag_mask = _static_fault_masks(plan, p.graph, seg, start=ph.start)
+        tdata = dataset_to_torch(p.data, dev)
+        comm_b = _dense_comm(p.graph, dev, link_mask, strag_mask)
+        step_fn = spec.step(p, hp, tdata, comm_b)
+        z_read = spec.z_of(p, hp, tdata, comm_b)
+        if state is None:
+            state = spec.init(p, hp, tdata, torch.as_tensor(np.asarray(z0), device=dev))
+        idx_t = torch.as_tensor(indices[ph.start:ph.end][:, ph.cols],
+                                dtype=torch.long, device=dev)
+        rdiff_ph = np.diff(
+            _cumulative_rounds(spec, hp, np.arange(ph.start, ph.end + 1))
+        )
+        d_in_ph = delivered_in_messages(p.graph, link_mask, strag_mask, seg)
+        cum_ph = np.cumsum(rdiff_ph[:, None] * d_in_ph * D, axis=0)
+        deg_ph = np.asarray(p.graph.degrees, dtype=np.int64)
+        injected_tot += int(rdiff_ph.sum() * deg_ph.sum())
+        delivered_tot += int((rdiff_ph * d_in_ph.sum(axis=1)).sum())
+        marks = sorted({pt for pt in pts if ph.start < pt <= ph.end} | {ph.end})
+        prev = ph.start
+        for mk in marks:
+            state = _advance(state, step_fn, comm_b, idx_t,
+                             prev - ph.start, mk - ph.start)
+            prev = mk
+            if mk in record_set:
+                z_final = z_read(state).cpu().numpy()
+                rec.push(mk, z_final, z_star=p.z_star)
+                snap = cum.copy()
+                snap[ph.row_map] += cum_ph[mk - ph.start - 1]
+                doubles_rows.append(snap)
+        cum[ph.row_map] += cum_ph[-1]
+        n_prev = p.graph.n
+    wall = time.perf_counter() - t0
+    iters, dist2, cons, zs = rec.arrays()
+    doubles = np.stack(doubles_rows)
+    extras: dict = {"schedule": sched_x}
+    if total_rows != base.graph.n or any(
+        ph.entry in ("kill", "join") for ph in phases
+    ):
+        extras["churn_rows"] = total_rows
+    if want_fault:
+        extras["faults"] = {
+            "injected_messages": injected_tot,
+            "delivered_messages": delivered_tot,
+            "drop_rate": (
+                0.0 if injected_tot == 0 else 1.0 - delivered_tot / injected_tot
+            ),
+        }
+    return SolveResult(
+        method=method,
+        comm="dense",
+        iters=iters,
+        dist2=dist2,
+        consensus=cons,
+        doubles_received=doubles,
+        ints_received=np.zeros_like(doubles),
+        wall_time=wall,
+        z=z_final,
+        state=state,
+        zs=zs,
+        extras=extras,
+    )
+
+
+def _recon_max(recon) -> float:
+    """The largest of the segments' ``recon_max_err`` (nan when none verified)."""
+    rc = np.asarray(recon, dtype=np.float64)
+    return float(np.nanmax(rc)) if not np.all(np.isnan(rc)) else float("nan")
+
+
+def _solve_sparse_schedule(spec, method, phases, hp, steps, pts, rec, indices,
+                           z0, opts, sched_x, dev) -> SolveResult:
+    """Relay execution of a graph schedule: chained segment runs.
+
+    Each segment re-derives the relay's tables for its own graph; the
+    solver state chains through ``SparseRunResult.state`` -> the next
+    segment's ``state0`` (which charges the restart flood). The counts
+    concatenate, each segment offset by the previous one's final counts.
+    """
+    t0 = time.perf_counter()
+    st = None
+    z_traces = []
+    doubles_parts, ints_parts = [], []
+    d_off = i_off = 0  # int: keeps the concatenated counts integer-typed
+    recon = []
+    for k, ph in enumerate(phases):
+        seg_steps = ph.end - ph.start
+        o = dict(opts)
+        if k == 0:
+            sres = spec.sparse_run(ph.problem, hp, seg_steps,
+                                   indices[ph.start:ph.end], z0, o, dev)
+        else:
+            o["state0"] = st
+            sres = spec.sparse_run(ph.problem, hp, seg_steps,
+                                   indices[ph.start:ph.end], None, o, dev)
+        st = sres.state
+        z_traces.append(sres.z_trace if k == 0 else sres.z_trace[1:])
+        doubles_parts.append(sres.doubles_received + d_off)
+        ints_parts.append(sres.ints_received + i_off)
+        d_off = doubles_parts[-1][-1]
+        i_off = ints_parts[-1][-1]
+        recon.append(sres.recon_max_err)
+    wall = time.perf_counter() - t0
+    z_trace = np.concatenate(z_traces)  # (steps + 1, N, D)
+    doubles_all = np.concatenate(doubles_parts)  # (steps, N) cumulative
+    ints_all = np.concatenate(ints_parts)
+    for pt in pts:
+        rec.push(pt, z_trace[pt])
+    iters, dist2, cons, zs = rec.arrays()
+    sel = np.asarray(pts) - 1
+    return SolveResult(
+        method=method,
+        comm="sparse",
+        iters=iters,
+        dist2=dist2,
+        consensus=cons,
+        doubles_received=doubles_all[sel],
+        ints_received=ints_all[sel],
+        wall_time=wall,
+        z=z_trace[-1],
+        state=None,
+        zs=zs,
+        extras={
+            "z_trace": z_trace,
+            "recon_max_err": _recon_max(recon),
+            "schedule": sched_x,
+        },
+    )
+
+
+def _solve_sparse_churn(spec, method, phases, hp, steps, pts, rec, indices,
+                        z0, opts, sched_x, plan, dev) -> SolveResult:
+    """Relay execution of node churn: one relay per membership segment.
+
+    Each segment re-derives the relay's tables for its own graph and
+    chains through ``run_sparse(state0=)``; the carried state is
+    elastically remapped at each boundary and reanchored (DSBA resets its
+    step counter, so the segment re-runs the eq. 31 update on the new
+    membership and floods the remapped iterates once). Accounting folds
+    per-segment counts into global per-row cumulative totals, as the dense
+    churn path does.
+    """
+    t0 = time.perf_counter()
+    total_rows = max(int(ph.row_map.max()) for ph in phases) + 1
+    cum_d = np.zeros(total_rows, dtype=np.int64)
+    cum_i = np.zeros(total_rows, dtype=np.int64)
+    out_d: list[np.ndarray] = []
+    out_i: list[np.ndarray] = []
+    recon = []
+    injected_tot = delivered_tot = 0
+    want_link = plan is not None and plan.link is not None
+    st = None
+    z_final = None
+    n_prev = phases[0].problem.graph.n
+    for ph in phases:
+        p = ph.problem
+        seg = ph.end - ph.start
+        o = dict(opts)
+        if want_link:
+            sent = source_sent_mask(plan.link, p.graph, seg, start=ph.start)
+            injected_tot += seg * p.graph.n
+            delivered_tot += int(sent.sum())
+            if not bool(sent.all()):
+                o["sent_mask"] = sent
+        idx_seg = indices[ph.start:ph.end][:, ph.cols]
+        if st is None:
+            sres = spec.sparse_run(p, hp, seg, idx_seg, z0, o, dev)
+        else:
+            o["state0"] = _elastic_remap(st, ph, n_prev, spec)
+            sres = spec.sparse_run(p, hp, seg, idx_seg, None, o, dev)
+        st = sres.state
+        n_prev = p.graph.n
+        for pt in pts:
+            if ph.start < pt <= ph.end:
+                lt = pt - ph.start
+                rec.push(pt, sres.z_trace[lt], z_star=p.z_star)
+                snap_d = cum_d.copy()
+                snap_d[ph.row_map] += sres.doubles_received[lt - 1]
+                snap_i = cum_i.copy()
+                snap_i[ph.row_map] += sres.ints_received[lt - 1]
+                out_d.append(snap_d)
+                out_i.append(snap_i)
+        cum_d[ph.row_map] += sres.doubles_received[seg - 1]
+        cum_i[ph.row_map] += sres.ints_received[seg - 1]
+        recon.append(sres.recon_max_err)
+        z_final = sres.z_trace[-1]
+    wall = time.perf_counter() - t0
+    iters, dist2, cons, zs = rec.arrays()
+    extras: dict = {
+        "recon_max_err": _recon_max(recon),
+        "schedule": sched_x,
+        "churn_rows": total_rows,
+    }
+    if want_link:
+        extras["faults"] = {
+            "injected_broadcasts": injected_tot,
+            "delivered_broadcasts": delivered_tot,
+            "drop_rate": (
+                0.0 if injected_tot == 0 else 1.0 - delivered_tot / injected_tot
+            ),
+        }
+    return SolveResult(
+        method=method,
+        comm="sparse",
+        iters=iters,
+        dist2=dist2,
+        consensus=cons,
+        doubles_received=np.stack(out_d),
+        ints_received=np.stack(out_i),
+        wall_time=wall,
+        z=z_final,
+        state=st,
+        zs=zs,
+        extras=extras,
     )
 
 
@@ -659,6 +1495,13 @@ def _make_dsba_family(method: str, default_alpha: float) -> SolverSpec:
         supports_schedule=True,
         supports_churn=True,
         supports_per_node_lam=True,
+        # after a churn remap, re-enter the t = 0 branch: the t >= 1
+        # difference recursion is stationary at ANY consensus point with
+        # settled tables; only the step-0 psi (the -alpha*phibar
+        # injection) targets the new membership's root. Tables and
+        # iterates are kept (phibar rows are node-local, so slicing or
+        # seeding them is exact).
+        reanchor=lambda st: dataclasses.replace(st, step=torch.zeros_like(st.step)),
     )
 
 
@@ -736,10 +1579,14 @@ def _extra_step(problem, hp, data, comm):
     def step(carry, i_t):
         z, z_prev, g_prev, t = carry
         g = G(z, lam)
+        # both products every step, the t == 0 one unused: a straggler
+        # buffer slot is one call site, taken the same number of times
+        # every iteration (as the reference's select computes both)
+        wz, wtz = w_mix(z), wt_mix(z_prev)
         if t == 0:
-            z1 = w_mix(z) - alpha * g
+            z1 = wz - alpha * g
         else:
-            z1 = z + w_mix(z) - wt_mix(z_prev) - alpha * (g - g_prev)
+            z1 = z + wz - wtz - alpha * (g - g_prev)
         return (z1, z, g, t + 1)
 
     return step
@@ -1005,6 +1852,13 @@ register_solver(
         comm_rounds=_mudag_rounds,
         supports_schedule=True,
         supports_churn=True,
+        # churn resets the tracker: it encodes the departed membership's
+        # mean gradient. The step counter rewinds, so the next step
+        # re-seeds s = FastMix(g) on the new membership, with the momentum
+        # restarted (y = x)
+        reanchor=lambda st: (
+            st[0], st[0], torch.zeros_like(st[2]), torch.zeros_like(st[3]), 0,
+        ),
         # FastMix applies the matvec a data-dependent number of times
         supports_stragglers=False,
     )
@@ -1020,6 +1874,10 @@ register_solver(
         comm_rounds=_sliding_rounds,
         supports_schedule=True,
         supports_churn=True,
+        # tracker reset on churn (see mudag); z itself carries over
+        reanchor=lambda st: (
+            st[0], torch.zeros_like(st[1]), torch.zeros_like(st[2]), 0,
+        ),
         # off-round iterations exchange nothing to delay
         supports_stragglers=False,
     )
@@ -1083,7 +1941,10 @@ def _dsgda_step(problem, hp, data, comm):
         dtail = tail_out - tab_tail[node, i_t]
         delta = torch.cat([dg[:, None] * rows, dtail], dim=1)
         v = delta + phibar + lam * z
-        y1 = v if step_t == 0 else w_mix(y) + v - v_prev
+        # w_mix(y) every step, unused at t == 0: straggler slots are call
+        # sites taken a fixed number of times an iteration (see EXTRA)
+        wy = w_mix(y)
+        y1 = v if step_t == 0 else wy + v - v_prev
         z1 = w_mix(z) - scale * y1
         return (
             z1,
@@ -1109,6 +1970,13 @@ register_solver(
         problem_families=("auc", "bilinear"),
         supports_schedule=True,
         supports_churn=True,
+        # tracker reset on churn: keep the iterate and the SAGA tables
+        # (remapped), zero the tracker y and v_prev, and rewind t so the
+        # step re-seeds y = v on the new membership (see mudag)
+        reanchor=lambda st: (
+            st[0], st[1], st[2], st[3],
+            torch.zeros_like(st[4]), torch.zeros_like(st[5]), 0,
+        ),
     )
 )
 

@@ -18,11 +18,11 @@ in one process as the pods are:
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 
 from repro_torch.core.gossip import GossipConfig
-from repro_torch.models.params import tree_map
 
 
 class HeartbeatMonitor:
@@ -78,39 +78,61 @@ def _pod_leaf(x, n: int) -> bool:
     return isinstance(x, torch.Tensor) and x.ndim >= 1 and x.shape[0] == n
 
 
+def _map_leaves(fn: Callable, tree):
+    """``fn`` over every leaf of nested dicts, dataclasses, tuples and lists.
+
+    The containers JAX's ``tree_map`` walks for a solver state: a dict's
+    values, a dataclass's fields (``DSBAState``), a tuple's or list's items
+    (the other solvers' states). Anything else is a leaf, host ints and
+    0-d step counters included.
+    """
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _map_leaves(fn, getattr(tree, f.name))
+            for f in dataclasses.fields(tree) if f.init
+        })
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_leaves(fn, v) for v in tree)
+    return fn(tree)
+
+
 @dataclasses.dataclass
 class ElasticGossip:
     """Membership + state remapping for the pod axis."""
 
     gc: GossipConfig
 
-    def shrink(self, state: dict, dead: list[int]) -> tuple[dict, GossipConfig]:
+    def shrink(self, state, dead: list[int]) -> tuple[object, GossipConfig]:
         """Drop the dead pods' rows of every per-pod leaf (new tensors);
-        the mixing is rebuilt over the survivors by the new config."""
+        the mixing is rebuilt over the survivors by the new config. The
+        state is any tree ``_map_leaves`` walks (a gossip dict, a solver's
+        dataclass or tuple)."""
         n = self.gc.n_pods
         keep = [p for p in range(n) if p not in dead]
         new_gc = dataclasses.replace(self.gc, n_pods=len(keep))
 
-        def slice_pod(_, x):
+        def slice_pod(x):
             if _pod_leaf(x, n):
                 return x[torch.as_tensor(keep, device=x.device)]
             return x
 
-        return tree_map(slice_pod, state), new_gc
+        return _map_leaves(slice_pod, state), new_gc
 
-    def grow(self, state: dict, n_new: int, seed_from: int = 0) -> tuple[dict, GossipConfig]:
+    def grow(self, state, n_new: int, seed_from: int = 0) -> tuple[object, GossipConfig]:
         """Join `n_new` pods seeded from pod `seed_from` (a consensus warm
         start); the mixing pulls them into agreement."""
         n = self.gc.n_pods
         new_gc = dataclasses.replace(self.gc, n_pods=n + n_new)
 
-        def pad_pod(_, x):
+        def pad_pod(x):
             if _pod_leaf(x, n):
                 seed_rows = x[seed_from].unsqueeze(0).expand(n_new, *x.shape[1:])
                 return torch.cat([x, seed_rows], dim=0)
             return x
 
-        return tree_map(pad_pod, state), new_gc
+        return _map_leaves(pad_pod, state), new_gc
 
 
 @dataclasses.dataclass

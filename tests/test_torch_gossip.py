@@ -228,9 +228,10 @@ def test_mesh_and_unported_pieces_raise():
         G.gossip_batch_specs(cfg)
     with pytest.raises(ValueError, match="kernel_mode"):
         G.GossipConfig(kernel_mode="interpret")
+    from repro_torch.ft import faults
     for name in ("FaultPlan", "ChurnPlan", "as_fault_plan"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            getattr(ft, name)()
+        assert getattr(ft, name) is getattr(faults, name)
+    assert ft.as_fault_plan(None) is None
 
 
 # ---------------------------------------------------------------------------

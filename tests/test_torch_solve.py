@@ -132,14 +132,8 @@ def test_no_device_means_cuda(monkeypatch):
 
 @pytest.mark.parametrize("call", [
     lambda p: TS.solve(p, "dsba", "sharded", steps=2, device="cpu"),
-    lambda p: TS.solve(p, "dsba", "sparse", steps=2, device="cpu",
-                       comm_options={"engine": "reference"}),
-    lambda p: TS.solve(p, "dsba", "dense", steps=2, device="cpu",
-                       comm_options={"fault_plan": object()}),
-    lambda p: TS.solve(p, "dsba", "dense", steps=2, device="cpu",
-                       checkpoint=object()),
     lambda p: TS.solve_many(p, "dsba", steps=2),
-    lambda p: TS.Problem(p.spec, p.data, p.graph, schedule=[(0, p.graph)]),
+    lambda p: TSC.run_sparse_many(p, 2),
 ])
 def test_unported_paths_raise(call):
     _, tp = _problems("ridge")

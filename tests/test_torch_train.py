@@ -319,8 +319,8 @@ def test_mesh_tools_raise():
             fn(_cfg(), TrainConfig())
     with pytest.raises(NotImplementedError, match="Queue 1 items 10 and 14"):
         launcher.run(launcher.parse_args(["--reduced", "--device", "cpu", "--mesh", "single"]))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        CheckpointSpec("/tmp", every=10)
+    spec = CheckpointSpec("/tmp", every=10)
+    assert (spec.every, spec.keep_last) == (10, 3)
     cfg = _cfg(blockwise_attention=True)
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         local_grads(cfg, TrainConfig(), init_train_state(cfg, TrainConfig(), 0, "cpu")["params"],
