@@ -242,6 +242,26 @@ printed with its seconds:
    Profiles of the dense step plain, with the link mask and with
    stragglers, and of the relay with and without a sent_mask. Its
    launches join the kernels line.
+22. sweep -- in a fresh process (``chip_smoke.py --sweep``; it runs alone
+   too): hyperparameter sweeps as one batched computation at the rcv1
+   Section-7 setup (ridge). ``solve_many`` over benchmarks/
+   bench_convergence.py's 5-alpha dsba grid (0.5-8) and a 3-alpha dsa grid,
+   40 steps: bit-equal to one ``solve()`` an alpha on the card, within
+   1e-10 of the same sweep on the CPU, launching one run's kernels
+   (``expected_launches``) for the whole grid; ``run_sparse_many`` on 3
+   alphas bit-equal to ``run_sparse`` (launches: one relay's), its peak
+   bytes a run and the batch the card's free memory takes; EXTRA and
+   Mudag's K grid {2, 5} within 1e-10 of sequential runs (DOUBLEs equal);
+   two batched steps with every sparse_dot and sparse_axpy call held to
+   its plain version at B*N = 50 rows (sparse_axpy bit for bit); a second
+   alpha on a warm runner adds one hit and no trace. Then the sparse
+   kernels timed at 50 rows, the batch's mixing product three ways (B
+   products, one broadcast product, one (N, B*D) product: ms and bits),
+   the grid's step alone and whole ``solve_many`` calls against one run
+   and five (wall, device busy, idle share, launches), cold vs warm
+   ``solve()`` (dsba dense and relay, EXTRA), and ``clear_runner_caches()``
+   returning the card's allocated bytes to their level before the phase.
+   Its launches join the kernels line.
 Before phase 9, flash_attention_bwd is held to its plain version at the
 train shape and at ragged small shapes (every head dim, GQA, MQA, window,
 softcap), bf16 and f32 (bars 5e-2, 2e-4); its times come from the
@@ -277,10 +297,14 @@ from repro_torch.core import mixing  # noqa: E402
 from repro_torch.core.operators import FAMILIES  # noqa: E402
 from repro_torch.core.solvers import (  # noqa: E402
     ChurnEvent, ChurnPlan, CheckpointManager, CheckpointSpec, FaultPlan, LinkFault,
-    StragglerSpec, available_solvers, get_solver, link_delivered_mask, make_problem, solve,
-    straggler_delivered_mask,
+    StragglerSpec, _advance, _dynamic_hp, _get_dense_runner, _phase_runner,
+    available_solvers, clear_runner_caches, get_solver, link_delivered_mask, make_problem,
+    runner_cache_stats, solve, solve_many, straggler_delivered_mask,
 )
-from repro_torch.core.sparse_comm import sparse_doubles_per_iter  # noqa: E402
+from repro_torch.core.dsba import DSBAConfig, draw_indices  # noqa: E402
+from repro_torch.core.sparse_comm import (  # noqa: E402
+    batch_tree, run_sparse, run_sparse_many, sparse_doubles_per_iter,
+)
 from repro_torch.data.synthetic import (  # noqa: E402
     DATASET_PRESETS, make_classification, make_regression,
 )
@@ -790,24 +814,17 @@ def profile_steps(device, d, k, steps=30) -> list[dict]:
     events, the idle share 1 - busy/wall, kernel launches per step, and the
     five kernels with the most device time.
     """
-    from repro_torch.convert import dataset_to_torch
-    from repro_torch.core.comm import DenseComm
-
     i_t = torch.as_tensor(np.random.default_rng(0).integers(0, 100, (steps, 10)),
                           device=device)
     rows = []
     for task in ("ridge", "logistic"):
         problem = paper_problem(task, d, k)
-        spec = get_solver("dsba")
-        hp = {"alpha": EXPERIMENTS[f"{task}_rcv1"].alpha}
-        data = dataset_to_torch(problem.data, device)
-        z0 = torch.zeros((10, problem.dim), dtype=torch.float64, device=device)
-        state0 = spec.init(problem, hp, data, z0)
-        step = spec.step(problem, hp, data, DenseComm(problem.graph, device))
+        state0, step, hp_run, _ = bound_step(
+            problem, "dsba", {"alpha": EXPERIMENTS[f"{task}_rcv1"].alpha}, device)
 
-        def run(state=state0, step=step):
+        def run(state=state0, step=step, hp_run=hp_run):
             for t in range(steps):
-                state = step(state, i_t[t])
+                state = step(state, i_t[t], hp_run)
 
         rows.append(_profile_row(f"dense dsba {task}", run, steps))
     problem = paper_problem("ridge", d, k)
@@ -816,6 +833,22 @@ def profile_steps(device, d, k, steps=30) -> list[dict]:
         lambda: solve(problem, "dsba", "sparse", steps=steps, device=device),
         steps))
     return rows
+
+
+def bound_step(problem, method, hp, device, link=None, strag=None, merged=None):
+    """(initial state, step, hp_run, comm) of ``method`` on ``problem`` from
+    the solver's runner cache, as ``solve()`` binds them (a fault runner
+    with the ``link``/``strag`` masks bound when either is given), or with
+    ``merged`` (one hp dict a run) as ``solve_many`` binds a batch."""
+    spec = get_solver(method)
+    hp = dict(spec.defaults, **hp)
+    runner = _phase_runner(spec, problem, hp, device, link, strag)
+    hp_run = _dynamic_hp(spec, problem, hp, runner.data.val.dtype, device, merged=merged)
+    z0 = torch.zeros((problem.graph.n, problem.dim), dtype=runner.data.val.dtype, device=device)
+    state0 = runner.init(z0)
+    if merged is not None:
+        state0 = batch_tree(state0, len(merged))
+    return state0, runner.step, hp_run, runner.comm
 
 
 def _profile_row(name, run, steps):
@@ -2980,26 +3013,19 @@ def solver_pairs(device, d, k, steps=10, ssda_d=SSDA_D, n_nodes=10, q=100) -> li
 def solver_profiles(device, d, k, steps=30) -> list[dict]:
     """``_profile_row`` of every new method with a step of its own, at the
     paper's rcv1 setup (CUDA only)."""
-    from repro_torch.convert import dataset_to_torch
-    from repro_torch.core.comm import DenseComm
-
     i_t = torch.as_tensor(np.random.default_rng(0).integers(0, 100, (steps, 10)), device=device)
     rows = []
     for method, task in PROFILED:
         problem = solver_problem(method, task, d, k)
-        spec = get_solver(method)
-        hp = dict(spec.defaults)
-        data = dataset_to_torch(problem.data, device)
-        z0 = torch.zeros((10, problem.dim), dtype=torch.float64, device=device)
-        state0 = spec.init(problem, hp, data, z0)
-        step = spec.step(problem, hp, data, DenseComm(problem.graph, device))
+        state0, step, hp_run, _ = bound_step(problem, method, {}, device)
 
-        def run(state=state0, step=step):
+        def run(state=state0, step=step, hp_run=hp_run):
             for t in range(steps):
-                state = step(state, i_t[t])
+                state = step(state, i_t[t], hp_run)
 
         rows.append(_profile_row(f"dense {method} {task}", run, steps))
-        del data, state0, step
+        del state0, step
+        clear_runner_caches()  # the next method's dense features replace these
     return rows
 
 
@@ -3332,26 +3358,19 @@ def fault_profiles(device, d, k, steps=30) -> list[dict]:
     with stragglers (the step alone: its comm, masks and state built
     before), and of the relay solve with and without a sent_mask (setup
     included), at rcv1 width."""
-    from repro_torch.convert import dataset_to_torch
-    from repro_torch.core.solvers import _advance, _dense_comm
-
     problem = paper_problem("ridge", d, k)
-    spec = get_solver("dsba")
     hp = {"alpha": EXPERIMENTS["ridge_rcv1"].alpha}
-    data = dataset_to_torch(problem.data, device)
-    z0 = torch.zeros((10, problem.dim), dtype=torch.float64, device=device)
     i_t = torch.as_tensor(np.random.default_rng(0).integers(0, 100, (steps, 10)), device=device)
     link = link_delivered_mask(LinkFault(p=0.1, seed=7), problem.graph, steps)
     strag = straggler_delivered_mask(StragglerSpec(p=0.2, max_staleness=2, seed=3), 10, steps)
-    state0 = spec.init(problem, hp, data, z0)
     rows = []
     for name, lm, sm in (("plain", None, None), ("link mask", link, None),
                          ("stragglers", None, strag)):
-        comm = _dense_comm(problem.graph, device, lm, sm)
-        step = spec.step(problem, hp, data, comm)
+        state0, step, hp_run, comm = bound_step(problem, "dsba", hp, device, lm, sm)
         rows.append(_profile_row(
             f"dense dsba ridge, {name}",
-            lambda step=step, comm=comm: _advance(state0, step, comm, i_t, 0, steps), steps))
+            lambda state0=state0, step=step, comm=comm, hp_run=hp_run: _advance(
+                state0, step, comm, i_t, 0, steps, hp_run), steps))
     plan = {"fault_plan": FaultPlan(link=LinkFault(p=0.1, seed=7))}
     for name, opts in (("plain", None), ("sent_mask", plan)):
         rows.append(_profile_row(
@@ -3388,6 +3407,324 @@ def faults_run(device) -> dict:
     out["launches"] = total
     out["seconds"] = time.perf_counter() - t_all
     log("faults", f"launches {total}; all done in {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 22: hyperparameter sweeps as one batched computation (--sweep)
+# ---------------------------------------------------------------------------
+
+# benchmarks/bench_convergence.py's tune_stochastic grid (dsba, ridge)
+SWEEP_ALPHAS = (0.5, 1.0, 2.0, 4.0, 8.0)
+SWEEP_DSA_ALPHAS = (0.05, 0.1, 0.2)
+SWEEP_RELAY_ALPHAS = (0.5, 1.0, 2.0)
+SWEEP_EXTRA_ALPHAS = (0.2, 0.3)
+SWEEP_K = (2.0, 5.0)  # Mudag's K grid (tests/test_accel_minimax.py)
+
+
+def _grid_check(name, problem, method, grid, device, steps, record_every, total,
+                cpu_too=True, bar=DENSE_TOL_CPU):
+    """``solve_many`` over ``grid`` on `device` against one ``solve()`` an
+    entry on `device`: bit-equal for dsba/dsa (else within ``bar``), DOUBLEs
+    equal; with ``cpu_too`` the same sweep on the CPU within DENSE_TOL_CPU.
+    dsba/dsa launch ``expected_launches`` once for the whole grid."""
+    reset_launches()
+    t0 = time.perf_counter()
+    many = solve_many(problem, method, steps=steps, record_every=record_every, grid=grid,
+                      device=device)
+    t_many = time.perf_counter() - t0
+    got = launches()
+    for k_, c in got.items():
+        total[k_] = total.get(k_, 0) + c
+    if device.type == "cuda":
+        want = expected_launches(steps, "dense") if method in ("dsba", "dsa") else {}
+        if got != {**dict.fromkeys(got, 0), **want}:
+            raise AssertionError(f"{name}: launches {got} != {want}")
+    if not (many.extras["batched"] and np.all(np.isfinite(many.z))):
+        raise AssertionError(f"{name}: not batched, or non-finite iterates")
+    t0 = time.perf_counter()
+    seq = [solve(problem, method, steps=steps, record_every=record_every, device=device, **g)
+           for g in grid]
+    t_seq = time.perf_counter() - t0
+    bit = all(np.array_equal(many.z[b], r.z) and np.array_equal(many.consensus[b], r.consensus)
+              for b, r in enumerate(seq))
+    err = max(float(np.max(np.abs(many.z[b] - r.z))) for b, r in enumerate(seq))
+    if method in ("dsba", "dsa") and not bit:
+        raise AssertionError(f"{name}: batched != sequential (max {err})")
+    if err > bar:
+        raise AssertionError(f"{name}: batched vs sequential {err}")
+    if not all(np.array_equal(many.doubles_received[b], r.doubles_received)
+               for b, r in enumerate(seq)):
+        raise AssertionError(f"{name}: DOUBLEs differ")
+    row = {"check": name, "B": len(grid), "steps": steps, "bit_equal": bit, "max_err": err,
+           "launches": {k_: c for k_, c in got.items() if c},
+           "s_batched": t_many, "s_sequential": t_seq}
+    if cpu_too:
+        t0 = time.perf_counter()
+        ref = solve_many(problem, method, steps=steps, record_every=record_every, grid=grid,
+                         device=torch.device("cpu"))
+        row["s_cpu"] = time.perf_counter() - t0
+        row["card_vs_cpu"] = float(np.max(np.abs(many.z - ref.z)))
+        if row["card_vs_cpu"] > DENSE_TOL_CPU:
+            raise AssertionError(f"{name}: card vs CPU {row['card_vs_cpu']}")
+    log("sweep", json.dumps(row))
+    return row
+
+
+def _relay_check(problem, device, steps, total) -> dict:
+    """``run_sparse_many`` on ``SWEEP_RELAY_ALPHAS`` against one
+    ``run_sparse`` an alpha (the same streams), bit for bit; its launches
+    (one run's, plus one densify a step) and its device memory a run."""
+    alphas = SWEEP_RELAY_ALPHAS
+    b, n = len(alphas), problem.graph.n
+    idx = np.stack([draw_indices(steps, n, problem.data.q, s) for s in range(b)])
+    cfg = DSBAConfig(problem.spec, 0.0, problem.lam)
+    sync = device.type == "cuda"
+    if sync:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if sync else 0
+    reset_launches()
+    t0 = time.perf_counter()
+    many = run_sparse_many(cfg, problem.data, problem.graph, problem.w, steps, idx, alphas,
+                           device=device)
+    t_many = time.perf_counter() - t0
+    got = launches()
+    peak = torch.cuda.max_memory_allocated() if sync else 0
+    for k_, c in got.items():
+        total[k_] = total.get(k_, 0) + c
+    if sync:
+        want = {"sparse_dot": steps, "sparse_axpy": 1 + 5 * steps}
+        if got != {**dict.fromkeys(got, 0), **want}:
+            raise AssertionError(f"relay sweep: launches {got} != {want}")
+    t0 = time.perf_counter()
+    seq = [run_sparse(dataclasses.replace(cfg, alpha=a), problem.data, problem.graph,
+                      problem.w, steps, idx[i], device=device) for i, a in enumerate(alphas)]
+    t_seq = time.perf_counter() - t0
+    for i, r in enumerate(seq):
+        if not (np.array_equal(many[i].z_trace, r.z_trace)
+                and np.array_equal(many[i].doubles_received, r.doubles_received)
+                and np.array_equal(many[i].ints_received, r.ints_received)):
+            raise AssertionError(f"relay sweep: run {i} != its run_sparse")
+    depth = max(3, problem.graph.diameter + 2)
+    ring = depth * n * n * problem.dim * problem.data.val.itemsize
+    per_run = (peak - base) / b if sync else 0.0
+    free = torch.cuda.mem_get_info()[0] if sync else 0
+    row = {"check": "relay run_sparse_many", "B": b, "steps": steps, "bit_equal": True,
+           "launches": {k_: c for k_, c in got.items() if c}, "s_batched": t_many,
+           "s_sequential": t_seq, "ring_bytes_a_run": ring, "peak_bytes_a_run": per_run,
+           "free_bytes_after": free,
+           "max_B_in_free_memory": int(free // per_run) if per_run else None}
+    log("sweep", json.dumps(row))
+    return row
+
+
+def sweep_checks(device, d, k, n_nodes=10, q=100, steps=40, record_every=20,
+                 total=None) -> dict:
+    """Every check of the sweep phase on one problem (the rcv1 Section-7
+    setup on the card): the 5-alpha dsba and the 3-alpha dsa grids bit-equal
+    to sequential runs and within DENSE_TOL_CPU of the CPU; the relay sweep
+    bit-equal to run_sparse; EXTRA and Mudag's K grid within DENSE_TOL_CPU
+    of sequential runs; both sparse kernels held to their plain versions
+    during batched steps at B*N rows; a second alpha on a warm runner adds
+    one hit and no trace."""
+    total = {} if total is None else total
+    ridge = paper_problem("ridge", d, k, n_nodes, q)
+    out = {}
+    kw = dict(device=device, steps=steps, record_every=record_every, total=total)
+    out["dsba_grid"] = _grid_check("dsba 5-alpha grid", ridge, "dsba",
+                                   [{"alpha": a} for a in SWEEP_ALPHAS], **kw)
+    out["dsa_grid"] = _grid_check("dsa 3-alpha grid", ridge, "dsa",
+                                  [{"alpha": a} for a in SWEEP_DSA_ALPHAS], **kw)
+    out["relay"] = _relay_check(ridge, device, max(6, steps // 2), total)
+    short = dict(kw, steps=max(4, steps // 2), record_every=max(2, record_every // 2),
+                 cpu_too=False)
+    out["extra"] = _grid_check("extra 2-alpha grid", ridge, "extra",
+                               [{"alpha": a} for a in SWEEP_EXTRA_ALPHAS], **short)
+    out["mudag"] = _grid_check("mudag K grid", ridge, "mudag",
+                               [{"gossip_rounds": g} for g in SWEEP_K], **short)
+    out["held"] = _held_batched_steps(ridge, device)
+    clear_runner_caches()
+    solve(ridge, "dsba", steps=2, record_every=2, device=device, alpha=SWEEP_ALPHAS[0])
+    s0 = runner_cache_stats()["dense"]
+    solve(ridge, "dsba", steps=2, record_every=2, device=device, alpha=SWEEP_ALPHAS[1])
+    s1 = runner_cache_stats()["dense"]
+    out["cache"] = {"new_traces": s1["traces"] - s0["traces"], "new_hits": s1["hits"] - s0["hits"]}
+    if out["cache"] != {"new_traces": 0, "new_hits": 1} or s1["misses"] != s0["misses"]:
+        raise AssertionError(f"a second alpha: stats {s0} -> {s1}")
+    log("sweep", f"a second alpha on a warm runner: {json.dumps(out['cache'])}")
+    return out
+
+
+def _held_batched_steps(problem, device) -> dict:
+    """Two batched dsba steps (t = 0 and t = 1) of the 5-alpha grid with
+    every sparse_dot and sparse_axpy call held to its plain version on its
+    own B*N-row inputs (float64 sparse_axpy bit for bit)."""
+    spec = get_solver("dsba")
+    hp = dict(spec.defaults)
+    runner = _get_dense_runner(spec, problem, hp, device)
+    merged = [{"alpha": a} for a in SWEEP_ALPHAS]
+    hp_b = _dynamic_hp(spec, problem, hp, runner.data.val.dtype, device, merged=merged)
+    b, n = len(merged), problem.graph.n
+    state = batch_tree(runner.init(torch.zeros((n, problem.dim), dtype=runner.data.val.dtype,
+                                               device=device)), b)
+    idx = torch.as_tensor(np.stack([draw_indices(2, n, problem.data.q, s) for s in range(b)]),
+                          dtype=torch.long, device=device)
+    with ops.held_to_plain("sparse_dot") as e_dot, ops.held_to_plain("sparse_axpy") as e_axpy:
+        for t in range(2):
+            state = runner.step(state, idx[:, t], hp_b)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+    if len(e_dot) != 2 or len(e_axpy) != 8 or not all(e_axpy.exact):
+        raise AssertionError(f"held batched steps: {len(e_dot)} dot and {len(e_axpy)} axpy "
+                             f"calls, axpy exact {list(e_axpy.exact)}")
+    row = {"rows": b * n, "D": problem.dim, "sparse_dot_calls": len(e_dot),
+           "sparse_axpy_calls": len(e_axpy), "sparse_dot_max_abs_err": max(e_dot),
+           "sparse_axpy_max_abs_err": max(e_axpy), "sparse_axpy_bit_equal": True}
+    log("sweep", f"held batched steps: {json.dumps(row)}")
+    return row
+
+
+def mixing_variants(device, n, d, b) -> dict:
+    """The mixing product of a (B, N, D) batch three ways at the sweep's
+    shape: B same-shape products (what ``DenseComm`` does), one broadcast
+    batched product, and one (N, B*D) product: ms each (CUDA events) and
+    whether each is bit-equal to the first."""
+    g = torch.Generator(device=device).manual_seed(0)
+    w = torch.rand((n, n), generator=g, dtype=torch.float64, device=device)
+    x = torch.randn((b, n, d), generator=g, dtype=torch.float64, device=device)
+
+    def loop():
+        out = torch.empty_like(x)
+        for i in range(b):
+            torch.matmul(w, x[i], out=out[i])
+        return out
+
+    def wide():
+        return (w @ x.transpose(0, 1).reshape(n, b * d)).reshape(n, b, d).transpose(0, 1)
+
+    ref = loop()
+    out = {}
+    for name, fn in (("loop", loop), ("broadcast", lambda: w @ x), ("wide", wide)):
+        out[name] = {"ms": cuda_ms(fn, iters=100, warmup=10), "bit_equal": torch.equal(fn(), ref)}
+    log("sweep", f"mixing a (B={b}, N={n}, D={d}) batch: {json.dumps(out)}")
+    return out
+
+
+def sweep_profile(device, d, k, steps=30) -> dict:
+    """The 5-alpha grid's step alone (the bound batched step, as
+    ``profile_steps`` times one run's) against one run's step, then the
+    grid as one warm ``solve_many`` against five warm ``solve()`` calls and
+    one (whole calls: setup, the record point, the host copy of z and the
+    host's metrics included): wall ms, device-busy ms and launches per step
+    (a grid or five runs of a step), idle share."""
+    problem = paper_problem("ridge", d, k)
+    grid = [{"alpha": a} for a in SWEEP_ALPHAS]
+    b = len(grid)
+    i_t = torch.as_tensor(np.random.default_rng(0).integers(0, 100, (steps, b, 10)),
+                          device=device)
+    state1, step1, hp1, _ = bound_step(problem, "dsba", grid[0], device)
+    state_b, step_b, hp_b, _ = bound_step(problem, "dsba", grid[0], device, merged=grid)
+
+    def run_one():
+        state = state1
+        for t in range(steps):
+            state = step1(state, i_t[t, 0], hp1)
+
+    def run_grid():
+        state = state_b
+        for t in range(steps):
+            state = step_b(state, i_t[t], hp_b)
+
+    kw = dict(steps=steps, record_every=steps, device=device)
+    rows = {
+        "grid_step": _profile_row(f"dsba ridge {b}-alpha grid, the batched step alone",
+                                  run_grid, steps),
+        "one_step": _profile_row("dsba ridge one run, the step alone", run_one, steps),
+        "grid": _profile_row(f"dsba ridge {len(grid)}-alpha grid, one solve_many (warm)",
+                             lambda: solve_many(problem, "dsba", grid=grid, **kw), steps),
+        "sequential": _profile_row(
+            f"dsba ridge {len(grid)} solve() calls, one an alpha (warm)",
+            lambda: [solve(problem, "dsba", **kw, **g) for g in grid], steps),
+        "one": _profile_row("dsba ridge one solve() (warm)",
+                            lambda: solve(problem, "dsba", **kw, **grid[0]), steps),
+    }
+    return rows
+
+
+def cold_warm(device, d, k, steps=10) -> dict:
+    """Seconds of a ``solve()`` on an empty runner cache and of the next one
+    on the same problem with a new hyperparameter value (warm), for dsba
+    (dense and relay) and EXTRA (378 MB of dense features at rcv1 width)."""
+    problem = paper_problem("ridge", d, k)
+    out = {}
+    for name, method, comm, hp1, hp2 in (
+        ("dsba dense", "dsba", "dense", {"alpha": 0.5}, {"alpha": 1.0}),
+        ("dsba relay", "dsba", "sparse", {"alpha": 0.5}, {"alpha": 1.0}),
+        ("extra dense", "extra", "dense", {"alpha": 0.2}, {"alpha": 0.3}),
+    ):
+        clear_runner_caches()
+        gc.collect()
+        torch.cuda.synchronize()
+        times = []
+        for hp in (hp1, hp2):
+            t0 = time.perf_counter()
+            solve(problem, method, comm, steps=steps, record_every=steps, device=device, **hp)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[name] = {"steps": steps, "cold_s": times[0], "warm_s": times[1]}
+    log("sweep", f"cold vs warm solve(): {json.dumps(out)}")
+    return out
+
+
+def sweep_run(device) -> dict:
+    """``chip_smoke.py --sweep`` (a fresh process): ``solve_many`` and
+    ``run_sparse_many`` at the rcv1 Section-7 setup (``sweep_checks``),
+    the kernels at B*N rows, the mixing variants, the grid's profile
+    against sequential runs, cold vs warm ``solve()``; and clearing the
+    runner caches returns the card's allocated memory to its level before
+    the phase. Its launches join the kernels line."""
+    t_all = time.perf_counter()
+    log("sweep", subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    rcv1 = DATASET_PRESETS["rcv1"]
+    d, k = rcv1["d"], rcv1["k"]
+    # the cuBLAS workspace is made at the first product and kept: make it
+    # before the memory baseline
+    torch.ones((10, 10), dtype=torch.float64, device=device) @ torch.ones(
+        (10, 4), dtype=torch.float64, device=device)
+    clear_runner_caches()
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    total: dict[str, int] = {}
+    out = {}
+    for part, fn in (
+        ("checks", lambda: sweep_checks(device, d, k, total=total)),
+        ("kernels_bn", lambda: time_kernels(device, 10 * len(SWEEP_ALPHAS), d, k)),
+        ("mixing", lambda: mixing_variants(device, 10, d, len(SWEEP_ALPHAS))),
+        ("profile", lambda: sweep_profile(device, d, k)),
+        ("cold_warm", lambda: cold_warm(device, d, k)),
+    ):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        log("sweep", f"{part} done in {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    clear_runner_caches()
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    out["memory"] = {"before": base, "with_cache": held, "after_clear": after}
+    log("sweep", f"allocated bytes: before the phase {base}, with the runner cache {held}, "
+        f"after clear() {after}")
+    if after != base:
+        raise AssertionError(f"clear() left {after - base} bytes allocated")
+    out["launches"] = total
+    out["seconds"] = time.perf_counter() - t_all
+    log("sweep", f"launches {total}; all done in {out['seconds']:.1f} s")
     return out
 
 
@@ -3683,6 +4020,9 @@ def main() -> int:
     t0 = time.perf_counter()
     faults = profile_subprocess("--faults")
     log("faults", f"done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sweep = profile_subprocess("--sweep")
+    log("sweep", f"done in {time.perf_counter() - t0:.1f} s")
 
     total["decode_attention"] = serve_launches["decode_attention"]
     # flash_attention runs on three main paths: the score phase, the train
@@ -3699,8 +4039,10 @@ def main() -> int:
                           + ssm_train_launches["ssd_chunk"])
     total["ssd_chunk_bwd"] = ssm_train_launches["ssd_chunk_bwd"]
     # and the hybrid's serve, score, long_500k and train paths (--hybrid),
-    # and the fault, schedule, churn and resume paths (--faults)
-    for name, n in (*hybrid["launches"].items(), *faults["launches"].items()):
+    # the fault, schedule, churn and resume paths (--faults) and the batched
+    # sweeps at B*N rows (--sweep)
+    for name, n in (*hybrid["launches"].items(), *faults["launches"].items(),
+                    *sweep["launches"].items()):
         total[name] += n
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -3720,6 +4062,7 @@ def main() -> int:
 if __name__ == "__main__":
     PROFILES = {"--ssm-profile": ssm_profile, "--attention-profile": attention_profile,
                 "--hybrid": hybrid_run, "--solvers": solvers_run, "--faults": faults_run,
+                "--sweep": sweep_run,
                 "--topk-profile": topk_profile,
                 "--gossip-profile": lambda dev: gossip_phase(dev, topk_rows=True)[0],
                 "--decode-profile": lambda dev, *a: decode_profile(dev, *map(json.loads, a))}

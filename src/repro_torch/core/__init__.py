@@ -4,8 +4,9 @@ DSBA/DSA plus monotone operators, mixing matrices, the deterministic and
 accelerated baselines, the sparse communication relay, and the pod-axis
 gossip generalization. The public run entrypoint is ``core.solvers.solve``
 (Problem + SolverSpec registry); ``dsba.run`` and the ``baselines.run_*``
-wrappers are deprecated shims. There is no compiled-runner cache to
-export: PyTorch runs eagerly.
+wrappers are deprecated shims. ``runner_cache_stats`` and
+``clear_runner_caches`` read and reset the runner caches behind ``solve``
+and ``solve_many``.
 """
 from repro_torch.core.operators import OperatorSpec  # noqa: F401
 from repro_torch.core.dsba import (  # noqa: F401
@@ -13,7 +14,7 @@ from repro_torch.core.dsba import (  # noqa: F401
 )
 from repro_torch.core.solvers import (  # noqa: F401
     CapabilityError, Problem, SolveResult, SolverCapabilities, SolverSpec,
-    available_solvers, get_solver, make_problem, register_solver, solve,
-    solve_many,
+    available_solvers, clear_runner_caches, get_solver, make_problem,
+    register_solver, runner_cache_stats, solve, solve_many,
 )
 from repro_torch.core import mixing, baselines, reference, solvers  # noqa: F401

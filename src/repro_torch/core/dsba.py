@@ -13,6 +13,11 @@ coef = -a_eff*g for the DSBA iterate). A step calls ``sparse_axpy`` 4
 times and ``sparse_dot`` once, for both methods. The tail coordinates stay
 plain torch. The step keeps its step counter on the device and selects the
 t = 0 branch with ``torch.where``, so it never waits on the device.
+
+alpha and lam reach the step as tensors in the data dtype (``step_hp``, or
+a (B,) batch of alphas from ``solve_many``), and every state tensor may
+carry a leading batch axis: the kernels then take the B*N rows in one
+launch, so a grid step launches what one run's step launches.
 """
 from __future__ import annotations
 
@@ -53,7 +58,12 @@ class DSBAConfig:
 
 
 def _axpy(vec, idx, val, coef, rho):
-    return dispatch("sparse_axpy", vec, idx, val, coef, rho)
+    """``sparse_axpy`` on the flattened rows of (*lead, N, ...) operands."""
+    out = dispatch(
+        "sparse_axpy", vec.reshape(-1, vec.shape[-1]), idx.reshape(-1, idx.shape[-1]),
+        val.reshape(-1, val.shape[-1]), coef.reshape(-1), rho,
+    )
+    return out.reshape(vec.shape)
 
 
 def init_state(cfg: DSBAConfig, data, z0: torch.Tensor) -> DSBAState:
@@ -101,98 +111,160 @@ def init_state(cfg: DSBAConfig, data, z0: torch.Tensor) -> DSBAState:
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class StepCoeffs:
+    """The step's scalars from one run's (alpha, lam), on the device.
+
+    ``alpha`` is a tensor of the batch shape ``lead`` (() for one run,
+    (B,) for a ``solve_many`` grid) and ``lam`` a 0-d or, per node, an (N,)
+    tensor, both in the data dtype: every product of two hyperparameters
+    is taken on the device in that dtype, so one run alone and the same run
+    inside a batch compute the same bits. The per-node fields have shape
+    ``lead + (1,)`` (or ``lead + (N,)`` with per-node lam): they broadcast
+    against (*lead, N) per-node vectors, and with one more trailing axis
+    against (*lead, N, D) rows.
+    """
+
+    alpha: torch.Tensor
+    neg_alpha: torch.Tensor
+    alpha_scale: torch.Tensor  # alpha * (q - 1) / q
+    al: torch.Tensor  # alpha * lam
+    opal: torch.Tensor  # 1 + alpha * lam
+    rho: torch.Tensor  # 1 / (1 + alpha * lam)
+    neg_a_eff: torch.Tensor  # -(rho * alpha)
+    a_eff: torch.Tensor
+    rho_rows: torch.Tensor  # (R,) rho per kernel row, R = prod(lead) * N
+    ones: torch.Tensor  # (R,)
+    node: torch.Tensor  # (N,) node index
+
+
+def step_coeffs(alpha: torch.Tensor, lam: torch.Tensor, n: int, q: int) -> StepCoeffs:
+    """``StepCoeffs`` for ``n`` nodes of ``q`` samples (see the class)."""
+    lead = tuple(alpha.shape)
+    a = alpha[..., None]
+    al = a * lam
+    opal = 1.0 + al
+    rho = 1.0 / opal
+    a_eff = rho * a
+    rows = int(np.prod(lead, dtype=np.int64)) * n
+    return StepCoeffs(
+        alpha=a,
+        neg_alpha=-a,
+        alpha_scale=a * ((q - 1.0) / q),
+        al=al,
+        opal=opal,
+        rho=rho,
+        neg_a_eff=-a_eff,
+        a_eff=a_eff,
+        rho_rows=rho.expand(*lead, n).reshape(rows).contiguous(),
+        ones=torch.ones((rows,), dtype=alpha.dtype, device=alpha.device),
+        node=torch.arange(n, device=alpha.device),
+    )
+
+
+def xsq_table(data) -> torch.Tensor:
+    """(N, q) squared norms of the sample rows, built once a dataset and
+    kept in ``data.derived``: the step gathers its (N,) ``xsq`` from it, so
+    a run's values do not depend on how many runs share the launch."""
+    if "xsq" not in data.derived:
+        data.derived["xsq"] = torch.sum(data.val * data.val, dim=-1)
+    return data.derived["xsq"]
+
+
 def dsba_step(
     cfg: DSBAConfig,
-    data_idx: torch.Tensor,
-    data_val: torch.Tensor,
-    data_y: torch.Tensor,
+    data,
     state: DSBAState,
     i_t: torch.Tensor,
     mix_0: torch.Tensor,
     mix_t: torch.Tensor,
+    c: StepCoeffs,
 ) -> DSBAState:
-    """One iteration of Algorithm 1 on every node simultaneously.
+    """One iteration of Algorithm 1 on every node (of every run) at once.
 
-    i_t: (N,) int64 sample indices of this step. mix_0 and mix_t are the
-    (N, D) neighbor-mixing terms: ``W @ Z`` for the t = 0 step (eq. 31) and
-    ``W~ @ (2Z - Z_prev)`` for t >= 1 (eq. 29). ``make_step_fn`` takes them
-    through a comm backend; the sparse relay passes its reconstructed rows
-    as both. ``cfg`` comes from ``device_config``.
+    ``cfg`` gives the operator family and the method; the step sizes come
+    from ``c`` (``step_coeffs``). ``data`` is a ``convert.TensorDataset``.
+    The state's tensors carry a batch shape ``lead`` in front of the node
+    axis (``lead = ()`` for one run): z is (*lead, N, D), the tables
+    (*lead, N, q[, t]), the step counter ``lead``. i_t: (*lead, N) int64
+    sample indices of this step. mix_0 and mix_t are the (*lead, N, D)
+    neighbor-mixing terms: ``W @ Z`` for the t = 0 step (eq. 31) and
+    ``W~ @ (2Z - Z_prev)`` for t >= 1 (eq. 29). ``make_hp_step_fn`` takes
+    them through a comm backend; the sparse relay passes its reconstructed
+    rows as both. The sparse kernels see the prod(lead) * N rows as one
+    launch; every other operation is elementwise or a per-row gather, so a
+    run's bits do not depend on the batch it rides in.
     """
-    spec, alpha, lam = cfg.spec, cfg.alpha, cfg.lam
-    n, q, k = data_idx.shape
+    spec = cfg.spec
+    q = data.idx.shape[1]
     t = spec.tail_dim
-    d = state.z.shape[1] - t
-    dt, dev = state.z.dtype, state.z.device
-    per_node = isinstance(lam, torch.Tensor)
-    lam_col = lam[:, None] if per_node else lam
-    rho = 1.0 / (1.0 + alpha * lam)
-    a_eff = rho * alpha
-    ones = torch.ones((n,), dtype=dt, device=dev)
-    rows = torch.arange(n, device=dev)
-    idx_s = data_idx[rows, i_t]  # (N, k)
-    val_s = data_val[rows, i_t]  # (N, k)
-    y_s = data_y[rows, i_t]  # (N,)
-    c_s = state.table_g[rows, i_t]  # (N,)
-    ct_s = state.table_tail[rows, i_t]  # (N, t)
+    d = state.z.shape[-1] - t
+    idx_s = data.idx[c.node, i_t]  # (*lead, N, k)
+    val_s = data.val[c.node, i_t]  # (*lead, N, k)
+    y_s = data.y[c.node, i_t]  # (*lead, N)
+    xsq = xsq_table(data)[c.node, i_t]  # (*lead, N); == 1 for normalized rows
+    c_s = state.table_g.gather(-1, i_t[..., None])[..., 0]  # (*lead, N)
+    t_idx = i_t[..., None, None].expand(*i_t.shape, 1, t)
+    ct_s = state.table_tail.gather(-2, t_idx)[..., 0, :]  # (*lead, N, t)
 
-    is0 = state.step == 0
+    is0 = (state.step == 0)[..., None, None]
 
-    def add_sparse(vec, idxs, vals, coef, tail, rho_vec=ones):
-        """rho*vec + coef * x (+) tail, batched over nodes."""
-        out = _axpy(vec, idxs, vals, coef, rho_vec)
+    def add_sparse(vec, idxs, vals, coef, tail, rho_rows=c.ones):
+        """rho*vec + coef * x (+) tail, one launch over every row."""
+        out = _axpy(vec, idxs, vals, coef, rho_rows)
         if t:
-            out[:, d:] = out[:, d:] + tail
+            out[..., d:] = out[..., d:] + tail
         return out
 
     # ---- psi (eq. 29 generalized; eq. 31 at t = 0) -------------------------
-    scale = (q - 1.0) / q
-    psi_t = mix_t + alpha * lam_col * state.z
+    psi_t = mix_t + c.al[..., None] * state.z
     psi_t = add_sparse(
         psi_t,
         state.didx_prev,
         state.dval_prev,
-        alpha * scale * state.dg_prev,
-        alpha * scale * state.dtail_prev,
+        c.alpha_scale * state.dg_prev,
+        c.alpha_scale[..., None] * state.dtail_prev,
     )
-    psi_0 = mix_0 - alpha * state.phibar
+    psi_0 = mix_0 - c.alpha[..., None] * state.phibar
     psi = torch.where(is0, psi_0, psi_t)
-    psi = add_sparse(psi, idx_s, val_s, alpha * c_s, alpha * ct_s)
-
-    xsq = torch.sum(val_s * val_s, dim=-1)  # == 1 for normalized rows
+    psi = add_sparse(psi, idx_s, val_s, c.alpha * c_s, c.alpha[..., None] * ct_s)
 
     if cfg.method == "dsba":
         # backward step: z^{t+1} = J_{alpha B^lam_{n,i}}(psi)  (eq. 30);
         # the gather reads head columns only (idx < d), so psi needs no slice
-        s = dispatch("sparse_dot", psi, idx_s, val_s)
-        rho_col = rho[:, None] if per_node else rho
+        s = dispatch(
+            "sparse_dot", psi.reshape(-1, psi.shape[-1]), idx_s.reshape(-1, idx_s.shape[-1]),
+            val_s.reshape(-1, val_s.shape[-1]),
+        ).reshape(y_s.shape)
         g_new, tail_z = spec.resolvent_coeff_and_tail(
-            rho * s, rho_col * psi[:, d:], y_s, a_eff, xsq
+            c.rho * s, c.rho[..., None] * psi[..., d:], y_s, c.a_eff, xsq
         )
-        rho_vec = rho if per_node else torch.full((n,), rho, dtype=dt, device=dev)
-        z_new = _axpy(psi, idx_s, val_s, -a_eff * g_new, rho_vec)
+        z_new = _axpy(psi, idx_s, val_s, c.neg_a_eff * g_new, c.rho_rows)
         if t:
-            z_new[:, d:] = tail_z
+            z_new[..., d:] = tail_z
         # operator outputs at the NEW point (for delta + table, Alg.1 l.7-8)
-        u_new = rho * s - a_eff * g_new * xsq
+        u_new = c.rho * s - c.a_eff * g_new * xsq
         g_upd, tail_upd = spec.coeff_and_tail(u_new, y_s, tail_z)
     elif cfg.method == "dsa":
         # forward step: delta at z^t (eq. 32); no resolvent
-        u_cur = dispatch("sparse_dot", state.z, idx_s, val_s)
-        g_upd, tail_upd = spec.coeff_and_tail(u_cur, y_s, state.z[:, d:])
-        lam_pt = torch.where(is0, state.z, 2.0 * state.z - state.z_prev)
-        z_new = psi - alpha * lam_col * lam_pt
-        z_new = add_sparse(z_new, idx_s, val_s, -alpha * g_upd, -alpha * tail_upd)
+        z = state.z
+        u_cur = dispatch(
+            "sparse_dot", z.reshape(-1, z.shape[-1]), idx_s.reshape(-1, idx_s.shape[-1]),
+            val_s.reshape(-1, val_s.shape[-1]),
+        ).reshape(y_s.shape)
+        g_upd, tail_upd = spec.coeff_and_tail(u_cur, y_s, z[..., d:])
+        lam_pt = torch.where(is0, z, 2.0 * z - state.z_prev)
+        z_new = psi - c.al[..., None] * lam_pt
+        z_new = add_sparse(z_new, idx_s, val_s, c.neg_alpha * g_upd,
+                           c.neg_alpha[..., None] * tail_upd)
     else:
         raise ValueError(cfg.method)
 
     # ---- delta, table, phibar updates --------------------------------------
     dg = g_upd - c_s
     dtail = tail_upd - ct_s
-    table_g = state.table_g.clone()
-    table_g[rows, i_t] = g_upd
-    table_tail = state.table_tail.clone()
-    table_tail[rows, i_t] = tail_upd
+    table_g = state.table_g.scatter(-1, i_t[..., None], g_upd[..., None])
+    table_tail = state.table_tail.scatter(-2, t_idx, tail_upd[..., None, :])
     phibar = add_sparse(state.phibar, idx_s, val_s, dg / q, dtail / q)
 
     return DSBAState(
@@ -209,35 +281,59 @@ def dsba_step(
     )
 
 
-def device_config(cfg: DSBAConfig, dtype, device) -> DSBAConfig:
-    """``cfg`` as ``dsba_step`` takes it: a float ``alpha``, and ``lam`` a
-    float or, per node, an (N,) tensor on ``device``."""
-    if np.ndim(cfg.lam) > 0:
-        lam = torch.as_tensor(np.asarray(cfg.lam), dtype=dtype, device=device)
-    else:
-        lam = float(cfg.lam)
-    return dataclasses.replace(cfg, alpha=float(cfg.alpha), lam=lam)
+def step_hp(cfg: DSBAConfig, dtype, device) -> dict:
+    """``cfg``'s (alpha, lam) as a step takes them: tensors in ``dtype`` on
+    ``device`` (alpha 0-d; lam 0-d or, per node, (N,))."""
+    return {
+        "alpha": torch.tensor(float(cfg.alpha), dtype=dtype, device=device),
+        "lam": torch.as_tensor(np.asarray(cfg.lam, dtype=np.float64), dtype=dtype,
+                               device=device),
+    }
 
 
-def make_step_fn(cfg: DSBAConfig, data, w: np.ndarray, comm):
-    """The local-update closure ``step(state, i_t) -> state``.
+def coeffs_memo(n: int, q: int):
+    """``coeffs(hp) -> StepCoeffs`` that rebuilds only when handed another
+    hp dict: a run passes one dict every step, so its coefficients are
+    computed on the device once a run."""
+    memo = {}
+
+    def coeffs(hp) -> StepCoeffs:
+        if memo.get("hp") is not hp:
+            memo["hp"], memo["c"] = hp, step_coeffs(hp["alpha"], hp["lam"], n, q)
+        return memo["c"]
+
+    return coeffs
+
+
+def make_hp_step_fn(cfg: DSBAConfig, data, w: np.ndarray, comm):
+    """The local-update closure ``step(state, i_t, hp) -> state``.
 
     ``data`` is a ``convert.TensorDataset``; ``comm`` a ``core.comm``
     backend, through whose ``matvec`` both neighbor-mixing products run
-    (the mixing matrices go to the device once).
+    (the mixing matrices go to the device once). ``hp`` holds ``alpha``
+    and ``lam`` as tensors (``step_hp``, or a batch of alphas from
+    ``solve_many``); ``cfg``'s own values are not read.
     """
-    dt, dev = data.val.dtype, data.val.device
-    cfg = device_config(cfg, dt, dev)
+    dt = data.val.dtype
     w_mix = comm.matvec(w, dt)
     wt_mix = comm.matvec(w_tilde(np.asarray(w)), dt)
+    coeffs = coeffs_memo(data.val.shape[0], data.val.shape[1])
 
-    def step(state: DSBAState, i_t: torch.Tensor) -> DSBAState:
+    def step(state: DSBAState, i_t: torch.Tensor, hp) -> DSBAState:
         return dsba_step(
-            cfg, data.idx, data.val, data.y, state, i_t,
-            w_mix(state.z), wt_mix(2.0 * state.z - state.z_prev),
+            cfg, data, state, i_t,
+            w_mix(state.z), wt_mix(2.0 * state.z - state.z_prev), coeffs(hp),
         )
 
     return step
+
+
+def make_step_fn(cfg: DSBAConfig, data, w: np.ndarray, comm):
+    """``step(state, i_t) -> state`` with ``cfg``'s alpha and lam (see
+    ``make_hp_step_fn``)."""
+    step = make_hp_step_fn(cfg, data, w, comm)
+    hp = step_hp(cfg, data.val.dtype, data.val.device)
+    return lambda state, i_t: step(state, i_t, hp)
 
 
 def draw_indices(steps: int, n_nodes: int, q: int, seed: int = 0) -> np.ndarray:

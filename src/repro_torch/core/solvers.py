@@ -15,11 +15,19 @@ method's ``comm_rounds`` hook says otherwise). ``available_solvers()``
 returns each method's capability record, the reference's field by field,
 and ``solve()`` raises ``CapabilityError`` outside it.
 
-PyTorch runs eagerly, so there is no compiled-runner cache: ``solve`` loops
-over the iterations in Python on the chosen device (CUDA unless the caller
-passes ``device="cpu"``). A solver's step counter is a host integer in its
-state, so the ``t == 0`` and communication-round branches are host
-branches and no step waits on the device.
+PyTorch runs eagerly: ``solve`` loops over the iterations in Python on the
+chosen device (CUDA unless the caller passes ``device="cpu"``). A solver's
+step counter is a host integer in its state, so the ``t == 0`` and
+communication-round branches are host branches and no step waits on the
+device. What a call would redo every time (the dataset on the device, the
+dense features, SSDA's factorization, the relay's tables, the bound step
+and read-out) lives in a keyed runner cache (``core.runner_cache``;
+``runner_cache_stats()``, ``clear_runner_caches()``): hyperparameter
+VALUES are call arguments (``SolverSpec``), so a sweep over them reuses
+one runner. ``solve_many`` runs a whole grid (and/or seed list) as ONE
+batched computation: every state tensor gains a leading B axis, the
+hyperparameters become (B,) tensors, and each step launches what one run's
+step launches (the DSBA/DSA sparse kernels take the B*N rows at once).
 
 Dynamic networks and faults run through the same ``solve()``, as in the
 JAX package: a ``Problem.schedule`` of (start, Graph-or-W) segments
@@ -35,7 +43,7 @@ recorder, and ``solve(resume=directory)`` continues bit-equal to an
 uninterrupted run (dense and sparse), in the JAX package's checkpoint
 layout. Not ported yet, and raising ``NotImplementedError`` rather than
 taking another path: ``comm="sharded"`` with its fault and schedule
-branches (ROADMAP Queue 1 item 10) and ``solve_many`` (item 8).
+branches (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -53,14 +61,16 @@ from repro_torch.ckpt.checkpoint import (  # noqa: F401  (re-exported)
     restore_checkpoint,
 )
 from repro_torch.convert import dataset_to_torch
-from repro_torch.core import reference
+from repro_torch.core import reference, runner_cache
 from repro_torch.core.comm import DenseComm, FaultyDenseComm
-from repro_torch.core.dsba import DSBAConfig, draw_indices, init_state, make_step_fn
+from repro_torch.core.dsba import DSBAConfig, draw_indices, init_state, make_hp_step_fn
 from repro_torch.core.mixing import Graph, laplacian_mixing, spectral_gap, w_tilde
 from repro_torch.core.operators import (
     FAMILIES, MINIMIZATION_FAMILIES, OperatorSpec, logistic_coeff_prime,
 )
-from repro_torch.core.sparse_comm import dense_doubles_per_iter, run_sparse
+from repro_torch.core.sparse_comm import (
+    batch_tree, dense_doubles_per_iter, run_sparse, run_sparse_many,
+)
 from repro_torch.device import resolve_device
 from repro_torch.ft.faults import (  # noqa: F401  (re-exported)
     ChurnEvent,
@@ -79,7 +89,6 @@ from repro_torch.ft.faults import (  # noqa: F401  (re-exported)
 COMM_BACKENDS = ("dense", "sparse", "sharded")
 _NOT_PORTED = {
     "sharded": "comm='sharded' is not ported yet (ROADMAP Queue 1 item 10)",
-    "solve_many": "solve_many is not ported yet (ROADMAP Queue 1 item 8)",
 }
 #: per-backend comm_options schema enforced by ``_validate_options``
 _COMM_OPTION_KEYS = {
@@ -245,18 +254,46 @@ def make_problem(
 class SolverSpec:
     """One solver's contract with ``solve()``.
 
+    ``init``/``step``/``z_of`` are *factories* over ``(problem, hp, data,
+    comm)``, run once per cached runner (``data`` is the runner's
+    ``convert.TensorDataset``). Hyperparameter VALUES are not baked: at
+    factory time ``hp`` is a ``_FactoryHP`` that resolves the static names
+    only, and the functions a factory returns receive the run's
+    hyperparameters as a final ``hp_run`` argument, so a sweep over values
+    reuses one runner:
+
     - ``init(problem, hp, data, z0) -> state``: initial state on z0's
-      device (``data`` is the run's ``convert.TensorDataset``).
-    - ``step(problem, hp, data, comm) -> fn(state, i_t) -> state``: one
-      iteration; ``i_t`` is the (N,) sample draw (deterministic methods
+      device.
+    - ``step(problem, hp, data, comm) -> fn(state, i_t, hp_run) -> state``:
+      one iteration; ``i_t`` is the (N,) sample draw (deterministic methods
       ignore it); all neighbor exchange goes through ``comm.matvec``.
-    - ``z_of(problem, hp, data, comm) -> fn(state) -> (N, D)``: the iterate
-      read-out (SSDA's is a real computation, hence a factory).
+      ``hp_run`` carries every non-static hyperparameter plus ``"lam"``
+      (unless ``bake_lam``), as tensors in the data dtype on the run's
+      device: 0-d for one run, (B,) for a ``solve_many`` batch, whose state
+      tensors carry a leading B axis (``lam`` is shared: 0-d, or (N,) per
+      node). Names in ``host_hp`` arrive as host numbers instead (one, or
+      a tuple of B).
+    - ``z_of(problem, hp, data, comm) -> fn(state, hp_run) -> (N, D)``: the
+      iterate read-out (SSDA's is a real computation, hence a factory);
+      (B, N, D) for a batch.
     - ``defaults``: hyperparameters with default values (also the schema:
       ``solve()`` rejects unknown overrides).
+    - ``static_hp``: names of structural hyperparameters (loop counts)
+      baked at factory time; they join the runner cache key, and a
+      ``solve_many`` grid varying one runs sequentially.
+    - ``bake_lam``: bake ``problem.lam`` at factory time (SSDA's
+      factorization is built around it); lam then joins the key.
+    - ``host_hp``: names whose values decide host control flow (Mudag's
+      ``gossip_rounds``, sliding's ``comm_period``): passed as host
+      numbers, not tensors.
     - ``sparse_run``: optional ``(problem, hp, steps, indices, z0, options,
       device) -> SparseRunResult`` (the relay); ``None`` = no sparse
       protocol.
+    - ``sparse_run_many``: optional ``(problem, merged, steps, idx_b, z0,
+      options, device) -> list[SparseRunResult] | None`` (``merged``: one
+      resolved hp dict a run; ``idx_b``: (B, >= steps, N) streams); ``None``
+      declines the batch (``engine="reference"``) and ``solve_many`` runs
+      the entries sequentially.
     - ``problem_families``: operator families the method supports.
     - ``supports_sharded``: the step is safe under the sharded backend.
     - ``comm_rounds``: optional ``(hp, cumulative iterations) ->
@@ -280,6 +317,10 @@ class SolverSpec:
     z_of: Callable
     defaults: Mapping[str, float]
     sparse_run: Callable | None = None
+    sparse_run_many: Callable | None = None
+    static_hp: tuple[str, ...] = ()
+    bake_lam: bool = False
+    host_hp: tuple[str, ...] = ()
     problem_families: tuple[str, ...] = ("ridge", "logistic", "auc")
     supports_sharded: bool = True
     comm_rounds: Callable | None = None
@@ -456,6 +497,172 @@ def available_solvers() -> dict[str, SolverCapabilities]:
 
 
 # ---------------------------------------------------------------------------
+# Runner cache: one bound runner per (method, problem shape, device); the
+# hyperparameter values are call arguments, so a sweep builds once.
+# ---------------------------------------------------------------------------
+
+
+class TracedHPError(KeyError):
+    """A factory read a per-run hyperparameter at build time."""
+
+    def __str__(self):
+        """The message verbatim (KeyError would repr-quote it)."""
+        return self.args[0]
+
+
+class _FactoryHP(Mapping):
+    """Factory-time view of the hyperparameters: the *static* names only.
+
+    Static names resolve to their values (they are part of the cache key);
+    as a Mapping this contains nothing else, so ``in`` / ``.get`` /
+    iteration answer honestly. Subscripting a per-run name raises
+    ``TracedHPError`` (a KeyError) with a pointer to the ``hp_run``
+    argument: a factory can never bake a value that later sweep calls
+    would then reuse stale. (The error's wording is the JAX package's.)
+    """
+
+    def __init__(self, values: Mapping[str, float], static: tuple[str, ...]):
+        self._values = dict(values)
+        self._static = frozenset(static) & set(self._values)
+
+    def __getitem__(self, name: str):
+        if name in self._static:
+            return self._values[name]
+        if name in self._values:
+            raise TracedHPError(
+                f"hyperparameter {name!r} is runtime-traced; read it from "
+                "the hp argument inside the step/z_of function, or declare "
+                "it in SolverSpec.static_hp"
+            )
+        raise KeyError(name)
+
+    def __iter__(self):
+        return iter(k for k in self._values if k in self._static)
+
+    def __len__(self):
+        return len(self._static)
+
+
+def _dynamic_hp(spec: SolverSpec, problem: Problem, hp: Mapping, dt, dev,
+                merged: list[Mapping] | None = None) -> dict:
+    """The per-run hp dict: non-static names + lam (unless baked).
+
+    Each value is a tensor in the data dtype ``dt`` on ``dev`` (0-d; with
+    ``merged``, one value a batch entry, shape (B,)), so one run and a
+    batch share one arithmetic; ``host_hp`` names stay host floats (a
+    tuple with ``merged``).
+    """
+    dyn = {}
+    for k in hp:
+        if k in spec.static_hp:
+            continue
+        vals = [float(hp[k])] if merged is None else [float(m[k]) for m in merged]
+        if k in spec.host_hp:
+            dyn[k] = vals[0] if merged is None else tuple(vals)
+        else:
+            dyn[k] = torch.tensor(vals[0] if merged is None else vals, dtype=dt, device=dev)
+    if not spec.bake_lam:  # 0-d, or (N,) per node
+        dyn["lam"] = torch.as_tensor(np.asarray(problem.lam, dtype=np.float64), dtype=dt,
+                                     device=dev)
+    return dyn
+
+
+def _runner_key(spec: SolverSpec, problem: Problem, hp: Mapping, dev):
+    """(key, guards) for one (method, problem shape, static-hp structure,
+    device).
+
+    The dataset enters by identity (guarded by a strong reference in the
+    entry); the mixing matrix by content fingerprint, so problems rebuilt
+    per sweep point (same data/graph, fresh equal W, different lam) share
+    one runner. Hyperparameter *values* never enter the key; only the
+    static structure does.
+    """
+    key = (
+        spec.name,
+        runner_cache.problem_fingerprint(
+            problem.data, problem.spec, problem.graph, problem.w, dev
+        ),
+        tuple((k, float(hp[k])) for k in spec.static_hp),
+        float(problem.lam) if spec.bake_lam else None,
+    )
+    return key, (problem.data,)
+
+
+@dataclasses.dataclass
+class _DenseRunner:
+    """One bound dense-backend runner: the device data and the closures."""
+
+    init: Callable  # (z0) -> state
+    step: Callable  # (state, i_t, hp_run) -> state
+    z_read: Callable  # (state, hp_run) -> (N, D)
+    comm: DenseComm
+    data: Any  # convert.TensorDataset
+
+
+def _build_dense_runner(spec, problem, hp, dev, comm) -> _DenseRunner:
+    """Bind ``spec``'s factories on ``problem``'s data on ``dev``."""
+    runner_cache.DENSE.note_trace()  # build-time only: the step's binding
+    data = dataset_to_torch(problem.data, dev)
+    fhp = _FactoryHP(hp, spec.static_hp)
+    step_fn = spec.step(problem, fhp, data, comm)
+    runner_cache.DENSE.note_trace()  # and the read-out's
+    z_fn = spec.z_of(problem, fhp, data, comm)
+    return _DenseRunner(
+        init=lambda z0: spec.init(problem, fhp, data, z0),
+        step=step_fn, z_read=z_fn, comm=comm, data=data,
+    )
+
+
+def _get_dense_runner(spec: SolverSpec, problem: Problem, hp: Mapping, dev):
+    """Fetch (or build) the dense runner for this (spec, problem, hp, dev)."""
+    key, guards = _runner_key(spec, problem, hp, dev)
+    return runner_cache.DENSE.get_or_build(
+        key, guards,
+        lambda: _build_dense_runner(spec, problem, hp, dev, DenseComm(problem.graph, dev)),
+    )
+
+
+def _get_dense_fault_runner(spec: SolverSpec, problem: Problem, hp: Mapping, dev,
+                            *, has_link: bool, has_straggler: bool):
+    """Fetch (or build) the fault-injecting dense runner: its comm is a
+    ``FaultyDenseComm`` to which each run binds its own masks."""
+    base_key, guards = _runner_key(spec, problem, hp, dev)
+    key = base_key + (runner_cache.fault_fingerprint(has_link, has_straggler),)
+    return runner_cache.DENSE.get_or_build(
+        key, guards,
+        lambda: _build_dense_runner(spec, problem, hp, dev, FaultyDenseComm(problem.graph, dev)),
+    )
+
+
+def _phase_runner(spec, problem, hp, dev, link_mask, strag_mask) -> _DenseRunner:
+    """The runner for one static stretch of a run: the plain one when no
+    mask has a False entry, else the fault runner with the masks bound."""
+    if link_mask is None and strag_mask is None:
+        return _get_dense_runner(spec, problem, hp, dev)
+    runner = _get_dense_fault_runner(
+        spec, problem, hp, dev,
+        has_link=link_mask is not None, has_straggler=strag_mask is not None,
+    )
+
+    def up(m):
+        return None if m is None else torch.as_tensor(m, device=dev)
+
+    runner.comm.bind(up(link_mask), up(strag_mask))
+    return runner
+
+
+def runner_cache_stats() -> dict[str, dict[str, int]]:
+    """{cache name: {hits, misses, traces, evictions, size}} per runner cache."""
+    return runner_cache.stats()
+
+
+def clear_runner_caches() -> None:
+    """Drop every cached runner (and the device tensors it holds) and zero
+    the stats."""
+    runner_cache.clear()
+
+
+# ---------------------------------------------------------------------------
 # SolveResult + the metrics recorder
 # ---------------------------------------------------------------------------
 
@@ -518,7 +725,10 @@ class _Recorder:
         self.zs: list[np.ndarray] | None = [] if keep_snapshots else None
 
     def push(self, it: int, z, z_star=None) -> None:
-        """Record consensus / distance-to-z* of (N, D) iterates at step ``it``.
+        """Record consensus / distance-to-z* of iterates at step ``it``.
+
+        ``z`` is (N, D), or (B, N, D) for a ``solve_many`` batch: the metrics
+        reduce over the trailing (N, D) axes either way.
 
         ``z_star`` overrides the recorder's root for this push: churn
         phases measure dist2 against the current membership's own root
@@ -536,12 +746,26 @@ class _Recorder:
             self.zs.append(z)
 
     def arrays(self) -> tuple[np.ndarray, np.ndarray, np.ndarray, Any]:
-        """(iters, dist2, consensus, zs) as numpy arrays."""
-        zs = np.stack(self.zs) if self.zs else None
+        """(iters, dist2, consensus, zs) as numpy arrays.
+
+        Pushes of (N, D) iterates give (R,) metrics and (R, N, D)
+        snapshots; pushes of a (B, N, D) batch give (B, R) metrics and
+        (B, R, N, D) snapshots.
+        """
+
+        def stack_metric(vals):
+            a = np.asarray(vals)  # (R,) or (R, B)
+            return a if a.ndim == 1 else np.moveaxis(a, 0, 1)
+
+        zs = None
+        if self.zs:
+            zs = np.stack(self.zs)  # (R, [B,] N, D)
+            if zs.ndim == 4:
+                zs = np.moveaxis(zs, 0, 1)
         return (
             np.asarray(self.iters),
-            np.asarray(self.dist2) if self.dist2 else np.zeros(0),
-            np.asarray(self.consensus),
+            stack_metric(self.dist2) if self.dist2 else np.zeros(0),
+            stack_metric(self.consensus),
             zs,
         )
 
@@ -779,26 +1003,14 @@ def _static_fault_masks(plan, graph, steps: int, start: int = 0):
     return link_mask, strag_mask
 
 
-def _dense_comm(graph: Graph, device, link_mask, strag_mask):
-    """The phase's comm backend: ``FaultyDenseComm`` with its masks on the
-    device (one copy each) when a mask is set, else ``DenseComm``."""
-    if link_mask is None and strag_mask is None:
-        return DenseComm(graph, device)
-
-    def up(m):
-        return None if m is None else torch.as_tensor(m, device=device)
-
-    return FaultyDenseComm(graph, device, link=up(link_mask), deliv=up(strag_mask))
-
-
-def _advance(state, step_fn, comm, idx_t, lo: int, hi: int):
+def _advance(state, step_fn, comm, idx_t, lo: int, hi: int, hp_run):
     """Steps ``lo..hi-1`` of a phase (``idx_t`` rows and mask rows are the
     phase's own)."""
     faulty = isinstance(comm, FaultyDenseComm)
     for t in range(lo, hi):
         if faulty:
             comm.begin_step(t)
-        state = step_fn(state, idx_t[t])
+        state = step_fn(state, idx_t[t], hp_run)
     return state
 
 
@@ -1062,13 +1274,12 @@ def solve(
             sched_x, plan, dev,
         )
 
-    # ---- dense backend: an eager loop on the device -------------------------
+    # ---- dense backend: a cached runner, an eager loop on the device --------
     t0 = time.perf_counter()
     link_mask, strag_mask = _static_fault_masks(plan, problem.graph, steps)
-    tdata = dataset_to_torch(data, dev)
-    comm_b = _dense_comm(problem.graph, dev, link_mask, strag_mask)
-    step_fn = spec.step(problem, hp, tdata, comm_b)
-    z_read = spec.z_of(problem, hp, tdata, comm_b)
+    runner = _phase_runner(spec, problem, hp, dev, link_mask, strag_mask)
+    dt = runner.data.val.dtype
+    hp_run = _dynamic_hp(spec, problem, hp, dt, dev)
     idx_t = torch.as_tensor(indices[:steps], dtype=torch.long, device=dev)
     z0_t = torch.as_tensor(np.asarray(z0), device=dev)
     mgr = None
@@ -1077,19 +1288,19 @@ def solve(
     start = 0
     if resume is not None:
         state, start = _restore_dense(
-            resume, spec.init(problem, hp, tdata, z0_t), rec, method=method,
+            resume, runner.init(z0_t), rec, method=method,
             comm=comm, record_every=record_every, steps=steps,
         )
     else:
-        state = spec.init(problem, hp, tdata, z0_t)
+        state = runner.init(z0_t)
     prev = start
     z_final = None
     for pt in pts:
         if pt <= start:
             continue  # covered by the restored checkpoint
-        state = _advance(state, step_fn, comm_b, idx_t, prev, pt)
+        state = _advance(state, runner.step, runner.comm, idx_t, prev, pt, hp_run)
         prev = pt
-        z_final = z_read(state).cpu().numpy()
+        z_final = runner.z_read(state, hp_run).cpu().numpy()
         rec.push(pt, z_final)
         if mgr is not None and pt % checkpoint.every == 0:
             mgr.save(pt, {"state": state},
@@ -1098,7 +1309,7 @@ def solve(
         mgr.wait()
     if z_final is None:
         # resumed at (or past) the final record point: nothing to re-run
-        z_final = z_read(state).cpu().numpy()
+        z_final = runner.z_read(state, hp_run).cpu().numpy()
     wall = time.perf_counter() - t0
 
     iters, dist2, cons, zs = rec.arrays()
@@ -1202,8 +1413,8 @@ def _solve_phased(spec, method, phases, hp, steps, pts, rec, indices, z0,
                   sched_x, plan, dev) -> SolveResult:
     """Dense execution of a multi-phase (dynamic-network) run.
 
-    Each phase builds its own step on its own W (and, after churn, its own
-    data), carrying the state across boundaries: as-is for a W switch,
+    Each phase runs through its own cached runner on its own W (and, after
+    churn, its own data), carrying the state across boundaries: as-is for a W switch,
     elastically remapped for churn. A fault plan's masks are resolved per
     phase against the phase graph (their seeds fold the phase's global
     start, so the stream is one continuous draw), and a phase's straggler
@@ -1232,12 +1443,10 @@ def _solve_phased(spec, method, phases, hp, steps, pts, rec, indices, z0,
         if state is not None:
             state = _elastic_remap(state, ph, n_prev, spec)
         link_mask, strag_mask = _static_fault_masks(plan, p.graph, seg, start=ph.start)
-        tdata = dataset_to_torch(p.data, dev)
-        comm_b = _dense_comm(p.graph, dev, link_mask, strag_mask)
-        step_fn = spec.step(p, hp, tdata, comm_b)
-        z_read = spec.z_of(p, hp, tdata, comm_b)
+        runner = _phase_runner(spec, p, hp, dev, link_mask, strag_mask)
+        hp_run = _dynamic_hp(spec, p, hp, runner.data.val.dtype, dev)
         if state is None:
-            state = spec.init(p, hp, tdata, torch.as_tensor(np.asarray(z0), device=dev))
+            state = runner.init(torch.as_tensor(np.asarray(z0), device=dev))
         idx_t = torch.as_tensor(indices[ph.start:ph.end][:, ph.cols],
                                 dtype=torch.long, device=dev)
         rdiff_ph = np.diff(
@@ -1251,11 +1460,11 @@ def _solve_phased(spec, method, phases, hp, steps, pts, rec, indices, z0,
         marks = sorted({pt for pt in pts if ph.start < pt <= ph.end} | {ph.end})
         prev = ph.start
         for mk in marks:
-            state = _advance(state, step_fn, comm_b, idx_t,
-                             prev - ph.start, mk - ph.start)
+            state = _advance(state, runner.step, runner.comm, idx_t,
+                             prev - ph.start, mk - ph.start, hp_run)
             prev = mk
             if mk in record_set:
-                z_final = z_read(state).cpu().numpy()
+                z_final = runner.z_read(state, hp_run).cpu().numpy()
                 rec.push(mk, z_final, z_star=p.z_star)
                 snap = cum.copy()
                 snap[ph.row_map] += cum_ph[mk - ph.start - 1]
@@ -1447,9 +1656,287 @@ def _solve_sparse_churn(spec, method, phases, hp, steps, pts, rec, indices,
     )
 
 
-def solve_many(*args, **kwargs):
-    """Batched sweeps: not ported yet."""
-    raise NotImplementedError(_NOT_PORTED["solve_many"])
+def solve_many(
+    problem: Problem,
+    method: str = "dsba",
+    comm: str = "dense",
+    *,
+    steps: int,
+    grid: list[Mapping[str, float]] | None = None,
+    seeds: list[int] | None = None,
+    record_every: int = 50,
+    seed: int = 0,
+    z0: np.ndarray | None = None,
+    indices: np.ndarray | None = None,
+    keep_snapshots: bool = False,
+    comm_options: dict | None = None,
+    device=None,
+    **common_hp,
+) -> SolveResult:
+    """Run a hyperparameter/seed sweep as ONE batched computation.
+
+    The sweep axis B is ``len(grid)`` (per-entry hyperparameter overrides),
+    ``len(seeds)`` (per-entry sample streams), or both (paired: equal
+    lengths required). On the dense backend the whole grid advances in
+    lockstep through the cached runner with the batch written out as a
+    leading axis: every state tensor is (B, ...), the per-run
+    hyperparameters are (B,) tensors, and a step launches what one run's
+    step launches (plus one mixing product a run: ``DenseComm`` takes B
+    same-shape products so each run keeps its own bits). DSBA/DSA runs are
+    bit-equal to their sequential ``solve()``.
+
+    ``comm="sparse"`` batches too (``run_sparse_many``): B relays in
+    lockstep, the closed-form message accounting applied per run after the
+    loop, bit-equal to sequential calls. The entries run one after another
+    through ``solve()`` (each warm after the first) when the grid is not
+    batchable:
+
+    - ``comm="sparse"`` with ``engine="reference"`` (the per-observer
+      oracle loop) or a method without a batched sparse backend;
+    - a grid entry overrides a ``static_hp`` (structural);
+    - a schedule or a fault plan (the batched paths assume one static,
+      fault-free graph for the whole run).
+
+    Returns one ``SolveResult`` whose per-run arrays carry a leading B
+    axis: ``dist2``/``consensus`` are (B, R), ``doubles_received``/
+    ``ints_received`` (B, R, N), ``z`` (B, N, D), ``zs`` (B, R, N, D).
+    ``iters`` stays (R,). ``state`` is the batched state (a list of the
+    runs' states on the sequential route, None on the relay). ``extras``
+    records ``grid``, ``seeds`` and whether the batched path ran
+    (``"batched"``).
+
+    indices: optional explicit sample streams, (>= steps, N) shared by
+    every entry or (B, >= steps, N) per entry; by default ``draw_indices``
+    per entry seed (``seeds[b]``, else the shared ``seed``).
+    device: CUDA unless the caller passes ``"cpu"``.
+    """
+    spec = get_solver(method)
+    if comm not in COMM_BACKENDS:
+        raise ValueError(f"unknown comm backend {comm!r}; one of {COMM_BACKENDS}")
+    fault_plan = as_fault_plan((comm_options or {}).get("fault_plan"))
+    if problem.schedule is not None and fault_plan is not None:
+        raise ValueError(
+            "a graph schedule and a fault_plan cannot be combined in one run"
+        )
+    _check_capability(
+        spec, comm, problem.spec.kind,
+        schedule=problem.schedule is not None and len(problem.schedule) > 1,
+        churn=fault_plan is not None and fault_plan.churn is not None,
+        per_node_lam=np.ndim(problem.lam) > 0,
+        link_faults=fault_plan is not None and fault_plan.link is not None,
+        stragglers=fault_plan is not None and fault_plan.straggler is not None,
+    )
+    _validate_options(comm, comm_options)
+    # dynamic-network and fault-injected runs are per-entry sequential: the
+    # batched paths assume one static fault-free (graph, W, membership)
+    dynamic = problem.schedule is not None or fault_plan is not None
+    if grid is None and seeds is None:
+        raise ValueError("solve_many needs a grid, seeds, or both")
+    entries = [dict(e) for e in grid] if grid is not None else None
+    if entries is not None and seeds is not None and len(entries) != len(seeds):
+        raise ValueError(
+            f"grid ({len(entries)}) and seeds ({len(seeds)}) must pair up"
+        )
+    n_runs = len(entries) if entries is not None else len(seeds)
+    if n_runs < 1:
+        raise ValueError("solve_many needs at least one grid/seed entry")
+    if entries is None:
+        entries = [{} for _ in range(n_runs)]
+    seeds_list = list(seeds) if seeds is not None else [seed] * n_runs
+
+    known = set(spec.defaults)
+    for ent in (common_hp, *entries):
+        unknown = set(ent) - known
+        if unknown:
+            raise TypeError(
+                f"{method!r} got unknown hyperparameters {sorted(unknown)}; "
+                f"accepts {sorted(known)}"
+            )
+    merged = [dict(spec.defaults, **common_hp, **e) for e in entries]
+
+    data = problem.data
+    n, q = data.n_nodes, data.q
+    idx_b = _sweep_indices(indices, n_runs, steps, n, q, seeds_list)
+    if comm == "sharded":
+        raise NotImplementedError(_NOT_PORTED["sharded"])
+    dev = resolve_device(device)
+
+    ragged = any(k in spec.static_hp for e in entries for k in e)
+    if comm == "sparse" and not ragged and not dynamic:
+        res = _solve_many_sparse_batched(
+            problem, method, spec, steps=steps, record_every=record_every,
+            z0=z0, keep_snapshots=keep_snapshots, comm_options=comm_options,
+            merged=merged, entries=entries, seeds=seeds_list, idx_b=idx_b, dev=dev,
+        )
+        if res is not None:
+            return res
+    if comm != "dense" or ragged or dynamic:
+        return _solve_many_sequential(
+            problem, method, comm, steps=steps, record_every=record_every,
+            z0=z0, keep_snapshots=keep_snapshots, comm_options=comm_options,
+            merged=merged, entries=entries, seeds=seeds_list, idx_b=idx_b, dev=dev,
+        )
+
+    # ---- batched path: the cached runner with a leading batch axis --------
+    if steps < 1:
+        raise ValueError("steps must be >= 1")
+    if record_every < 1:
+        raise ValueError("record_every must be >= 1")
+    D = problem.dim
+    if z0 is None:
+        z0 = np.zeros((n, D), dtype=data.val.dtype)
+
+    t0 = time.perf_counter()
+    base_hp = dict(spec.defaults, **common_hp)
+    runner = _get_dense_runner(spec, problem, base_hp, dev)
+    hp_b = _dynamic_hp(spec, problem, base_hp, runner.data.val.dtype, dev, merged=merged)
+    state = batch_tree(runner.init(torch.as_tensor(np.asarray(z0), device=dev)), n_runs)
+    # (steps, B, N): row t is every run's draw of iteration t
+    idx_t = torch.as_tensor(np.ascontiguousarray(idx_b[:, :steps].transpose(1, 0, 2)),
+                            dtype=torch.long, device=dev)
+    pts = _record_points(steps, record_every)
+    rec = _Recorder(problem.z_star, keep_snapshots)
+    prev = 0
+    z_final = None
+    for pt in pts:
+        state = _advance(state, runner.step, runner.comm, idx_t, prev, pt, hp_b)
+        prev = pt
+        z_final = runner.z_read(state, hp_b).cpu().numpy()
+        rec.push(pt, z_final)
+    wall = time.perf_counter() - t0
+
+    iters, dist2, cons, zs = rec.arrays()
+    per_node = dense_doubles_per_iter(problem.graph, D)  # (N,)
+    # rounds may differ per grid entry (e.g. a mudag gossip_rounds sweep)
+    rounds_b = np.stack([_cumulative_rounds(spec, m, iters) for m in merged])
+    doubles = rounds_b[:, :, None] * per_node[None, None, :]
+    return SolveResult(
+        method=method,
+        comm=comm,
+        iters=iters,
+        dist2=dist2,
+        consensus=cons,
+        doubles_received=doubles,
+        ints_received=np.zeros_like(doubles),
+        wall_time=wall,
+        z=z_final,
+        state=state,
+        zs=zs,
+        extras={"batched": True, "grid": entries, "seeds": seeds_list},
+    )
+
+
+def _sweep_indices(indices, n_runs, steps, n, q, seeds_list) -> np.ndarray:
+    """(B, >= steps, N) sample streams for a sweep, drawn or validated."""
+    if indices is None:
+        return np.stack([draw_indices(steps, n, q, s) for s in seeds_list])
+    indices = np.asarray(indices)
+    if indices.ndim == 2:
+        indices = np.broadcast_to(indices[None], (n_runs,) + indices.shape)
+    if (
+        indices.ndim != 3
+        or indices.shape[0] != n_runs
+        or indices.shape[1] < steps
+        or indices.shape[2] != n
+    ):
+        raise ValueError(
+            f"indices must be (>= steps, N) or (B, >= steps, N) = "
+            f"({n_runs}, >={steps}, {n}), got {indices.shape}"
+        )
+    return indices
+
+
+def _solve_many_sparse_batched(
+    problem, method, spec, *, steps, record_every, z0, keep_snapshots,
+    comm_options, merged, entries, seeds, idx_b, dev,
+) -> SolveResult | None:
+    """One lockstep relay run for the whole sparse sweep, or None to decline.
+
+    Declines (returns ``None``, sending ``solve_many`` to the sequential
+    route) when the method has no batched sparse backend or the backend
+    itself declines (``engine="reference"``). Results are bit-equal to the
+    sequential path (the relay's message accounting is closed-form over
+    each run's nnz log, after the loop).
+    """
+    if spec.sparse_run_many is None:
+        return None
+    if steps < 1:
+        raise ValueError("steps must be >= 1")
+    if record_every < 1:
+        raise ValueError("record_every must be >= 1")
+    t0 = time.perf_counter()
+    sres = spec.sparse_run_many(
+        problem, merged, steps, idx_b, z0, dict(comm_options or {}), dev
+    )
+    if sres is None:
+        return None
+    wall = time.perf_counter() - t0
+    pts = _record_points(steps, record_every)
+    rec = _Recorder(problem.z_star, keep_snapshots)
+    for pt in pts:
+        rec.push(pt, np.stack([r.z_trace[pt] for r in sres]))
+    iters, dist2, cons, zs = rec.arrays()
+    sel = np.asarray(pts) - 1
+    return SolveResult(
+        method=method,
+        comm="sparse",
+        iters=iters,
+        dist2=dist2,
+        consensus=cons,
+        doubles_received=np.stack([r.doubles_received[sel] for r in sres]),
+        ints_received=np.stack([r.ints_received[sel] for r in sres]),
+        wall_time=wall,
+        z=np.stack([r.z_trace[-1] for r in sres]),
+        state=None,
+        zs=zs,
+        extras={
+            "batched": True,
+            "grid": entries,
+            "seeds": seeds,
+            "per_run_extras": [
+                {"z_trace": r.z_trace, "recon_max_err": r.recon_max_err}
+                for r in sres
+            ],
+        },
+    )
+
+
+def _solve_many_sequential(
+    problem, method, comm, *, steps, record_every, z0, keep_snapshots,
+    comm_options, merged, entries, seeds, idx_b, dev,
+) -> SolveResult:
+    """The sequential route: one (warm after the first) ``solve()`` an entry."""
+    results = [
+        solve(
+            problem, method, comm, steps=steps, record_every=record_every,
+            z0=z0, indices=idx_b[b], keep_snapshots=keep_snapshots,
+            comm_options=comm_options, device=dev, **merged[b],
+        )
+        for b in range(len(merged))
+    ]
+    r0 = results[0]
+    return SolveResult(
+        method=method,
+        comm=comm,
+        iters=r0.iters,
+        dist2=np.stack([r.dist2 for r in results]),
+        consensus=np.stack([r.consensus for r in results]),
+        doubles_received=np.stack([r.doubles_received for r in results]),
+        ints_received=np.stack([r.ints_received for r in results]),
+        wall_time=sum(r.wall_time for r in results),
+        z=np.stack([r.z for r in results]),
+        state=[r.state for r in results],
+        zs=(
+            np.stack([r.zs for r in results])
+            if keep_snapshots else None
+        ),
+        extras={
+            "batched": False,
+            "grid": entries,
+            "seeds": seeds,
+            "per_run_extras": [r.extras for r in results],
+        },
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -1460,33 +1947,47 @@ def solve_many(*args, **kwargs):
 def _make_dsba_family(method: str, default_alpha: float) -> SolverSpec:
     """Registry entry for the stochastic family: shared step, both comms."""
 
-    def cfg_of(problem, hp):
-        return DSBAConfig(
-            spec=problem.spec, alpha=hp["alpha"], lam=problem.lam, method=method
-        )
+    def placeholder_cfg(problem):
+        """The step's config: alpha and lam arrive per run in ``hp_run``."""
+        return DSBAConfig(spec=problem.spec, alpha=0.0, lam=0.0, method=method)
 
     def init(problem, hp, data, z0):
         """SAGA-table warm start (Algorithm 1 line 1) at ``z0``."""
-        return init_state(cfg_of(problem, hp), data, z0)
+        return init_state(placeholder_cfg(problem), data, z0)
 
     def step(problem, hp, data, comm):
         """The Algorithm-1 step with mixing through ``comm.matvec``."""
-        return make_step_fn(cfg_of(problem, hp), data, problem.w, comm=comm)
+        return make_hp_step_fn(placeholder_cfg(problem), data, problem.w, comm)
 
     def sparse_run(problem, hp, steps, indices, z0, options, device):
         """The Section-5.1 delta relay (``core.sparse_comm.run_sparse``)."""
         return run_sparse(
-            cfg_of(problem, hp), problem.data, problem.graph, problem.w,
+            DSBAConfig(spec=problem.spec, alpha=hp["alpha"], lam=problem.lam, method=method),
+            problem.data, problem.graph, problem.w,
             steps, indices, z0=z0, device=device, **options,
+        )
+
+    def sparse_run_many(problem, merged, steps, idx_b, z0, options, device):
+        """B relays in lockstep (``run_sparse_many``); declines "reference"."""
+        options = dict(options)
+        options.pop("fault_plan", None)
+        if options.pop("engine", "vectorized") != "vectorized":
+            return None  # the oracle loop is per-run by construction
+        return run_sparse_many(
+            DSBAConfig(spec=problem.spec, alpha=merged[0]["alpha"], lam=problem.lam,
+                       method=method),
+            problem.data, problem.graph, problem.w, steps, idx_b,
+            [hp["alpha"] for hp in merged], z0=z0, device=device, **options,
         )
 
     return SolverSpec(
         name=method,
         init=init,
         step=step,
-        z_of=lambda problem, hp, data, comm: lambda state: state.z,
+        z_of=lambda problem, hp, data, comm: lambda state, hp_run: state.z,
         defaults={"alpha": default_alpha},
         sparse_run=sparse_run,
+        sparse_run_many=sparse_run_many,
         # the SAGA table stores scalars for any linear-predictor operator,
         # the bilinear saddle family included
         problem_families=FAMILIES,
@@ -1514,11 +2015,37 @@ register_solver(_make_dsba_family("dsa", default_alpha=0.2))
 # ---------------------------------------------------------------------------
 
 
+def _bc(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A per-run hyperparameter (0-d, or (B,) for a batch) shaped to
+    broadcast against ``x`` (N, D), or (B, N, D) for a batch."""
+    return v.reshape(v.shape + (1,) * (x.dim() - v.dim()))
+
+
+def _host_ints(v) -> tuple[int, ...]:
+    """A ``host_hp`` value as one int a run, truncated as the JAX
+    package's ``astype(int32)`` truncates."""
+    return tuple(int(x) for x in (v if isinstance(v, tuple) else (v,)))
+
+
+def _run_masks(device):
+    """``mask(flags) -> (B, 1, 1)`` bool tensor on ``device``, memoized per
+    flag tuple (a batch's per-run mixing or gossip rounds repeat)."""
+    memo = {}
+
+    def mask(flags: tuple[bool, ...]) -> torch.Tensor:
+        if flags not in memo:
+            memo[flags] = torch.tensor(flags, device=device).reshape(-1, 1, 1)
+        return memo[flags]
+
+    return mask
+
+
 def _dense_setup(problem: Problem, data):
-    """(feats (N, q, d), labels (N, q)) on the run's device, built once a run.
+    """(feats (N, q, d), labels (N, q)) on the runner's device, built once.
 
     The features come from the numpy ``SparseDataset.dense()`` the JAX
-    package uses; ``data.derived`` keeps them for the run's other factories.
+    package uses; ``data.derived`` keeps them for the runner's other
+    factories.
     """
     if "dense" not in data.derived:
         data.derived["dense"] = torch.as_tensor(
@@ -1527,31 +2054,24 @@ def _dense_setup(problem: Problem, data):
     return data.derived["dense"], data.y
 
 
-def _lam_of(problem: Problem, data):
-    """``lam`` as a step takes it: a float, or per node an (N,) tensor."""
-    if np.ndim(problem.lam) > 0:
-        return torch.as_tensor(
-            problem.lam, dtype=data.val.dtype, device=data.val.device
-        )
-    return float(problem.lam)
-
-
 def _full_operator(spec: OperatorSpec, feats, labels):
-    """G(Z, lam): (N, D) -> (N, D), the full local operator with ``lam Z``.
+    """G(Z, lam): (..., N, D) -> (..., N, D), the full local operator with
+    ``lam Z``.
 
     ``lam`` is a call argument (``personal`` passes 0.0 and adds its
-    per-node term itself). The contractions keep the JAX package's order.
+    per-node term itself). The contractions keep the JAX package's order;
+    a (B, N, D) batch reads the features once for all B runs.
     """
     t = spec.tail_dim
     d = feats.shape[-1]
 
     def G(Z, lam):
-        head, tail = Z[:, :d], Z[:, d:]
-        u = torch.einsum("nqd,nd->nq", feats, head)
-        tails = tail[:, None, :].expand(*u.shape, t)
+        head, tail = Z[..., :d], Z[..., d:]
+        u = torch.einsum("nqd,...nd->...nq", feats, head)
+        tails = tail[..., None, :].expand(*u.shape, t)
         g, tail_out = spec.coeff_and_tail(u, labels, tails)
-        out_head = torch.einsum("nq,nqd->nd", g, feats) / feats.shape[1]
-        out = torch.cat([out_head, tail_out.mean(1)], dim=1) if t else out_head
+        out_head = torch.einsum("...nq,nqd->...nd", g, feats) / feats.shape[1]
+        out = torch.cat([out_head, tail_out.mean(-2)], dim=-1) if t else out_head
         return out + lam * Z
 
     return G
@@ -1559,7 +2079,7 @@ def _full_operator(spec: OperatorSpec, feats, labels):
 
 def _first_value(problem, hp, data, comm):
     """Read-out of every state whose first entry is the iterate block."""
-    return lambda state: state[0]
+    return lambda state, hp_run: state[0]
 
 
 def _extra_init(problem, hp, data, z0):
@@ -1574,11 +2094,11 @@ def _extra_step(problem, hp, data, comm):
     G = _full_operator(problem.spec, feats, labels)
     w_mix = comm.matvec(problem.w, feats.dtype)
     wt_mix = comm.matvec(w_tilde(problem.w), feats.dtype)
-    alpha, lam = hp["alpha"], _lam_of(problem, data)
 
-    def step(carry, i_t):
+    def step(carry, i_t, hp_run):
         z, z_prev, g_prev, t = carry
-        g = G(z, lam)
+        alpha = _bc(hp_run["alpha"], z)
+        g = G(z, hp_run["lam"])
         # both products every step, the t == 0 one unused: a straggler
         # buffer slot is one call site, taken the same number of times
         # every iteration (as the reference's select computes both)
@@ -1605,11 +2125,11 @@ def _dlm_step(problem, hp, data, comm):
     deg = torch.as_tensor(
         problem.graph.degrees, dtype=feats.dtype, device=feats.device
     )[:, None]
-    c, beta, lam = hp["c"], hp["beta"], _lam_of(problem, data)
 
-    def step(carry, i_t):
+    def step(carry, i_t, hp_run):
         z, lam_dual = carry
-        grad_aug = G(z, lam) + lam_dual + 2.0 * c * lap_mix(z)
+        c, beta = _bc(hp_run["c"], z), _bc(hp_run["beta"], z)
+        grad_aug = G(z, hp_run["lam"]) + lam_dual + 2.0 * c * lap_mix(z)
         z1 = z - grad_aug / (2.0 * c * deg + beta)
         lam1 = lam_dual + c * lap_mix(z1)
         return (z1, lam1)
@@ -1618,18 +2138,20 @@ def _dlm_step(problem, hp, data, comm):
 
 
 def _ssda_conj_grad(problem: Problem, data, inner_newton: int):
-    """grad f*_n: (N, d) -> (N, d), built once a run and kept in ``data``.
+    """grad f*_n: (..., N, d) -> (..., N, d), built once a runner and kept in
+    ``data``.
 
     Ridge solves ``(A^T A / q + lam I) x = s + A^T y / q`` with a Cholesky
     factor per node. Logistic inverts grad f_n by ``inner_newton`` Newton
     steps from 0 with the closed-form Jacobian
     ``A^T diag(g'(u)) A / q + lam I`` (the JAX package's ``jacfwd`` of the
-    same map). The step and the read-out share the factorization.
+    same map). The step and the read-out share the factorization; lam is
+    baked (SSDA's ``bake_lam``: the runner key holds it).
     """
-    key = ("ssda", inner_newton)
+    spec, lam = problem.spec, float(problem.lam)
+    key = ("ssda", inner_newton, lam)
     if key in data.derived:
         return data.derived[key]
-    spec, lam = problem.spec, float(problem.lam)
     feats, labels = _dense_setup(problem, data)
     n, q, d = feats.shape
     eye = torch.eye(d, dtype=feats.dtype, device=feats.device)
@@ -1648,11 +2170,11 @@ def _ssda_conj_grad(problem: Problem, data, inner_newton: int):
         def conj_grad(S):
             x = torch.zeros_like(S)
             for _ in range(inner_newton):
-                u = torch.einsum("nqd,nd->nq", feats, x)
+                u = torch.einsum("nqd,...nd->...nq", feats, x)
                 g, _ = spec.coeff_and_tail(u, labels, no_tail)
-                gn = torch.einsum("nqd,nq->nd", feats, g) / q + lam * x
+                gn = torch.einsum("nqd,...nq->...nd", feats, g) / q + lam * x
                 gp = logistic_coeff_prime(u, labels)
-                jac = torch.einsum("nqd,nq,nqe->nde", feats, gp, feats) / q
+                jac = torch.einsum("nqd,...nq,nqe->...nde", feats, gp, feats) / q
                 # solve_ex: no host sync on the card (the systems are
                 # positive definite)
                 x = x - torch.linalg.solve_ex(
@@ -1675,10 +2197,10 @@ def _ssda_step(problem, hp, data, comm):
     conj_grad = _ssda_conj_grad(problem, data, int(hp["inner_newton"]))
     n = problem.data.n_nodes
     imw_mix = comm.matvec(np.eye(n) - np.asarray(problem.w), data.val.dtype)
-    eta, momentum = hp["eta"], hp["momentum"]
 
-    def step(carry, i_t):
+    def step(carry, i_t, hp_run):
         m, m_prev = carry
+        eta, momentum = _bc(hp_run["eta"], m), _bc(hp_run["momentum"], m)
         v = m + momentum * (m - m_prev)
         x = conj_grad(-v)  # primal: grad f*(-(U Lambda)_n)
         m1 = v + eta * imw_mix(x)
@@ -1690,7 +2212,7 @@ def _ssda_step(problem, hp, data, comm):
 def _ssda_z_of(problem, hp, data, comm):
     """Primal read-out grad f*(-m): a real computation, not a field access."""
     conj_grad = _ssda_conj_grad(problem, data, int(hp["inner_newton"]))
-    return lambda state: conj_grad(-state[0])
+    return lambda state, hp_run: conj_grad(-state[0])
 
 
 register_solver(
@@ -1718,6 +2240,10 @@ register_solver(
         step=_ssda_step,
         z_of=_ssda_z_of,
         defaults={"eta": 0.05, "momentum": 0.5, "inner_newton": 8},
+        # inner_newton is a loop count (structural); lam is baked into the
+        # Cholesky / Newton factorization of grad f*
+        static_hp=("inner_newton",),
+        bake_lam=True,
         # SSDA needs grad f*, which the saddle families do not have
         problem_families=MINIMIZATION_FAMILIES,
     )
@@ -1737,7 +2263,8 @@ def _fastmix_weight(w: np.ndarray) -> float:
 
         eta_w = (1 - sqrt(1 - sigma^2)) / (1 + sqrt(1 - sigma^2)),
 
-    sigma the second-largest eigenvalue magnitude of W.
+    sigma the second-largest eigenvalue magnitude of W (W's content is
+    part of the runner key, so the baked weight never goes stale).
     """
     eigs = np.sort(np.abs(np.linalg.eigvalsh(np.asarray(w, dtype=np.float64))))
     sigma = float(eigs[-2]) if eigs.size > 1 else 0.0
@@ -1746,16 +2273,24 @@ def _fastmix_weight(w: np.ndarray) -> float:
     return (1.0 - root) / (1.0 + root)
 
 
-def _make_fastmix(comm, w, dt):
-    """``fastmix(x, k)``: k rounds of accelerated gossip, each one
-    ``comm.matvec`` application plus local arithmetic."""
+def _make_fastmix(comm, w, dt, device):
+    """``fastmix(x, ks)``: k rounds of accelerated gossip, each one
+    ``comm.matvec`` application plus local arithmetic; ``ks`` holds one k a
+    run. A batch runs the largest k and freezes each finished run with a
+    ``torch.where`` select (exact), as the JAX package's batched loop does."""
     w_mix = comm.matvec(w, dt)
     eta_w = _fastmix_weight(w)
+    mask = _run_masks(device)
 
-    def fastmix(x, k):
+    def fastmix(x, ks):
         cur, prev = x, x
-        for _ in range(k):
-            cur, prev = (1.0 + eta_w) * w_mix(cur) - eta_w * prev, cur
+        for r in range(max(ks)):
+            nxt = (1.0 + eta_w) * w_mix(cur) - eta_w * prev
+            if r < min(ks):
+                cur, prev = nxt, cur
+            else:
+                live = mask(tuple(r < k for k in ks))
+                cur, prev = torch.where(live, nxt, cur), torch.where(live, cur, prev)
         return cur
 
     return fastmix
@@ -1774,20 +2309,20 @@ def _mudag_step(problem, hp, data, comm):
     gossip rounds (one FastMix for the tracked gradient, one for the
     iterate). K is ``int(gossip_rounds)``, truncated as the JAX package's
     ``astype(int32)`` truncates, while ``_mudag_rounds`` ROUNDS it: the two
-    differ for a non-integer ``gossip_rounds``, in both packages.
+    differ for a non-integer ``gossip_rounds``, in both packages. K is a
+    host number (``host_hp``): it sets the loop's trip count.
     """
     feats, labels = _dense_setup(problem, data)
     G = _full_operator(problem.spec, feats, labels)
-    fastmix = _make_fastmix(comm, problem.w, feats.dtype)
-    eta, beta = hp["eta"], hp["momentum"]
-    lam = _lam_of(problem, data)
-    k = int(hp["gossip_rounds"])
+    fastmix = _make_fastmix(comm, problem.w, feats.dtype, feats.device)
 
-    def step(carry, i_t):
+    def step(carry, i_t, hp_run):
         x, y, s, g_prev, t = carry
-        g = G(y, lam)
-        s1 = fastmix(g if t == 0 else s + g - g_prev, k)
-        x1 = fastmix(y - eta * s1, k)
+        eta, beta = _bc(hp_run["eta"], x), _bc(hp_run["momentum"], x)
+        ks = _host_ints(hp_run["gossip_rounds"])
+        g = G(y, hp_run["lam"])
+        s1 = fastmix(g if t == 0 else s + g - g_prev, ks)
+        x1 = fastmix(y - eta * s1, ks)
         y1 = x1 + beta * (x1 - x)
         return (x1, y1, s1, g, t + 1)
 
@@ -1808,22 +2343,29 @@ def _sliding_step(problem, hp, data, comm):
     are those of the JAX package's ``jnp.where`` select, which computes the
     products every step and drops them). The period is
     ``int(comm_period)``, truncated, while ``_sliding_rounds`` rounds it,
-    as in the JAX package.
+    as in the JAX package. In a batch whose runs are not all on a round,
+    the products run for every run and a ``torch.where`` keeps them for
+    the runs that are.
     """
     feats, labels = _dense_setup(problem, data)
     G = _full_operator(problem.spec, feats, labels)
     w_mix = comm.matvec(problem.w, feats.dtype)
-    alpha, lam = hp["alpha"], _lam_of(problem, data)
-    period = int(hp["comm_period"])
-    if period < 1:
-        raise ValueError(f"comm_period must be >= 1, got {hp['comm_period']!r}")
+    mask = _run_masks(feats.device)
 
-    def step(carry, i_t):
+    def step(carry, i_t, hp_run):
         z, s, g_prev, t = carry
-        g = G(z, lam)
+        periods = _host_ints(hp_run["comm_period"])
+        if min(periods) < 1:
+            raise ValueError(f"comm_period must be >= 1, got {hp_run['comm_period']!r}")
+        alpha = _bc(hp_run["alpha"], z)
+        g = G(z, hp_run["lam"])
         s1 = g if t == 0 else s + g - g_prev
-        if t % period == 0:
+        on = tuple(t % p == 0 for p in periods)
+        if all(on):
             z, s1 = w_mix(z), w_mix(s1)
+        elif any(on):
+            m = mask(on)
+            z, s1 = torch.where(m, w_mix(z), z), torch.where(m, w_mix(s1), s1)
         return (z - alpha * s1, s1, g, t + 1)
 
     return step
@@ -1847,6 +2389,7 @@ register_solver(
         step=_mudag_step,
         z_of=_first_value,
         defaults={"eta": 1.0, "momentum": 0.9, "gossip_rounds": 4},
+        host_hp=("gossip_rounds",),
         # Nesterov descent needs a convex minimization objective
         problem_families=MINIMIZATION_FAMILIES,
         comm_rounds=_mudag_rounds,
@@ -1870,6 +2413,7 @@ register_solver(
         step=_sliding_step,
         z_of=_first_value,
         defaults={"alpha": 0.1, "comm_period": 4},
+        host_hp=("comm_period",),
         problem_families=MINIMIZATION_FAMILIES,
         comm_rounds=_sliding_rounds,
         supports_schedule=True,
@@ -1925,31 +2469,40 @@ def _dsgda_step(problem, hp, data, comm):
     t = spec.tail_dim
     n, q, d = feats.shape
     w_mix = comm.matvec(problem.w, feats.dtype)
-    alpha, eta, lam = hp["alpha"], hp["eta"], _lam_of(problem, data)
     head_mask = torch.cat([feats.new_ones((d,)), feats.new_zeros((t,))])
-    scale = (alpha * head_mask + eta * (1.0 - head_mask))[None, :]
     node = torch.arange(n, device=feats.device)
+    memo = {}
 
-    def step(carry, i_t):
+    def scale_of(hp_run):
+        """(1|B, 1, D) step sizes: alpha on the head, eta on the tail;
+        built once a run (one hp dict a run)."""
+        if memo.get("hp") is not hp_run:
+            alpha, eta = hp_run["alpha"][..., None], hp_run["eta"][..., None]
+            memo["hp"] = hp_run
+            memo["scale"] = (alpha * head_mask + eta * (1.0 - head_mask))[..., None, :]
+        return memo["scale"]
+
+    def step(carry, i_t, hp_run):
         z, tab_g, tab_tail, phibar, y, v_prev, step_t = carry
-        rows = feats[node, i_t]  # (N, d)
+        rows = feats[node, i_t]  # (..., N, d)
         ys = labels[node, i_t]
-        head, tail = z[:, :d], z[:, d:]
+        head, tail = z[..., :d], z[..., d:]
         u = torch.sum(rows * head, dim=-1)
-        g, tail_out = spec.coeff_and_tail(u, ys, tail)  # (N,), (N, t)
-        dg = g - tab_g[node, i_t]
-        dtail = tail_out - tab_tail[node, i_t]
-        delta = torch.cat([dg[:, None] * rows, dtail], dim=1)
-        v = delta + phibar + lam * z
+        g, tail_out = spec.coeff_and_tail(u, ys, tail)  # (..., N), (..., N, t)
+        t_idx = i_t[..., None, None].expand(*i_t.shape, 1, t)
+        dg = g - tab_g.gather(-1, i_t[..., None])[..., 0]
+        dtail = tail_out - tab_tail.gather(-2, t_idx)[..., 0, :]
+        delta = torch.cat([dg[..., None] * rows, dtail], dim=-1)
+        v = delta + phibar + hp_run["lam"] * z
         # w_mix(y) every step, unused at t == 0: straggler slots are call
         # sites taken a fixed number of times an iteration (see EXTRA)
         wy = w_mix(y)
         y1 = v if step_t == 0 else wy + v - v_prev
-        z1 = w_mix(z) - scale * y1
+        z1 = w_mix(z) - scale_of(hp_run) * y1
         return (
             z1,
-            tab_g.index_put((node, i_t), g),
-            tab_tail.index_put((node, i_t), tail_out),
+            tab_g.scatter(-1, i_t[..., None], g[..., None]),
+            tab_tail.scatter(-2, t_idx, tail_out[..., None, :]),
             phibar + delta / q,
             y1,
             v,
@@ -2001,12 +2554,12 @@ def _personal_step(problem, hp, data, comm):
     feats, labels = _dense_setup(problem, data)
     G = _full_operator(problem.spec, feats, labels)
     lap_mix = comm.matvec(problem.graph.laplacian, feats.dtype)
-    alpha, mu = hp["alpha"], hp["mu"]
-    lam = _lam_of(problem, data)
-    lam_col = lam[:, None] if torch.is_tensor(lam) else lam
 
-    def step(carry, i_t):
+    def step(carry, i_t, hp_run):
         (z,) = carry
+        alpha, mu = _bc(hp_run["alpha"], z), _bc(hp_run["mu"], z)
+        lam = hp_run["lam"]
+        lam_col = lam[:, None] if lam.dim() > 0 else lam
         g = G(z, 0.0) + lam_col * z
         return (z - alpha * (g + mu * lap_mix(z)),)
 

@@ -24,7 +24,7 @@ This is the JAX package's vectorized engine, run eagerly:
   it and masks the write.
 * **Kernel.** Each step's delta is densified by ``sparse_axpy`` (psi = the
   tail block, rho = 1), so a relay step launches ``sparse_axpy`` once on
-  top of the local step's 4 + 1 launches.
+  top of the local step's 4 + 1 launches, for one run or a batch.
 * **Closed-form accounting.** ``doubles_received``/``ints_received`` come
   from the per-iteration nnz log after the loop (``_closed_form_costs``).
 
@@ -47,8 +47,13 @@ What ``solve()`` drives through it besides a fresh run:
 * ``engine="reference"``: the per-observer Python loop with an
   (N, N, steps + 2, D) numpy store, the parity oracle (small sizes only).
 
-``run_sparse_many`` (the batched sweep; its only caller is ``solve_many``)
-is not ported yet (ROADMAP Queue 1 item 8).
+The relay's device data, mixing matrices and protocol tables are built
+once per (method, problem, graph, W, ``verify``, faulty, device) in the
+runner cache (``core.runner_cache.SPARSE``); alpha and lam are call
+arguments. ``run_sparse_many`` (the batched sweep behind ``solve_many``)
+advances B relays in lockstep on the same runner: every carry tensor gains
+a leading B axis, a step's sparse kernels take the B*N rows in one launch,
+and each run's bits are its own ``run_sparse``'s.
 """
 from __future__ import annotations
 
@@ -59,7 +64,10 @@ import torch
 
 from repro_torch.ckpt.checkpoint import _flatten_with_paths, _unflatten
 from repro_torch.convert import dataset_to_torch
-from repro_torch.core.dsba import DSBAConfig, DSBAState, device_config, dsba_step, init_state
+from repro_torch.core import runner_cache
+from repro_torch.core.dsba import (
+    DSBAConfig, DSBAState, coeffs_memo, dsba_step, init_state, step_coeffs, step_hp,
+)
 from repro_torch.core.mixing import Graph, w_tilde
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import dispatch
@@ -151,14 +159,15 @@ def _closed_form_costs(
 
 
 def _neighborhood_sum(R, j_cur, j_prev, obs, nbr, wts):
-    """sum_a wts[:, a] * (2 R[j_cur, obs, nbr[:, a]] - R[j_prev, obs, nbr[:, a]]).
+    """sum_a wts[:, a] * (2 R[.., j_cur, obs, nbr[:, a]] - R[.., j_prev, obs, nbr[:, a]]).
 
-    The JAX engine's add order (one neighbor slot at a time).
+    ``R`` may carry a batch shape in front of the ring axis. The JAX
+    engine's add order (one neighbor slot at a time).
     """
-    acc = torch.zeros((obs.shape[0], R.shape[-1]), dtype=R.dtype, device=R.device)
+    acc = R.new_zeros(R.shape[:-4] + (obs.shape[0], R.shape[-1]))
     for a in range(nbr.shape[1]):
         m = nbr[:, a]
-        acc = acc + wts[:, a, None] * (2.0 * R[j_cur, obs, m] - R[j_prev, obs, m])
+        acc = acc + wts[:, a, None] * (2.0 * R[..., j_cur, obs, m, :] - R[..., j_prev, obs, m, :])
     return acc
 
 
@@ -203,6 +212,10 @@ def run_sparse(
         ``resume=(t_done, leaves)`` (``ckpt.load_checkpoint`` leaves)
         continues bit-equal to an uninterrupted run.
     device: CUDA unless the caller passes ``"cpu"``.
+
+    The vectorized engine's device data and protocol tables come from the
+    relay runner cache (``core.runner_cache.SPARSE``): alpha and lam are
+    call arguments, so a sweep over them reuses one runner.
     """
     if steps < 1:
         raise ValueError("steps must be >= 1")
@@ -247,21 +260,192 @@ def _carry_from_leaves(carry0, leaves):
     return _unflatten({"carry": carry0}, new)["carry"]
 
 
+@dataclasses.dataclass
+class _Relay:
+    """One cached relay runner: the dataset, the mixing matrices and the
+    protocol tables on the device, and the step's coefficient memo."""
+
+    tdata: object  # convert.TensorDataset
+    tb: _Tables
+    w_t: torch.Tensor
+    wt_t: torch.Tensor
+    iu: torch.Tensor
+    nbr: torch.Tensor
+    wtn: torch.Tensor
+    padm: torch.Tensor
+    waves: list  # [(xi, observers, sources)] farthest first
+    floods: dict  # t -> (observers, sources) at distance t
+    coeffs: object  # dsba.coeffs_memo
+
+
+def _sparse_scan_key(cfg, data, graph, w, verify, faulty, device):
+    """(key, guards) for one relay runner (see core.runner_cache).
+
+    alpha/lam are NOT keyed: they are call arguments, so a hyperparameter
+    sweep over the same (method, problem shape, graph, device) reuses one
+    runner. ``verify`` and ``faulty`` enter the key as the JAX package's
+    (they change its carry and its inputs).
+    """
+    key = (
+        "relay",
+        cfg.method,
+        runner_cache.problem_fingerprint(data, cfg.spec, graph, w, device),
+        bool(verify),
+        bool(faulty),
+    )
+    return key, (data,)
+
+
+def _get_relay(cfg, data, graph, w, verify, faulty, dev) -> _Relay:
+    """Fetch (or build) the relay runner for this problem on ``dev``."""
+    key, guards = _sparse_scan_key(cfg, data, graph, w, verify, faulty, dev)
+
+    def build() -> _Relay:
+        runner_cache.SPARSE.note_trace()  # build-time only
+        tdata = dataset_to_torch(data, dev)
+        dt = tdata.val.dtype
+        tb = _protocol_tables(graph, w_tilde(w))
+
+        def on_dev(a, dtype=torch.long):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+        return _Relay(
+            tdata=tdata, tb=tb, w_t=on_dev(w, dt), wt_t=on_dev(w_tilde(w), dt),
+            iu=torch.arange(data.n_nodes, device=dev), nbr=on_dev(tb.nbr_pad),
+            wtn=on_dev(tb.wt_pad, dt), padm=on_dev(tb.pad_mask, torch.bool),
+            waves=[(xi, on_dev(tb.pairs[xi][0]), on_dev(tb.pairs[xi][1]))
+                   for xi in range(tb.dmax, 0, -1)],
+            floods={t: tuple(on_dev(a) for a in np.nonzero(tb.dist == t))
+                    for t in range(1, tb.dmax + 1)},
+            coeffs=coeffs_memo(data.n_nodes, data.q),
+        )
+
+    return runner_cache.SPARSE.get_or_build(key, guards, build)
+
+
+def _relay_hp(alpha, lam: float, dt, dev) -> dict:
+    """The step's hp dict: alpha (0-d, or (B,) for a batch) and lam, as
+    tensors in the data dtype."""
+    return {"alpha": torch.as_tensor(np.asarray(alpha, dtype=np.float64), dtype=dt, device=dev),
+            "lam": torch.tensor(float(lam), dtype=dt, device=dev)}
+
+
+def _relay_carry0(rl: _Relay, state, z0_t, lead, verify):
+    """The relay's initial carry for runs of batch shape ``lead``, all at the
+    shared starting point ``z0_t`` (N, D): ``state`` is the solver state
+    (batched already), R's slot 0 every observer's copy of z^0."""
+    n, D = z0_t.shape
+    depth = rl.tb.depth
+    dt, dev = z0_t.dtype, z0_t.device
+    R = torch.zeros(lead + (depth, n, n, D), dtype=dt, device=dev)
+    R[..., 0, :, :, :] = z0_t
+    DD = torch.zeros(lead + (depth, n, D), dtype=dt, device=dev)
+    z1 = torch.zeros(lead + (n, D), dtype=dt, device=dev)
+    if verify:
+        SR = torch.full(lead + (depth, n, n), -(2**30), dtype=torch.int32, device=dev)
+        SR[..., 0, :, :] = 0
+        Z = torch.zeros(lead + (depth, n, D), dtype=dt, device=dev)
+        Z[..., 0, :, :] = z0_t
+    else:  # zero-size placeholders keep the checkpointed carry's layout
+        SR = torch.zeros((0,), dtype=torch.int32, device=dev)
+        Z = torch.zeros((0,), dtype=dt, device=dev)
+    err = torch.zeros(lead, dtype=dt, device=dev)
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    return state, z1, R, DD, SR, Z, err, ok
+
+
+def _relay_step(cfg, rl: _Relay, carry, t, i_t, mix0, hp, verify, sent_t=None):
+    """Iteration ``t`` of the relay for every run of the carry's batch:
+    returns (carry, z^{t+1}, the nnz log row)."""
+    state, z1, R, DD, SR, Z, err, ok = carry
+    tb = rl.tb
+    depth, dmax = tb.depth, tb.dmax
+    iu, nbr, wtn, padm = rl.iu, rl.nbr, rl.wtn, rl.padm
+    c = rl.coeffs(hp)
+    scale = (rl.tdata.val.shape[1] - 1.0) / rl.tdata.val.shape[1]
+    a3, al3, opal3 = c.alpha[..., None], c.al[..., None], c.opal[..., None]
+    jt, jtm1 = t % depth, (t - 1) % depth
+    z_t = state.z
+    # -- own history: z^t is exact and free (computed locally last step)
+    R[..., jt, iu, iu, :] = z_t
+    if verify:
+        SR[..., jt, iu, iu] = t
+        Z[..., jt, :, :] = z_t
+    if t == 1:
+        z1 = z_t
+
+    # -- one-time dense z^1 warm-up flood arrives at t == xi ----------------
+    if 1 <= t <= dmax:
+        fu, fl = rl.floods[t]
+        R[..., 1, fu, fl, :] = z1[..., fl, :]
+        if verify:
+            SR[..., 1, fu, fl] = 1
+
+    # -- reconstruction waves, farthest-first (paper's V_j ordering) --------
+    for xi, up, lp in rl.waves:
+        if t < xi + 1:
+            continue  # these pairs are still in warm-up
+        s = t + 1 - xi
+        j1, j2, jn = (s - 1) % depth, (s - 2) % depth, s % depth
+        m_idx = nbr[lp]  # (P, A)
+        mix = _neighborhood_sum(R, j1, j2, up, m_idx, wtn[lp])
+        corr = a3 * (scale * DD[..., j2, lp, :] - DD[..., j1, lp, :])
+        self1 = R[..., j1, up, lp, :]
+        if cfg.method == "dsba":
+            new = (mix + al3 * self1 + corr) / opal3
+        else:  # dsa
+            self2 = R[..., j2, up, lp, :]
+            new = mix + corr - al3 * (self1 - self2)
+        R[..., jn, up, lp, :] = new
+        if verify:
+            S1 = SR[..., j1, up[:, None], m_idx]
+            S2 = SR[..., j2, up[:, None], m_idx]
+            reads = (S1 == s - 1) & (S2 == s - 2)
+            ok = ok & torch.where(padm[lp], reads, True).all()
+            SR[..., jn, up, lp] = s
+            err = torch.maximum(err, (new - Z[..., jn, lp, :]).abs().amax(dim=(-2, -1)))
+
+    # -- mixing rows from each node's OWN reconstruction store --------------
+    if t == 0:
+        mix_rows = mix0
+    else:
+        mix_rows = _neighborhood_sum(R, jt, jtm1, iu, nbr, wtn)
+        if verify:
+            s_cur = SR[..., jt, iu[:, None], nbr]
+            s_prev = SR[..., jtm1, iu[:, None], nbr]
+            fresh = (s_cur == t) & (s_prev == t - 1)
+            ok = ok & torch.where(padm, fresh, True).all()
+
+    # -- advance all nodes with the shared local update ---------------------
+    state = dsba_step(cfg, rl.tdata, state, i_t, mix_rows, mix_rows, c)
+    base = torch.zeros_like(state.z)
+    d = rl.tdata.d
+    if base.shape[-1] > d:
+        base[..., d:] = state.dtail_prev
+    dd = dispatch(
+        "sparse_axpy", base.reshape(-1, base.shape[-1]),
+        state.didx_prev.reshape(-1, state.didx_prev.shape[-1]),
+        state.dval_prev.reshape(-1, state.dval_prev.shape[-1]),
+        state.dg_prev.reshape(-1), c.ones,
+    ).reshape(base.shape)
+    nnz_t = (state.dval_prev != 0).sum(-1)
+    if sent_t is not None:
+        # a suppressed broadcast: observers see a zeroed delta and the nnz
+        # log drops the row; the source's own row of R stays exact
+        dd = torch.where(sent_t[:, None], dd, 0.0)
+        nnz_t = torch.where(sent_t, nnz_t, 0)
+    DD[..., jt, :, :] = dd
+    return (state, z1, R, DD, SR, Z, err, ok), state.z, nnz_t
+
+
 def _run_vectorized(
     cfg, data, graph, w, steps, indices, z0, *, state0, verify, sent_mask,
     ckpt_every, ckpt_save, resume, device,
 ) -> SparseRunResult:
     dev = resolve_device(device)
-    tdata = dataset_to_torch(data, dev)
     n = data.n_nodes
-    q = data.q
     tail = cfg.spec.tail_dim
-    d = data.d
-    D = d + tail
-    dt = tdata.val.dtype
-    step_cfg = device_config(cfg, dt, dev)
-    alpha, lam = step_cfg.alpha, step_cfg.lam
-    scale = (q - 1.0) / q
+    D = data.d + tail
     restart = state0 is not None
     if sent_mask is not None:
         sent_mask = np.asarray(sent_mask, dtype=bool)
@@ -270,27 +454,10 @@ def _run_vectorized(
                 f"sent_mask must be (steps, N) = ({steps}, {n}), "
                 f"got {sent_mask.shape}"
             )
-
-    tb = _protocol_tables(graph, w_tilde(w))
-    depth, dmax = tb.depth, tb.dmax
-
-    def on_dev(a, dtype=torch.long):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
-
-    iu = torch.arange(n, device=dev)
-    nbr = on_dev(tb.nbr_pad)
-    wtn = on_dev(tb.wt_pad, dt)
-    padm = on_dev(tb.pad_mask, torch.bool)
-    waves = [
-        (xi, on_dev(tb.pairs[xi][0]), on_dev(tb.pairs[xi][1]))
-        for xi in range(dmax, 0, -1)
-    ]
-    floods = {
-        t: tuple(on_dev(a) for a in np.nonzero(tb.dist == t))
-        for t in range(1, dmax + 1)
-    }
-    sent_t = None if sent_mask is None else on_dev(sent_mask, torch.bool)
-    zero = torch.zeros((), dtype=dt, device=dev)
+    rl = _get_relay(cfg, data, graph, w, verify, sent_mask is not None, dev)
+    tdata = rl.tdata
+    dt = tdata.val.dtype
+    hp = _relay_hp(cfg.alpha, cfg.lam, dt, dev)
 
     if restart:
         state = state0
@@ -298,33 +465,19 @@ def _run_vectorized(
         if int(state0.step) == 0:
             # a churn-remapped state, reanchored: the first step re-runs
             # the eq. 31 anchored update, mixing W against its iterates
-            mix0 = on_dev(w, dt) @ z0_t
+            mix0 = rl.w_t @ z0_t
         else:
             # a carried state: the eq. 29 psi path mixes W~ against
             # (2 z - z_prev) of the carried iterates
-            mix0 = on_dev(w_tilde(w), dt) @ (2.0 * z0_t - state0.z_prev)
+            mix0 = rl.wt_t @ (2.0 * z0_t - state0.z_prev)
     else:
         z0 = np.zeros((n, D), dtype=data.val.dtype) if z0 is None else np.asarray(z0)
-        z0_t = on_dev(z0, dt)
+        z0_t = torch.as_tensor(z0, dtype=dt, device=dev)
         state = init_state(cfg, tdata, z0_t)
-        mix0 = on_dev(w, dt) @ z0_t  # t = 0: z^0 is consensus-shared
-    ones = torch.ones((n,), dtype=dt, device=dev)
-    idx_t = on_dev(np.asarray(indices)[:steps])
-
-    R = torch.zeros((depth, n, n, D), dtype=dt, device=dev)
-    R[0] = z0_t.expand(n, n, D)
-    DD = torch.zeros((depth, n, D), dtype=dt, device=dev)
-    z1 = torch.zeros((n, D), dtype=dt, device=dev)
-    if verify:
-        SR = torch.full((depth, n, n), -(2**30), dtype=torch.int32, device=dev)
-        SR[0] = 0
-        Z = torch.zeros((depth, n, D), dtype=dt, device=dev)
-        Z[0] = z0_t
-    else:  # zero-size placeholders keep the checkpointed carry's layout
-        SR = torch.zeros((0,), dtype=torch.int32, device=dev)
-        Z = torch.zeros((0,), dtype=dt, device=dev)
-    err = torch.zeros((), dtype=dt, device=dev)
-    ok = torch.ones((), dtype=torch.bool, device=dev)
+        mix0 = rl.w_t @ z0_t  # t = 0: z^0 is consensus-shared
+    idx_t = torch.as_tensor(np.asarray(indices)[:steps], dtype=torch.long, device=dev)
+    sent_t = None if sent_mask is None else torch.as_tensor(sent_mask, device=dev)
+    carry = _relay_carry0(rl, state, z0_t, (), verify)
 
     start = 0
     zs_host, nnz_host = [], []  # numpy chunks of the (zs, nnzs) logs
@@ -333,8 +486,7 @@ def _run_vectorized(
         t_done, leaves = resume
         if not 0 < t_done <= steps:
             raise ValueError(f"resume step {t_done} outside (0, {steps}]")
-        state, z1, R, DD, SR, Z, err, ok = _carry_from_leaves(
-            (state, z1, R, DD, SR, Z, err, ok), leaves)
+        carry = _carry_from_leaves(carry, leaves)
         zs_host.append(np.asarray(leaves["['zs']"]))
         nnz_host.append(np.asarray(leaves["['nnzs']"]))
         start = int(t_done)
@@ -350,85 +502,20 @@ def _run_vectorized(
             nnzs.clear()
 
     for t in range(start, steps):
-        jt, jtm1 = t % depth, (t - 1) % depth
-        z_t = state.z
-        # -- own history: z^t is exact and free (computed locally last step)
-        R[jt, iu, iu] = z_t
-        if verify:
-            SR[jt, iu, iu] = t
-            Z[jt] = z_t
-        if t == 1:
-            z1 = z_t
-
-        # -- one-time dense z^1 warm-up flood arrives at t == xi ------------
-        if 1 <= t <= dmax:
-            fu, fl = floods[t]
-            R[1, fu, fl] = z1[fl]
-            if verify:
-                SR[1, fu, fl] = 1
-
-        # -- reconstruction waves, farthest-first (paper's V_j ordering) ----
-        for xi, up, lp in waves:
-            if t < xi + 1:
-                continue  # these pairs are still in warm-up
-            s = t + 1 - xi
-            j1, j2, jn = (s - 1) % depth, (s - 2) % depth, s % depth
-            m_idx = nbr[lp]  # (P, A)
-            mix = _neighborhood_sum(R, j1, j2, up, m_idx, wtn[lp])
-            corr = alpha * (scale * DD[j2, lp] - DD[j1, lp])
-            self1 = R[j1, up, lp]
-            if cfg.method == "dsba":
-                new = (mix + alpha * lam * self1 + corr) / (1.0 + alpha * lam)
-            else:  # dsa
-                self2 = R[j2, up, lp]
-                new = mix + corr - alpha * lam * (self1 - self2)
-            R[jn, up, lp] = new
-            if verify:
-                S1 = SR[j1][up[:, None], m_idx]
-                S2 = SR[j2][up[:, None], m_idx]
-                reads = (S1 == s - 1) & (S2 == s - 2)
-                ok = ok & torch.where(padm[lp], reads, True).all()
-                SR[jn, up, lp] = s
-                err = torch.maximum(err, (new - Z[jn, lp]).abs().max())
-
-        # -- mixing rows from each node's OWN reconstruction store ----------
-        if t == 0:
-            mix_rows = mix0
-        else:
-            mix_rows = _neighborhood_sum(R, jt, jtm1, iu, nbr, wtn)
-            if verify:
-                s_cur = SR[jt][iu[:, None], nbr]
-                s_prev = SR[jtm1][iu[:, None], nbr]
-                fresh = (s_cur == t) & (s_prev == t - 1)
-                ok = ok & torch.where(padm, fresh, True).all()
-
-        # -- advance all nodes with the shared local update -----------------
-        state = dsba_step(step_cfg, tdata.idx, tdata.val, tdata.y, state,
-                          idx_t[t], mix_rows, mix_rows)
-        base = torch.zeros((n, D), dtype=dt, device=dev)
-        if tail:
-            base[:, d:] = state.dtail_prev
-        dd = dispatch(
-            "sparse_axpy", base, state.didx_prev, state.dval_prev,
-            state.dg_prev, ones,
-        )
-        nnz_t = (state.dval_prev != 0).sum(-1)
-        if sent_t is not None:
-            # a suppressed broadcast: observers see a zeroed delta and the
-            # nnz log drops the row; the source's own row of R stays exact
-            dd = torch.where(sent_t[t][:, None], dd, zero)
-            nnz_t = torch.where(sent_t[t], nnz_t, 0)
-        DD[jt] = dd
-        zs.append(state.z)
+        carry, z_next, nnz_t = _relay_step(
+            cfg, rl, carry, t, idx_t[t], mix0, hp, verify,
+            None if sent_t is None else sent_t[t])
+        zs.append(z_next)
         nnzs.append(nnz_t)
         if t + 1 in saves:
             flush()
             ckpt_save(t + 1, {
-                "carry": (state, z1, R, DD, SR, Z, err, ok),
+                "carry": carry,
                 "zs": np.concatenate(zs_host),
                 "nnzs": np.concatenate(nnz_host),
             })
 
+    state, err, ok = carry[0], carry[-2], carry[-1]
     if verify and not bool(ok):
         raise ProtocolViolation(
             "relay schedule consumed a value before its arrival"
@@ -437,7 +524,7 @@ def _run_vectorized(
     z_trace = np.concatenate([z0_t.cpu().numpy()[None], *zs_host])
     nnz_log = np.concatenate(nnz_host).astype(np.int64)
     doubles, ints = _closed_form_costs(
-        nnz_log, tb.dist, tail, D, restart=restart, sent=sent_mask)
+        nnz_log, rl.tb.dist, tail, D, restart=restart, sent=sent_mask)
     return SparseRunResult(
         z_trace=z_trace,
         doubles_received=doubles,
@@ -445,6 +532,102 @@ def _run_vectorized(
         recon_max_err=float(err) if verify else float("nan"),
         state=state,
     )
+
+
+def batch_tree(tree, b: int):
+    """Every tensor leaf of a state (a dataclass or a tuple) repeated ``b``
+    times along a new leading axis, each its own contiguous copy; host
+    numbers (step counters) stay as they are."""
+    def one(x):
+        if isinstance(x, torch.Tensor):
+            return x.expand(b, *x.shape).contiguous()
+        return x
+
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: one(getattr(tree, f.name)) for f in dataclasses.fields(tree)})
+    return tuple(one(x) for x in tree)
+
+
+def run_sparse_many(
+    cfg: DSBAConfig,
+    data,
+    graph: Graph,
+    w: np.ndarray,
+    steps: int,
+    indices: np.ndarray,
+    alphas,
+    z0: np.ndarray | None = None,
+    *,
+    verify: bool = False,
+    device=None,
+) -> list[SparseRunResult]:
+    """Run B relays in lockstep: per-run sample streams and alphas.
+
+    ``indices`` is (B, >= steps, N), one sample stream per run, and
+    ``alphas`` a length-B sequence of step sizes (``cfg.alpha`` is not
+    read; ``cfg.lam`` and ``cfg.method`` are shared). The runs share the
+    relay runner ``run_sparse`` uses (the same cache key), and every carry
+    tensor (the solver state, R, DD and with ``verify`` SR and Z) gains a
+    leading B axis: the waves, floods and neighbourhood sums index it the
+    same way, and each step's two sparse kernels take the B*N rows in one
+    launch. Each run's bits are those of its own ``run_sparse`` (the
+    mixing sums and kernels work row by row), and the per-run message
+    accounting is the closed form over its nnz log after the loop.
+
+    The starting point ``z0`` is shared across runs (it is consensus
+    state, not a sweep axis). Returns one SparseRunResult per run.
+    """
+    if steps < 1:
+        raise ValueError("steps must be >= 1")
+    if np.ndim(cfg.lam) > 0:
+        raise ValueError("the sparse relay takes a scalar lam")
+    dev = resolve_device(device)
+    n = data.n_nodes
+    tail = cfg.spec.tail_dim
+    D = data.d + tail
+    B = len(alphas)
+    indices = np.asarray(indices)
+    if indices.ndim != 3 or indices.shape[0] != B or indices.shape[1] < steps:
+        raise ValueError(
+            f"indices must be (B, >= steps, N) = ({B}, >={steps}, {n}), "
+            f"got {indices.shape}"
+        )
+    z0 = np.zeros((n, D), dtype=data.val.dtype) if z0 is None else np.asarray(z0)
+    rl = _get_relay(cfg, data, graph, w, verify, False, dev)
+    dt = rl.tdata.val.dtype
+    hp = _relay_hp(list(alphas), cfg.lam, dt, dev)
+    z0_t = torch.as_tensor(z0, dtype=dt, device=dev)
+    state = batch_tree(init_state(cfg, rl.tdata, z0_t), B)
+    mix0 = (rl.w_t @ z0_t).expand(B, n, D)  # t = 0: z^0 is consensus-shared
+    # (steps, B, N): row t is every run's draw of iteration t
+    idx_t = torch.as_tensor(
+        np.ascontiguousarray(indices[:, :steps].transpose(1, 0, 2)),
+        dtype=torch.long, device=dev)
+    carry = _relay_carry0(rl, state, z0_t, (B,), verify)
+    zs, nnzs = [], []
+    for t in range(steps):
+        carry, z_next, nnz_t = _relay_step(cfg, rl, carry, t, idx_t[t], mix0, hp, verify)
+        zs.append(z_next)
+        nnzs.append(nnz_t)
+    err, ok = carry[-2], carry[-1]
+    if verify and not bool(ok):
+        raise ProtocolViolation(
+            "relay schedule consumed a value before its arrival"
+        )
+    zs_h = torch.stack(zs).cpu().numpy()  # (T, B, N, D)
+    nnz_h = torch.stack(nnzs).cpu().numpy().astype(np.int64)  # (T, B, N)
+    err_h = err.cpu().numpy()
+    out = []
+    for b in range(B):
+        doubles, ints = _closed_form_costs(nnz_h[:, b], rl.tb.dist, tail, D)
+        out.append(SparseRunResult(
+            z_trace=np.concatenate([z0[None], zs_h[:, b]]),
+            doubles_received=doubles,
+            ints_received=ints,
+            recon_max_err=float(err_h[b]) if verify else float("nan"),
+        ))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -478,12 +661,13 @@ def _run_reference(
     wt = w_tilde(w)
     neighbors = {u: sorted(graph.neighbors(u)) for u in range(n)}
 
-    step_cfg = device_config(cfg, tdata.val.dtype, dev)
+    hp = step_hp(cfg, tdata.val.dtype, dev)
+    coeffs = step_coeffs(hp["alpha"], hp["lam"], n, q)
     state = state0 if restart else init_state(
         cfg, tdata, torch.as_tensor(z0, dtype=tdata.val.dtype, device=dev))
 
     def step_fn(st, i_t, mix):
-        return dsba_step(step_cfg, tdata.idx, tdata.val, tdata.y, st, i_t, mix, mix)
+        return dsba_step(cfg, tdata, st, i_t, mix, mix, coeffs)
 
     # recon[u, l, s] = node u's reconstruction of z_l^s (NaN = not yet known)
     recon = np.full((n, n, steps + 2, D), np.nan, dtype=dt)
@@ -609,13 +793,6 @@ def _run_reference(
         ints_received=np.cumsum(ints, axis=0),
         recon_max_err=recon_err,
         state=state,
-    )
-
-
-def run_sparse_many(*args, **kwargs):
-    """The batched relay sweep (``solve_many``'s sparse path): not ported yet."""
-    raise NotImplementedError(
-        "run_sparse_many is not ported yet (ROADMAP Queue 1 item 8, with solve_many)"
     )
 
 

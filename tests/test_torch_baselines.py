@@ -131,6 +131,7 @@ def test_sliding_mixes_only_on_communication_rounds(monkeypatch):
     """Off-round steps skip the mixing products (their values are the ones
     the JAX package's select keeps): 2 matvecs every comm_period steps."""
     _, tp = _problems("ridge", "ring")
+    TS.clear_runner_caches()  # the step binds its products when its runner is built
     calls = []
     real = TS.DenseComm.matvec
 
@@ -168,6 +169,7 @@ def test_ssda_factorizes_once_a_run(monkeypatch):
     """The Cholesky factors are built once a solve() and shared by the step
     and the read-out."""
     _, tp = _problems("ridge", "ring")
+    TS.clear_runner_caches()  # the factors are built with the run's runner
     calls = []
     real = torch.linalg.cholesky
     monkeypatch.setattr(torch.linalg, "cholesky", lambda a: calls.append(a.shape) or real(a))

@@ -92,6 +92,7 @@ def test_sparse_equals_dense(task, method):
 def test_protocol_violation_on_broken_schedule(monkeypatch):
     """A ring buffer too shallow for the graph breaks availability."""
     _, tp = _problems("ridge")
+    TS.clear_runner_caches()  # the relay's tables are built with its runner
     real = TSC._protocol_tables
     monkeypatch.setattr(TSC, "_protocol_tables",
                         lambda g, wt: dataclasses.replace(real(g, wt), depth=2))
@@ -128,12 +129,15 @@ def test_no_device_means_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TSC.run_sparse(DSBAConfig(tp.spec, 0.5, tp.lam), tp.data, tp.graph,
                        tp.w, 2, draw_indices(2, 5, 10))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TS.solve_many(tp, "dsba", steps=2, grid=[{"alpha": 0.3}, {"alpha": 0.5}])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TSC.run_sparse_many(DSBAConfig(tp.spec, 0.5, tp.lam), tp.data, tp.graph,
+                            tp.w, 2, np.stack([draw_indices(2, 5, 10)] * 2), [0.3, 0.5])
 
 
 @pytest.mark.parametrize("call", [
     lambda p: TS.solve(p, "dsba", "sharded", steps=2, device="cpu"),
-    lambda p: TS.solve_many(p, "dsba", steps=2),
-    lambda p: TSC.run_sparse_many(p, 2),
 ])
 def test_unported_paths_raise(call):
     _, tp = _problems("ridge")

@@ -191,10 +191,8 @@ def ridge_steps(base_fn, steps=30):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.dsba_paper import EXPERIMENTS
-    from repro_torch.convert import dataset_to_torch
     from repro_torch.core import mixing
-    from repro_torch.core.comm import DenseComm
-    from repro_torch.core.solvers import get_solver, make_problem
+    from repro_torch.core.solvers import _dynamic_hp, _get_dense_runner, get_solver, make_problem
     from repro_torch.data.synthetic import DATASET_PRESETS, make_regression
 
     dev = torch.device("cuda")
@@ -203,16 +201,15 @@ def ridge_steps(base_fn, steps=30):
                            mixing.erdos_renyi_graph(10, 0.4, seed=0))
     spec = get_solver("dsba")
     hp = {"alpha": EXPERIMENTS["ridge_rcv1"].alpha}
-    data = dataset_to_torch(problem.data, dev)
-    z0 = torch.zeros((10, problem.dim), dtype=torch.float64, device=dev)
-    state0 = spec.init(problem, hp, data, z0)
-    step = spec.step(problem, hp, data, DenseComm(problem.graph, dev))
+    runner = _get_dense_runner(spec, problem, hp, dev)
+    hp_run = _dynamic_hp(spec, problem, hp, torch.float64, dev)
+    state0 = runner.init(torch.zeros((10, problem.dim), dtype=torch.float64, device=dev))
     i_t = torch.as_tensor(np.random.default_rng(0).integers(0, 100, (steps, 10)), device=dev)
 
     def run():
         state = state0
         for t in range(steps):
-            state = step(state, i_t[t])
+            state = runner.step(state, i_t[t], hp_run)
         return state
 
     port_entry = SS._entry
