@@ -210,7 +210,45 @@ printed with its seconds:
    backward (6) and every ssd forward (76) and backward (38) call;
    launches asserted every step; steps 1-3 timed, step 4 profiled; peak
    memory. Its launches join the kernels line.
-20. solvers -- in a fresh process (``chip_smoke.py --solvers``; it runs
+20. moe -- in a fresh process (``chip_smoke.py --moe``; it runs alone too):
+   qwen2-moe-a2.7b at full width (24 layers, d 2048, MHA 16/16 of head_dim
+   128 with qkv biases, 60 experts top-4 of d_ff 1408, a shared expert of
+   5632, capacity factor 1.25, vocab 151,936; random bf16 weights from seed
+   0, 29.25 GB). First the flash kernels at its shapes (D=128, 16/16,
+   causal: forward B=1, S=2048, backward B=2, S=2048, beside SDPA). Serve:
+   the serve phase's pool and 24 requests at all 24 layers; token counts,
+   decode_attention launches = decode steps x 24, no flash launch, the pool
+   never reallocated, every decode_attention call (D=128, group 1) of the
+   first 4 decode steps held; decode timed at the busiest step's snapshot;
+   the routes' dropped pairs reported (at decode the capacity is 1 a
+   expert: C = int(8 x 4 / 60 x 1.25) = 0, floored at 1). Score: ``forward``
+   at B=1, S=2048, 24 flash launches, each held; the on vs off logits and
+   route flips reported. Train: full width cut to 4 layers (float32 params,
+   grads and AdamW moments at 16 B a parameter: 46 GB; 229 GB at 24), B=2,
+   S=2048, 5 steps, remat "full"; step 0 holds every flash forward (8) and
+   backward (4) call; launches asserted every step; peak memory.
+21. encdec -- in a fresh process (``chip_smoke.py --encdec``; it runs alone
+   too): whisper-small at full width and depth (12 + 12 layers, d 768, MHA
+   12/12 of head_dim 64, d_ff 3072, 1,500 frames, vocab 51,865). First the
+   flash kernels at its shapes: the encoder's non-causal S = Sk = 1,500
+   (1,500 = 23 x 64 + 28: the kernel masks the keys past Sk and the
+   backward the query rows past S) forward at B=1 and B=8 and backward at
+   B=8, the decoder's causal S=448 forward and backward at B=8, beside SDPA
+   (the bound counts S x Sk pairs non-causal). Serve: 24 requests, each
+   with seeded (1500, 768) frames; the encoder runs at admission (12
+   non-causal flash launches a request, those of the first step's 8
+   admissions held), decode_attention = decode steps x 12, each call of the
+   first 4 decode steps held. Score: ``forward`` at B=8, decoder S=448 over
+   1,500 frames, 24 flash launches, each held. Conditioned (every attention
+   rescaled as ``condition_attention`` does): forward "on" vs "off" and
+   request 0's first decode step paged vs ``generate``, within the bf16
+   bar in relative norm. One ``local_grads`` at the reference's init,
+   every flash backward call against its plain version, reported (its
+   near-argmax attention grows the cotangents to ~1e15: single elements
+   fall outside the elementwise bar in the kernel and the plain version
+   alike). Train: full depth from a conditioned train state, B=8, S=448, 5
+   steps; step 0 holds every flash forward (48) and backward (24) call.
+22. solvers -- in a fresh process (``chip_smoke.py --solvers``; it runs
    alone too): the registry's other methods (extra, dlm, ssda, mudag,
    sliding, dsgda, personal) through ``solve()`` at the paper's rcv1
    Section-7 setup, every (method, family) pair the registry supports
@@ -221,9 +259,10 @@ printed with its seconds:
    profiled (wall, device busy, idle share, launches a step, top
    kernels). Then benchmarks/bench_table1.py's setup (N=6, q=30, d=200,
    k=8, ER(0.4)): every method's iterations to dist2 <= 1e-10 on the card
-   and on the CPU equal the reference's counts (``TABLE1_COUNTS``); each run
-   stops one record period past the count; dsba/dsa launch as predicted.
-21. faults -- in a fresh process (``chip_smoke.py --faults``; it runs alone
+   equal the reference's counts (``TABLE1_COUNTS``; the CPU's are held to
+   them by tests/test_torch_table1.py); each run stops one record period
+   past the count; dsba/dsa launch as predicted.
+23. faults -- in a fresh process (``chip_smoke.py --faults``; it runs alone
    too): dynamic networks, fault injection and checkpoint/resume through
    ``solve()`` at the rcv1 Section-7 setup (ridge; dsgda on AUC), each
    held to the same solve() on the CPU (z and dist2 <= 1e-10; DOUBLEs,
@@ -242,7 +281,7 @@ printed with its seconds:
    Profiles of the dense step plain, with the link mask and with
    stragglers, and of the relay with and without a sent_mask. Its
    launches join the kernels line.
-22. sweep -- in a fresh process (``chip_smoke.py --sweep``; it runs alone
+24. sweep -- in a fresh process (``chip_smoke.py --sweep``; it runs alone
    too): hyperparameter sweeps as one batched computation at the rcv1
    Section-7 setup (ridge). ``solve_many`` over benchmarks/
    bench_convergence.py's 5-alpha dsba grid (0.5-8) and a 3-alpha dsa grid,
@@ -328,6 +367,7 @@ from repro_torch.kernels.ref import (  # noqa: E402
 from repro_torch.kernels.sparse_saga import sparse_axpy, sparse_dot  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_chunk_bwd, ssd_chunk_fwd, ssd_plan  # noqa: E402
 from repro_torch.kernels.topk_compress import block_topk, topk_plan  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.params import tree_leaves, tree_map, tree_num_params  # noqa: E402
 from repro_torch.optim.adam import AdamConfig  # noqa: E402
@@ -1114,30 +1154,37 @@ def flash_bwd_kernels(d: int) -> tuple[str, ...]:
     return tuple(bwd_kernels(tile_plan(torch.bfloat16, d)))
 
 
-def time_attention(device, b=1, hq=32, hkv=8, s=2048, d=128) -> dict:
+def attention_pairs(b, hq, s, sk, causal) -> int:
+    """(query, key) pairs a mask keeps: the causal band (s = sk) or all."""
+    return b * hq * s * (s + 1) // 2 if causal else b * hq * s * sk
+
+
+def time_attention(device, b=1, hq=32, hkv=8, s=2048, d=128, causal=True) -> dict:
     """The flash forward at the score phase's shape (bf16, B=1, 32/8 heads,
-    S=2048, D=128, causal; or the one given): kernel, plain version and
-    SDPA, beside the bound."""
+    S=2048, D=128, causal; or the one given, S = Sk): kernel, plain version
+    and SDPA, beside the bound."""
     q, k, v = flash_inputs(b, hq, hkv, s, s, d, torch.bfloat16, device)
-    pairs = b * hq * s * (s + 1) // 2  # causal: what this run's mask keeps
+    pairs = attention_pairs(b, hq, s, s, causal)  # what this run's mask keeps
     bound_f = bound(2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * b * hq * s,
                     4 * pairs * d, torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_out, plain_out = sdpa(q, k, v, is_causal=True, enable_gqa=True), attention_ref(q, k, v)
+    lib_out = sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+    plain_out = attention_ref(q, k, v, causal=causal)
     if not same_function(lib_out, plain_out):
         raise AssertionError("SDPA yardstick disagrees with the plain version: "
                              f"{(lib_out.float() - plain_out.float()).abs().max().item()}")
+    del lib_out, plain_out
+    fwd = lambda: flash_attention(q, k, v, causal)  # noqa: E731
     out = {
-        "ms": cuda_ms(lambda: flash_attention(q, k, v), iters=50, warmup=5),
-        "device_ms": kernel_device_ms(lambda: flash_attention(q, k, v), FLASH_FWD_KERNELS,
-                                      iters=10),
-        "plain_ms": cuda_ms(lambda: attention_ref(q, k, v), iters=5, warmup=1),
+        "ms": cuda_ms(fwd, iters=50, warmup=5),
+        "device_ms": kernel_device_ms(fwd, FLASH_FWD_KERNELS, iters=10),
+        "plain_ms": cuda_ms(lambda: attention_ref(q, k, v, causal=causal), iters=5, warmup=1),
         "bound_ms": bound_f[0], "bound_by": bound_f[1],
-        "library_ms": cuda_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+        "library_ms": cuda_ms(lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True),
                               iters=50, warmup=5),
     }
-    log("attention-profile", f"flash_attention B={b} {hq}/{hkv} heads S={s} D={d}: "
-        f"{json.dumps(out)}")
+    log("attention-profile", f"flash_attention B={b} {hq}/{hkv} heads S={s} D={d} "
+        f"causal={causal}: {json.dumps(out)}")
     return out
 
 
@@ -1485,39 +1532,41 @@ def flash_bwd_parity(device) -> float:
     return worst
 
 
-def time_flash_bwd(device, b=TRAIN_B, hq=32, hkv=8, s=TRAIN_S, d=128) -> dict:
+def time_flash_bwd(device, b=TRAIN_B, hq=32, hkv=8, s=TRAIN_S, d=128, causal=True) -> dict:
     """flash_attention_bwd at the train step's shape (bf16; or the one
-    given): kernel, plain version and SDPA's backward, beside the bound."""
+    given, S = Sk): kernel, plain version and SDPA's backward, beside the
+    bound."""
     q, k, v = flash_inputs(b, hq, hkv, s, s, d, torch.bfloat16, device)
     do = flash_inputs(b, hq, hq, s, s, d, torch.bfloat16, device, seed=1)[0]
-    o, lse = flash_attention(q, k, v, return_lse=True)
-    pairs = b * hq * s * (s + 1) // 2  # causal: what this run's mask keeps
-    # five products of the causal band (s, dp, dq, dk, dv), 2 ops a multiply-add;
+    o, lse = flash_attention(q, k, v, causal, return_lse=True)
+    pairs = attention_pairs(b, hq, s, s, causal)  # what this run's mask keeps
+    # five products over the kept pairs (s, dp, dq, dk, dv), 2 ops a multiply-add;
     # reads q, k, v, o, do, lse once, writes dq, dk, dv once
     nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + o.numel() + do.numel()) \
         + 4 * lse.numel()
     bound_b = bound(nbytes, 10 * pairs * d, torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    out = sdpa(*leaves, is_causal=True, enable_gqa=True)
+    out = sdpa(*leaves, is_causal=causal, enable_gqa=True)
     lib = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)  # noqa: E731
-    plain = flash_attention_bwd_ref(q, k, v, o, lse, do)
+    plain = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
     for got, want in zip(lib(), plain):
         if not same_function(got, want):
             raise AssertionError("SDPA backward yardstick disagrees with the plain version: "
                                  f"{(got.float() - want.float()).abs().max().item()}")
     del plain
-    kern = lambda: flash_attention_bwd(q, k, v, o, lse, do)  # noqa: E731
+    kern = lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal)  # noqa: E731
     out_t = {
         "ms": cuda_ms(kern, iters=20, warmup=3),
         "device_ms": kernel_device_ms(kern, flash_bwd_kernels(d), iters=5),
-        "plain_ms": cuda_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do), iters=3,
-                            warmup=1),
+        "plain_ms": cuda_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal),
+                            iters=3, warmup=1),
         "bound_ms": bound_b[0], "bound_by": bound_b[1],
         "library_ms": cuda_ms(lib, iters=20, warmup=3),
     }
     split = {n: kernel_device_ms(kern, (n,), iters=5) for n in flash_bwd_kernels(d)}
-    log("attention-profile", f"flash_attention_bwd B={b} {hq}/{hkv} heads S={s} D={d}: "
+    log("attention-profile", f"flash_attention_bwd B={b} {hq}/{hkv} heads S={s} D={d} "
+        f"causal={causal}: "
         f"{json.dumps(out_t)}; device ms by kernel {json.dumps(split)}")
     return out_t
 
@@ -2942,7 +2991,544 @@ def hybrid_run(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 20: the rest of the paper's methods, in a fresh process (--solvers)
+# phases 20-21: the moe and encdec families, in fresh processes (--moe,
+# --encdec)
+# ---------------------------------------------------------------------------
+
+MOE_TRAIN_LAYERS, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = 4, 2, 2048, 5
+ENC_B, DEC_S, ENC_TRAIN_STEPS = 8, 448, 5  # Whisper's text context, 448 tokens
+
+
+def moe_config(n_layers=None):
+    """qwen2-moe-a2.7b at full width (d 2048, MHA 16/16 of head_dim 128 with
+    qkv biases, 60 experts top-4 of d_ff 1408 and a shared expert of 5632,
+    capacity factor 1.25, vocab 151,936), every kernel route "on"; 24
+    layers, or `n_layers`."""
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), attention_kernel="on",
+                              decode_kernel="on")
+    return dataclasses.replace(cfg, n_layers=n_layers) if n_layers else cfg
+
+
+def encdec_config():
+    """whisper-small at full width and depth (12 encoder and 12 decoder
+    layers, d 768, MHA 12/12 of head_dim 64, d_ff 3072, 1,500 frames,
+    vocab 51,865), every kernel route "on"."""
+    return dataclasses.replace(get_config("whisper-small"), attention_kernel="on",
+                               decode_kernel="on")
+
+
+class route_log:
+    """Record the scatter route's dispatch of every ``layers.moe`` call made
+    while open: (expert ids (T*K,), kept mask (T*K,)) a call, in order."""
+
+    def __enter__(self):
+        self.real = L.scatter_slots
+        calls = self.calls = []
+
+        def spy(cfg, p, x):
+            out = self.real(cfg, p, x)
+            calls.append((out[2].clone(), out[4].clone()))
+            return out
+
+        L.scatter_slots = spy
+        return calls
+
+    def __exit__(self, *exc):
+        L.scatter_slots = self.real
+        return False
+
+
+def route_summary(calls) -> dict:
+    """Pairs routed and dropped over `calls` (a ``route_log``)."""
+    pairs = sum(int(e.numel()) for e, _ in calls)
+    dropped = sum(int((~k).sum()) for _, k in calls)
+    return {"moe_calls": len(calls), "pairs": pairs, "dropped": dropped,
+            "dropped_share": dropped / max(pairs, 1)}
+
+
+def route_flips(a, b) -> dict:
+    """(token, slot) pairs whose expert or kept flag differ between two
+    ``route_log`` records of the same calls (kernels on vs off)."""
+    if len(a) != len(b):
+        raise AssertionError(f"{len(a)} vs {len(b)} moe calls")
+    expert = sum(int((ea != eb).sum()) for (ea, _), (eb, _) in zip(a, b))
+    kept = sum(int((ka != kb).sum()) for (_, ka), (_, kb) in zip(a, b))
+    first = next((i for i, ((ea, ka), (eb, kb)) in enumerate(zip(a, b))
+                  if not (torch.equal(ea, eb) and torch.equal(ka, kb))), None)
+    return {"expert_flips": expert, "kept_flips": kept, "first_layer_with_a_flip": first}
+
+
+def family_serve_phase(device, cfg, params, reqs, n_attn, flash_per_prefill, tag):
+    """The Scheduler with `reqs` at full width (the serve phase's pool).
+
+    Hard checks: every request ends with its token count; decode_attention
+    launches = decode steps x `n_attn`, flash_attention = prefills x
+    `flash_per_prefill` (the encdec encoder at admission; prefill itself
+    passes a cache); the pools never reallocated; every decode_attention
+    call of the first 4 decode steps and every flash call of the first
+    step's admissions held to the plain version. Reported: tokens/s, a
+    replayed decode step at the busiest state, the moe routes' drops in the
+    held steps. Returns (summary, launches, the busiest step's decode
+    snapshot (q, k_pool, v_pool, table, lengths) of layer 0)."""
+    sch = Scheduler(cfg, params, SERVE_POOL, device=device)
+    ptrs = sch.pool.data_ptrs()
+    for r in reqs:
+        sch.submit(r)
+    inner = sch.decode_fn
+    held, busiest, routes = [], {}, []
+
+    def decode_fn(params_, tokens, pools, table, lengths):
+        if len(held) < 4:
+            with ops.held_to_plain("decode_attention") as errs, route_log() as rl:
+                out = inner(params_, tokens, pools, table, lengths)
+            held.append(errs)
+            routes.extend(rl)
+        else:
+            out = inner(params_, tokens, pools, table, lengths)
+        live = int(lengths.sum())
+        if live > busiest.get("live", -1):
+            busiest.update(live=live, tokens=tokens.clone(), table=table.clone(),
+                           lengths=lengths.clone())
+        return out
+
+    sch.decode_fn = decode_fn
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ops.held_to_plain("flash_attention") as held_flash, route_log() as prefill_routes:
+        sch.step()  # admits the first max_batch requests, then one decode step
+    admitted = sch.stats.steps[0].admitted
+    results, stats = sch.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = launches()
+    prefills = sum(st.admitted for st in stats.steps)
+    want = {**dict.fromkeys(WRAPPERS, 0), "flash_attention": prefills * flash_per_prefill,
+            "decode_attention": stats.decode_steps * n_attn}
+    if got != want or stats.decode_steps == 0:
+        raise AssertionError(f"{tag} serve launches {got} != {want}")
+    if [len(e) for e in held] != [n_attn] * 4:
+        raise AssertionError(f"{tag}: held decode calls a step {[len(e) for e in held]}")
+    if len(held_flash) != admitted * flash_per_prefill or admitted == 0:
+        raise AssertionError(f"{tag}: {len(held_flash)} flash calls held for {admitted} "
+                             "admissions")
+    for r in reqs:
+        toks = results[r.rid]
+        if toks.shape != (r.max_new_tokens,) or not np.all((0 <= toks) & (toks < cfg.vocab_size)):
+            raise AssertionError(f"{tag} request {r.rid}: tokens {toks.shape}")
+    if sch.pool.data_ptrs() != ptrs:
+        raise AssertionError(f"the {tag} pools were reallocated")
+    args = (params, busiest["tokens"], sch.pool.pools, busiest["table"], busiest["lengths"])
+    step = replay_step(lambda: T.decode_step_paged(cfg, *args))
+    weight_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params)
+                       if t.dtype == cfg.compute_dtype)
+    n_tokens = int(sum(len(v) for v in results.values()))
+    summary = {
+        "requests": len(reqs), "tokens": n_tokens, "prefills": prefills,
+        "decode_steps": stats.decode_steps, "preemptions": stats.preemptions,
+        "peak_active": stats.peak_active, "peak_occupancy": stats.peak_occupancy,
+        "wall_s": wall, "tokens_per_s": n_tokens / wall,
+        "decode_ms_per_step_incl_admission": wall * 1e3 / stats.decode_steps,
+        "decode_vs_plain_max_abs_per_step": [max(e) for e in held],
+        "decode_vs_plain_rel_norm_max": max(r for e in held for r in e.rel),
+        "held_admissions": admitted,
+        "flash_vs_plain_max_abs": max(held_flash, default=0.0),
+        "flash_vs_plain_rel_norm_max": max(held_flash.rel, default=0.0),
+        "busiest_live_tokens": busiest["live"], "decode_step": step,
+        "weight_bytes_read_per_step": weight_bytes,
+        "decode_step_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+    }
+    if cfg.family == "moe":
+        summary["routes_first_step"] = route_summary(prefill_routes)  # admissions + a decode
+        summary["routes_held_decode_steps"] = route_summary(routes)
+    log(f"{tag}-serve", json.dumps(summary))
+    gen_q = torch.Generator(device=device).manual_seed(1)
+    kv = sch.pool.pools["self"] if cfg.family == "encdec" else sch.pool.pools
+    snap = (torch.randn(SERVE_POOL.max_batch, cfg.n_heads, cfg.head_dim, device=device,
+                        generator=gen_q).to(cfg.compute_dtype),
+            kv["k"][0], kv["v"][0], busiest["table"], busiest["lengths"] + 1)
+    return summary, got, snap
+
+
+def family_score_phase(device, cfg, params, tokens, n_flash, tag, **kw) -> tuple[dict, dict]:
+    """forward() at full width on `tokens` (and the encdec's `enc_embeds`
+    in `kw`): `n_flash` flash_attention launches, each held to the plain
+    version on its own inputs; finite logits. The on vs off logit
+    difference is reported (chaotic at the reference's init), and for the
+    moe family the route flips between the two and the dropped pairs."""
+    b, s = tokens.shape
+    T.forward(cfg, params, tokens[:, :128], **{k: v[:, :256] for k, v in kw.items()})  # warm-up
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on = T.forward(cfg, params, tokens, **kw)
+    torch.cuda.synchronize()
+    t_on = time.perf_counter() - t0
+    got = launches()
+    if got != {**dict.fromkeys(WRAPPERS, 0), "flash_attention": n_flash}:
+        raise AssertionError(f"{tag} score launches {got}: want {n_flash} flash_attention")
+    if on.shape != (b, s, cfg.vocab_size) or not torch.isfinite(on).all():
+        raise AssertionError(f"{tag} score logits {tuple(on.shape)} not finite")
+    with ops.held_to_plain("flash_attention") as flash, route_log() as on_routes:
+        T.forward(cfg, params, tokens, **kw)
+    if len(flash) != n_flash:
+        raise AssertionError(f"{len(flash)} flash calls held")
+    with route_log() as off_routes:
+        off = T.forward(dataclasses.replace(cfg, attention_kernel="off"), params, tokens, **kw)
+    out = {"B": b, "S": s, "seconds_on": t_on, "tokens_per_s_on": b * s / t_on,
+           "flash_vs_plain_max_abs": list(flash), "flash_vs_plain_rel_norm": flash.rel,
+           "reported_on_vs_off_logits_rel_norm": ops.rel_err(on, off),
+           "reported_on_vs_off_within_bar": within_bf16_bar(on, off),
+           "logits_abs_max": off.abs().max().item()}
+    if cfg.family == "moe":
+        out["routes"] = route_summary(on_routes)
+        out["reported_route_flips_on_vs_off"] = route_flips(on_routes, off_routes)
+    log(f"{tag}-score", json.dumps(out))
+    return out, got
+
+
+def family_train_phase(device, cfg, steps, batch_fn, tag, prepare=None) -> tuple[dict, dict]:
+    """`steps` train steps of `cfg` (AdamW at the launcher's defaults,
+    remat "full": each self-attention's flash forward twice a step and its
+    backward's two kernels once), the batches from ``batch_fn(i)``, from
+    the train state's parameters after ``prepare(params)`` (if given). Step 0
+    holds every flash forward and backward call to the plain version (bars
+    2e-2 and 5e-2; gradients also in relative norm); launches asserted
+    every step; steps 1..steps-2 timed, the last profiled; peak memory.
+    Returns (summary, launches over every step)."""
+    n_attn = cfg.n_layers + (cfg.n_encoder_layers if cfg.family == "encdec" else 0)
+    tc = TrainConfig(optimizer=AdamConfig())
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, tc, 0, device)
+    if prepare is not None:
+        prepare(state["params"])
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in tree_leaves({"p": state["params"], "o": state["opt"]})) / 1e9
+    log(f"{tag}-train", f"{cfg.name} x{cfg.n_layers} layers, "
+        f"{tree_num_params(T.model_defs(cfg))} params, train state (params, mu, nu) "
+        f"{state_gb:.2f} GB")
+    want = {**dict.fromkeys(WRAPPERS, 0), "flash_attention": 2 * n_attn,
+            "flash_attention_bwd": 2 * n_attn}
+    total = dict.fromkeys(WRAPPERS, 0)
+    losses, gnorms, walls = [], [], []
+
+    def one_step(i):
+        nonlocal state
+        before = launches()
+        state, m = train_step(cfg, tc, state, batch_fn(i))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        got = {n: c - before[n] for n, c in launches().items()}
+        if got != want:
+            raise AssertionError(f"{tag} train step {i}: launches {got} != {want}")
+        for n, c in got.items():
+            total[n] += c
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with ops.held_to_plain("flash_attention") as ffwd, \
+            ops.held_to_plain("flash_attention_bwd") as fbwd:
+        one_step(0)
+    torch.cuda.synchronize()
+    t_held = time.perf_counter() - t0
+    if [len(ffwd), len(fbwd)] != [2 * n_attn, n_attn]:
+        raise AssertionError(f"{tag} step 0 held {len(ffwd)} flash fwd, {len(fbwd)} bwd calls")
+    worst = max(fbwd.rel)
+    if worst > GRAD_BAR:
+        raise AssertionError(f"{tag} step 0: flash backward relative error {worst}")
+    peak_step0 = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(1, steps - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step(i)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    busy_us, kern = device_profile(lambda: one_step(steps - 1), 1)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"{tag} train losses {losses} grad norms {gnorms}")
+    wall_ms = float(np.median(walls)) * 1e3
+    names = ("flash_fwd_wgmma_kernel", *flash_bwd_kernels(cfg.head_dim))
+    summary = {
+        "layers": cfg.n_layers, "attention_layers": n_attn,
+        "train_state_gb": state_gb, "losses": losses, "grad_norms": gnorms,
+        "step0_s_held_to_plain": t_held,
+        "step0_flash_fwd_vs_plain_max_abs": max(ffwd), "step0_flash_fwd_rel_norm_max": max(ffwd.rel),
+        "step0_flash_bwd_vs_plain_max_abs": max(fbwd), "step0_flash_bwd_rel_norm_max": worst,
+        "step0_flash_bwd_plain_max_abs_grad": max(fbwd.scale),
+        "step_wall_ms": [w * 1e3 for w in walls], "step_wall_ms_median": wall_ms,
+        "step_device_busy_ms": busy_us / 1e3, "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+        "port_kernel_launches_per_step": {k: c for k, c in want.items() if c},
+        "profiled_port_kernels": {n: sum(c for k, (_, c) in kern.items() if n in k)
+                                  for n in names},
+        "port_kernel_device_ms": {n: sum(t for k, (t, _) in kern.items() if n in k) / 1e3
+                                  for n in names},
+        "peak_gb_steps_1_4": peak / 1e9, "peak_gb_step0_held": peak_step0 / 1e9,
+        "top_kernels_us_per_step": top_by_prefix({k: t for k, (t, _) in kern.items()}, 10),
+    }
+    log(f"{tag}-train", json.dumps(summary))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary, total
+
+
+def family_run(device, tag, cfg, times, phases) -> dict:
+    """Draw `cfg`'s serving weights, run `phases` (each ``fn(params) ->
+    (name, summary, launches[, decode snapshot])``) in order, then free the
+    weights. Returns the launches by kernel, `times` (with the decode
+    snapshot's) and each phase's summary."""
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    log(tag, f"{cfg.name}: {cfg.n_layers} layers, {tree_num_params(T.model_defs(cfg))} params "
+        f"({cfg.param_count()} counted, {cfg.active_param_count()} active a token), "
+        f"{nbytes} bytes ({nbytes / 1e9:.2f} GB) on the card, drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out, total = {"param_bytes": nbytes}, dict.fromkeys(WRAPPERS, 0)
+    for phase in phases:
+        t0 = time.perf_counter()
+        name, summary, got, *snap = phase(params)
+        out[name] = summary
+        for n, c in got.items():
+            total[n] += c
+        if snap:
+            times["decode_attention"] = time_decode_shape(device, snap[0],
+                                                          f"{tag} serve snapshot", iters=200)
+            del snap
+        log(f"{tag}-{name}", f"launches {got}; done in {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": total, "times": times, "phases": out}
+
+
+def moe_run(device) -> dict:
+    """``chip_smoke.py --moe`` (a fresh process): qwen2-moe-a2.7b at full
+    width. First the flash kernels at its shapes (MHA 16/16, D=128, causal:
+    the forward at the score shape, B=1, S=2048; the backward at the train
+    shape, B=2, S=2048; SDPA beside them computes the same function); then,
+    on random bf16 weights from seed 0 (29.25 GB), serve (24 requests, all
+    24 layers; decode timed at the busiest step's snapshot, D=128 group 1)
+    and score (B=1, S=2048), with every kernel call held and the routes'
+    drops and on-vs-off flips reported; then train at full width cut to
+    MOE_TRAIN_LAYERS layers (its float32 params, grads and AdamW moments
+    take 16 B a parameter: 4 layers 46 GB, 24 layers 229 GB), B=2, S=2048."""
+    log("moe", subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    _build.build_all()
+    cfg = moe_config()
+    times = {"flash_attention": time_attention(device, 1, 16, 16, 2048, 128),
+             "flash_attention_bwd": time_flash_bwd(device, MOE_TRAIN_B, 16, 16, MOE_TRAIN_S,
+                                                   128)}
+    phases = [
+        lambda p: ("serve", *family_serve_phase(device, cfg, p, serve_requests(cfg),
+                                                cfg.n_layers, 0, "moe")),
+        lambda p: ("score", *family_score_phase(device, cfg, p, score_tokens(cfg, device, 2048),
+                                                cfg.n_layers, "moe")),
+    ]
+    out = family_run(device, "moe", cfg, times, phases)
+    tcfg = moe_config(MOE_TRAIN_LAYERS)
+    log("moe-train", f"cut 24 -> {MOE_TRAIN_LAYERS} layers at full width: "
+        f"{tree_num_params(T.model_defs(tcfg))} params, 16 B each in float32 params, grads "
+        "and AdamW moments")
+    ld = LoaderConfig(tcfg.vocab_size, MOE_TRAIN_B, MOE_TRAIN_S, seed=0)
+    t0 = time.perf_counter()
+    out["phases"]["train"], got = family_train_phase(device, tcfg, MOE_TRAIN_STEPS,
+                                                     lambda i: batch_at(ld, i), "moe")
+    for n, c in got.items():
+        out["launches"][n] += c
+    log("moe-train", f"launches {got}; done in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def frames(cfg, b, device, seed) -> torch.Tensor:
+    """Seeded unit-normal (b, encoder_len, d_model) frame embeddings on the
+    card (the audio frontend is a stub in both packages)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(b, cfg.encoder_len, cfg.d_model, generator=g, device=device)
+
+
+def encdec_requests(cfg, n=24, seed=0) -> list[Request]:
+    """``serve_requests`` with a seeded (encoder_len, d_model) float32
+    ``enc_embeds`` each."""
+    rng = np.random.default_rng(seed + 1)
+    return [dataclasses.replace(r, enc_embeds=rng.standard_normal(
+        (cfg.encoder_len, cfg.d_model)).astype(np.float32)) for r in serve_requests(cfg, n, seed)]
+
+
+def condition_encdec(cfg, params) -> None:
+    """``condition_attention`` on every attention of the encdec stacks:
+    the encoder's, the decoder's and its cross attention."""
+    for attn in (params["encoder"]["attn"], params["decoder"]["attn"],
+                 params["decoder"]["xattn"]):
+        condition_attention(cfg, attn)
+
+
+class bwd_log:
+    """Record, without raising, how every flash_attention_bwd call made
+    while open compares with its plain version on the same inputs: the
+    plain gradients' largest magnitude, the relative error norm of each of
+    dq, dk, dv and the elements outside the registry's bf16 bar."""
+
+    def __enter__(self):
+        self.real = ops.dispatch
+        rows = self.rows = []
+        tol = ops.get_kernel("flash_attention_bwd").tolerance(torch.bfloat16)
+
+        def spy(name, *args, **kw):
+            out = self.real(name, *args, **kw)
+            if name == "flash_attention_bwd":
+                kw.pop("mode", None)
+                want = flash_attention_bwd_ref(*args, **kw)
+                rows.append({
+                    "S": args[0].shape[2], "causal": kw.get("causal", True),
+                    "plain_abs_max": max(w.abs().max().item() for w in want),
+                    "rel_norm": [ops.rel_err(g, w) for g, w in zip(out, want)],
+                    "outside_bar": sum(int(((g.double() - w.double()).abs()
+                                            > tol.atol + tol.rtol * w.double().abs()).sum())
+                                       for g, w in zip(out, want))})
+            return out
+
+        ops.dispatch = spy
+        return rows
+
+    def __exit__(self, *exc):
+        ops.dispatch = self.real
+        return False
+
+
+def reference_init_backward(device, cfg, batch) -> dict:
+    """One ``local_grads`` of whisper-small with the reference's init
+    (reported, not gated): every flash backward call against its plain
+    version by ``bwd_log``. With this init the 24 attention layers are near
+    an argmax (scores in the hundreds) and the cotangents grow by orders of
+    magnitude a layer going back, so single elements of dq, dk, dv cancel
+    large terms and fall outside the elementwise bar in the kernel and the
+    plain float32 version alike; the train phase holds every call on
+    conditioned attention (``condition_encdec``)."""
+    params = T.init_train_params(cfg, 0, device)
+    with bwd_log() as rows:
+        loss, _ = local_grads(cfg, TrainConfig(), params, batch)
+    out = {"loss": float(loss), "calls": len(rows),
+           "rel_norm_max": max(max(r["rel_norm"]) for r in rows),
+           "plain_abs_max": max(r["plain_abs_max"] for r in rows),
+           "calls_with_elements_outside_bar": sum(1 for r in rows if r["outside_bar"]),
+           "elements_outside_bar": sum(r["outside_bar"] for r in rows), "per_call": rows}
+    log("encdec-reference-init-backward", json.dumps(out))
+    del params, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def encdec_conditioned_phase(device, cfg, params) -> dict:
+    """End-to-end checks on the weights with every attention (encoder,
+    decoder, cross) rescaled by ``condition_attention`` (with the reference's
+    init whole-model logits are chaotic; the score phase reports that).
+    Hard checks, each within the bf16 bar in relative norm: forward at
+    B=ENC_B, S=DEC_S with attention_kernel "on" against "off"; request 0's
+    first token and first decode-step logits through the Scheduler against
+    the contiguous ``generate``."""
+    condition_encdec(cfg, params)
+    tokens = score_tokens(cfg, device, ENC_B * DEC_S).reshape(ENC_B, DEC_S)
+    enc = frames(cfg, ENC_B, device, 3)
+    on = T.forward(cfg, params, tokens, enc_embeds=enc)
+    off = T.forward(dataclasses.replace(cfg, attention_kernel="off"), params, tokens,
+                    enc_embeds=enc)
+    score_rel = ops.rel_err(on, off)
+    del on, off
+    sch = Scheduler(cfg, params, SERVE_POOL, device=device)
+    reqs = encdec_requests(cfg)[:SERVE_POOL.max_batch]
+    for r in reqs:
+        sch.submit(r)
+    inner, first = sch.decode_fn, {}
+
+    def decode_fn(*args):
+        out = inner(*args)
+        slot = next(sl for sl, st in sch.active.items() if st.req.rid == 0)
+        first["token"] = sch.active[slot].generated[0]
+        first["logits"] = out[1][slot].float().clone()
+        return out
+
+    sch.decode_fn = decode_fn
+    sch.step()  # admits every request, then one decode step
+    gen = generate(cfg, params, torch.as_tensor(reqs[0].tokens, device=device)[None],
+                   max_new_tokens=1,
+                   enc_embeds=torch.as_tensor(reqs[0].enc_embeds, device=device)[None])
+    paged_rel = ops.rel_err(first["logits"], gen.logits[1][0])
+    out = {"score_on_vs_off_rel_norm": score_rel, "paged_vs_contiguous_rel_norm": paged_rel,
+           "same_first_token": int(gen.tokens[0, 0]) == int(first["token"])}
+    log("encdec-conditioned", json.dumps(out))
+    if score_rel > BF16_BAR or paged_rel > BF16_BAR or not out["same_first_token"]:
+        raise AssertionError(f"encdec conditioned: {out}")
+    return out
+
+
+def encdec_run(device) -> dict:
+    """``chip_smoke.py --encdec`` (a fresh process): whisper-small at full
+    width and depth. First the flash kernels at its shapes (MHA 12/12,
+    D=64): the encoder's non-causal self-attention over S = Sk = 1,500
+    frames (forward at B=1, the serve admission, and B=ENC_B; backward at
+    B=ENC_B), the decoder's causal S=DEC_S (forward and backward at
+    B=ENC_B), beside SDPA; then, on random bf16 weights from seed 0, serve
+    (24 requests, each with seeded (1500, 768) frames; the encoder runs at
+    admission; decode timed at the busiest step's snapshot, D=64 group 1),
+    score (B=ENC_B, S=DEC_S over 1,500 frames), the conditioned end-to-end
+    checks, one reported backward at the reference's init
+    (``reference_init_backward``), and ENC_TRAIN_STEPS train steps at full
+    depth (B=ENC_B, S=DEC_S, seeded frames a step) from a train state whose
+    attention is conditioned (``condition_encdec``)."""
+    log("encdec", subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    _build.build_all()
+    cfg = encdec_config()
+    se, h, d = cfg.encoder_len, cfg.n_heads, cfg.head_dim
+    times = {
+        "flash_attention": time_attention(device, ENC_B, h, h, se, d, causal=False),
+        "flash_attention_b1": time_attention(device, 1, h, h, se, d, causal=False),
+        "flash_attention_decoder": time_attention(device, ENC_B, h, h, DEC_S, d),
+        "flash_attention_bwd": time_flash_bwd(device, ENC_B, h, h, se, d, causal=False),
+        "flash_attention_bwd_decoder": time_flash_bwd(device, ENC_B, h, h, DEC_S, d),
+    }
+    n_attn = cfg.n_layers + cfg.n_encoder_layers
+
+    def score(p):
+        tokens = score_tokens(cfg, device, ENC_B * DEC_S).reshape(ENC_B, DEC_S)
+        return ("score", *family_score_phase(device, cfg, p, tokens, n_attn, "encdec",
+                                             enc_embeds=frames(cfg, ENC_B, device, 2)))
+
+    phases = [
+        lambda p: ("serve", *family_serve_phase(device, cfg, p, encdec_requests(cfg),
+                                                cfg.n_layers, cfg.n_encoder_layers, "encdec")),
+        score,
+        lambda p: ("conditioned", encdec_conditioned_phase(device, cfg, p),
+                   dict.fromkeys(WRAPPERS, 0)),
+    ]
+    out = family_run(device, "encdec", cfg, times, phases)
+    ld = LoaderConfig(cfg.vocab_size, ENC_B, DEC_S, seed=0)
+    batch_fn = lambda i: {**batch_at(ld, i),  # noqa: E731
+                          "enc_embeds": frames(cfg, ENC_B, device, 100 + i)}
+    out["phases"]["reference_init_backward"] = reference_init_backward(device, cfg,
+                                                                       batch_fn(0))
+    t0 = time.perf_counter()
+    out["phases"]["train"], got = family_train_phase(
+        device, cfg, ENC_TRAIN_STEPS, batch_fn, "encdec",
+        prepare=lambda p: condition_encdec(cfg, p))
+    for n, c in got.items():
+        out["launches"][n] += c
+    log("encdec-train", f"launches {got}; done in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the rest of the paper's methods, in a fresh process (--solvers)
 # ---------------------------------------------------------------------------
 
 NEW_METHODS = ("extra", "dlm", "ssda", "mudag", "sliding", "dsgda", "personal")
@@ -3082,11 +3668,11 @@ def table1_count(problem, method, device, stop=None):
 
 
 def table1_phase(device, counts=TABLE1_COUNTS) -> dict:
-    """Every Table-1 count on `device` and on the CPU in this process: each
-    run stops one record period past the expected count (or runs whole
-    where it is None), and both counts must equal it. dsba/dsa launch
-    exactly ``expected_launches`` on the card, the other methods none."""
-    cpu = torch.device("cpu")
+    """Every Table-1 count on `device`: each run stops one record period
+    past the expected count (or runs whole where it is None), and its count
+    must equal it (tests/test_torch_table1.py holds the CPU's counts to the
+    same numbers). dsba/dsa launch exactly ``expected_launches`` on the
+    card, the other methods none."""
     out = {}
     for (task, lam), want in counts.items():
         problem = table1_problem(task, lam)
@@ -3095,20 +3681,17 @@ def table1_phase(device, counts=TABLE1_COUNTS) -> dict:
             t0 = time.perf_counter()
             c_dev, got, steps = table1_count(problem, method, device, stop)
             t_dev = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            c_cpu, _, _ = table1_count(problem, method, cpu, stop)
-            t_cpu = time.perf_counter() - t0
-            if not c_dev == c_cpu == count:
+            if c_dev != count:
                 raise AssertionError(f"table1 {task} lam={lam} {method}: device {c_dev}, "
-                                     f"CPU {c_cpu}, reference {count}")
+                                     f"reference {count}")
             if device.type == "cuda":
                 want_l = expected_launches(steps, "dense") if method in ("dsba", "dsa") else {}
                 if got != {**dict.fromkeys(got, 0), **want_l}:
                     raise AssertionError(f"table1 {method}: launches {got} != {want_l}")
             out[f"{task} {lam:g} {method}"] = {"count": c_dev, "steps": steps,
-                                               "s_device": t_dev, "s_cpu": t_cpu}
+                                               "s_device": t_dev}
             log("table1", f"{task} lam={lam:g} {method}: {c_dev} (device {t_dev:.1f} s, "
-                f"CPU {t_cpu:.1f} s, {steps} steps)")
+                f"{steps} steps)")
     return out
 
 
@@ -3137,7 +3720,7 @@ def solvers_run(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 21: dynamic networks, fault injection, checkpoint/resume (--faults)
+# phase 23: dynamic networks, fault injection, checkpoint/resume (--faults)
 # ---------------------------------------------------------------------------
 
 # benchmarks/bench_faults.py's iterations to dist2 <= 1e-6 at p = 0 (the JAX
@@ -3411,7 +3994,7 @@ def faults_run(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 22: hyperparameter sweeps as one batched computation (--sweep)
+# phase 24: hyperparameter sweeps as one batched computation (--sweep)
 # ---------------------------------------------------------------------------
 
 # benchmarks/bench_convergence.py's tune_stochastic grid (dsba, ridge)
@@ -4015,6 +4598,12 @@ def main() -> int:
     hybrid = profile_subprocess("--hybrid")
     log("hybrid", f"done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    moe = profile_subprocess("--moe")
+    log("moe", f"done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    encdec = profile_subprocess("--encdec")
+    log("encdec", f"done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     profile_subprocess("--solvers")  # launches no kernel of the line below
     log("solvers", f"done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -4039,9 +4628,11 @@ def main() -> int:
                           + ssm_train_launches["ssd_chunk"])
     total["ssd_chunk_bwd"] = ssm_train_launches["ssd_chunk_bwd"]
     # and the hybrid's serve, score, long_500k and train paths (--hybrid),
-    # the fault, schedule, churn and resume paths (--faults) and the batched
-    # sweeps at B*N rows (--sweep)
-    for name, n in (*hybrid["launches"].items(), *faults["launches"].items(),
+    # the moe and encdec families' serve, score and train paths (--moe,
+    # --encdec), the fault, schedule, churn and resume paths (--faults) and
+    # the batched sweeps at B*N rows (--sweep)
+    for name, n in (*hybrid["launches"].items(), *moe["launches"].items(),
+                    *encdec["launches"].items(), *faults["launches"].items(),
                     *sweep["launches"].items()):
         total[name] += n
     kernels = [
@@ -4061,7 +4652,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     PROFILES = {"--ssm-profile": ssm_profile, "--attention-profile": attention_profile,
-                "--hybrid": hybrid_run, "--solvers": solvers_run, "--faults": faults_run,
+                "--hybrid": hybrid_run, "--moe": moe_run, "--encdec": encdec_run,
+                "--solvers": solvers_run, "--faults": faults_run,
                 "--sweep": sweep_run,
                 "--topk-profile": topk_profile,
                 "--gossip-profile": lambda dev: gossip_phase(dev, topk_rows=True)[0],

@@ -4,9 +4,9 @@
 registry mirrors ``repro.configs``: ``--arch <id>`` (or an alias with
 dashes and dots) selects a module exposing ``CONFIG`` (the assigned
 configuration) and ``reduced()`` (a small same-family configuration for CPU
-tests). ``minitron_8b``, ``gemma2_2b``, ``mamba2_1p3b`` and ``zamba2_1p2b``
-are ported; every other id raises ``NotImplementedError`` naming the ROADMAP
-item that ports its family, and never falls back to another model.
+tests). Every id of the JAX registry is ported: the dense, moe, ssm,
+hybrid and encdec families. An unknown id raises ``KeyError`` and never
+falls back to another model.
 """
 from __future__ import annotations
 
@@ -38,25 +38,11 @@ ALIASES = {
     "mamba2-1.3b": "mamba2_1p3b",
 }
 
-PORTED = ("minitron_8b", "gemma2_2b", "mamba2_1p3b", "zamba2_1p2b")
-
-# where each unported arch id waits (ROADMAP Queue 1 item 12: models)
-NOT_PORTED = {
-    "qwen2_72b": "dense family with qkv bias: the config is not ported yet",
-    "llama3_405b": "dense family at 405B: the config is not ported yet",
-    "chameleon_34b": "dense family (fused VLM vocab): the config is not ported yet",
-    "whisper_small": "encdec family is not ported",
-    "kimi_k2": "moe family is not ported",
-    "qwen2_moe": "moe family is not ported",
-}
+PORTED = tuple(ARCH_IDS)
 
 
 def _module(arch: str):
     mod = ALIASES.get(arch, arch).replace("-", "_")
-    if mod in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r}: {NOT_PORTED[mod]} (ROADMAP Queue 1 item 12)"
-        )
     if mod not in PORTED:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{mod}")

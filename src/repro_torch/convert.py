@@ -22,7 +22,6 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from repro_torch.core.dsba import DSBAState
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.params import tree_map
@@ -55,8 +54,12 @@ def dataset_to_torch(data, device=None) -> TensorDataset:
     )
 
 
-def state_from_numpy(leaves: Mapping[str, np.ndarray], device=None) -> DSBAState:
+def state_from_numpy(leaves: Mapping[str, np.ndarray], device=None):
     """Build a port ``DSBAState`` from ``{field name: numpy array}``."""
+    # imported here: core.solvers imports this module, so a module-level
+    # import of core made `import repro_torch.convert` fail when it came first
+    from repro_torch.core.dsba import DSBAState
+
     dev = resolve_device(device)
     names = [f.name for f in dataclasses.fields(DSBAState)]
     missing = sorted(set(names) - set(leaves))
@@ -67,7 +70,7 @@ def state_from_numpy(leaves: Mapping[str, np.ndarray], device=None) -> DSBAState
     })
 
 
-def state_to_numpy(state: DSBAState) -> dict[str, np.ndarray]:
+def state_to_numpy(state) -> dict[str, np.ndarray]:
     """``{field name: numpy array}`` of a port ``DSBAState`` (copied to host)."""
     return {
         f.name: getattr(state, f.name).detach().cpu().numpy()

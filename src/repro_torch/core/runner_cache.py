@@ -31,8 +31,10 @@ Keying rules (the JAX package's, plus the device):
 
 Stats are per-cache and process-global. ``traces`` counts what a build
 binds: the runner's step and read-out closures (the dense runners), the
-batched variant of a runner, and the relay's step with its tables. It is
-incremented from *inside* the build (``note_trace``), never on a hit, so
+batched variant of a runner, a relay runner's first sequential use and
+its ``("batched", key)`` entry (the JAX package compiles each at its
+first call). It is incremented from *inside* the build or that first use
+(``note_trace``), never on a later hit, so
 tests can assert "second call, new hyperparameter values, zero new traces"
 directly (tests/test_torch_runner_cache.py).
 """

@@ -276,6 +276,7 @@ class _Relay:
     waves: list  # [(xi, observers, sources)] farthest first
     floods: dict  # t -> (observers, sources) at distance t
     coeffs: object  # dsba.coeffs_memo
+    traced: bool = False  # the sequential scan's trace has been counted
 
 
 def _sparse_scan_key(cfg, data, graph, w, verify, faulty, device):
@@ -296,12 +297,20 @@ def _sparse_scan_key(cfg, data, graph, w, verify, faulty, device):
     return key, (data,)
 
 
-def _get_relay(cfg, data, graph, w, verify, faulty, dev) -> _Relay:
-    """Fetch (or build) the relay runner for this problem on ``dev``."""
+def _get_relay(cfg, data, graph, w, verify, faulty, dev, *, batched=False) -> _Relay:
+    """Fetch (or build) the relay runner for this problem on ``dev``.
+
+    The cache's entries and traces follow the JAX package's, which compiles
+    its sequential scan at the first call and keeps the batched (vmapped)
+    scan of ``run_sparse_many`` under a ``("batched", key)`` entry of its
+    own, guarded alike, compiled at its first call. Here the first
+    sequential use of a runner notes one trace; with `batched` the runner
+    is looked up under both keys (the batched entry holds the same runner)
+    and building the batched entry notes one.
+    """
     key, guards = _sparse_scan_key(cfg, data, graph, w, verify, faulty, dev)
 
     def build() -> _Relay:
-        runner_cache.SPARSE.note_trace()  # build-time only
         tdata = dataset_to_torch(data, dev)
         dt = tdata.val.dtype
         tb = _protocol_tables(graph, w_tilde(w))
@@ -320,7 +329,17 @@ def _get_relay(cfg, data, graph, w, verify, faulty, dev) -> _Relay:
             coeffs=coeffs_memo(data.n_nodes, data.q),
         )
 
-    return runner_cache.SPARSE.get_or_build(key, guards, build)
+    rl = runner_cache.SPARSE.get_or_build(key, guards, build)
+    if batched:
+        def build_batched() -> _Relay:
+            runner_cache.SPARSE.note_trace()  # build-time only
+            return rl
+
+        return runner_cache.SPARSE.get_or_build(("batched", key), guards, build_batched)
+    if not rl.traced:
+        runner_cache.SPARSE.note_trace()
+        rl.traced = True
+    return rl
 
 
 def _relay_hp(alpha, lam: float, dt, dev) -> dict:
@@ -567,7 +586,8 @@ def run_sparse_many(
     ``indices`` is (B, >= steps, N), one sample stream per run, and
     ``alphas`` a length-B sequence of step sizes (``cfg.alpha`` is not
     read; ``cfg.lam`` and ``cfg.method`` are shared). The runs share the
-    relay runner ``run_sparse`` uses (the same cache key), and every carry
+    relay runner ``run_sparse`` uses (looked up under its key and under
+    ``("batched", key)``, as the JAX package does), and every carry
     tensor (the solver state, R, DD and with ``verify`` SR and Z) gains a
     leading B axis: the waves, floods and neighbourhood sums index it the
     same way, and each step's two sparse kernels take the B*N rows in one
@@ -594,7 +614,7 @@ def run_sparse_many(
             f"got {indices.shape}"
         )
     z0 = np.zeros((n, D), dtype=data.val.dtype) if z0 is None else np.asarray(z0)
-    rl = _get_relay(cfg, data, graph, w, verify, False, dev)
+    rl = _get_relay(cfg, data, graph, w, verify, False, dev, batched=True)
     dt = rl.tdata.val.dtype
     hp = _relay_hp(list(alphas), cfg.lam, dt, dev)
     z0_t = torch.as_tensor(z0, dtype=dt, device=dev)

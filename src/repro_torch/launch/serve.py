@@ -6,8 +6,9 @@
 
 Serves a (reduced, unless --full) model with random weights drawn from
 --seed on the device (the card unless --device says otherwise): requests
-are prefilled in batches, then decoded token by token. Prompts come from a
-``torch.Generator`` seeded with --seed + 1.
+are prefilled in batches, then decoded token by token. Prompts (and, for
+the encdec family, unit-normal (encoder_len, d_model) frame embeddings a
+request) come from a ``torch.Generator`` seeded with --seed + 1.
 """
 from __future__ import annotations
 
@@ -47,8 +48,12 @@ def main(argv=None):
         bsz = min(args.batch, args.requests - batch_start)
         prompts = torch.randint(0, cfg.vocab_size, (bsz, args.prompt_len),
                                 generator=gen, device=dev)
+        enc = None
+        if cfg.family == "encdec":
+            enc = torch.randn((bsz, cfg.encoder_len, cfg.d_model), generator=gen, device=dev)
         res = generate(cfg, params, prompts, max_new_tokens=args.tokens,
-                       temperature=args.temperature, seed=args.seed + batch_start)
+                       temperature=args.temperature, seed=args.seed + batch_start,
+                       enc_embeds=enc)
         done_tokens += res.new_tokens
         print(f"batch {batch_start // args.batch}: {bsz} reqs, "
               f"{res.decode_tok_s:.1f} tok/s decode", flush=True)

@@ -2,10 +2,8 @@
 
 Every field of the JAX ``ModelConfig`` is kept, with the same name and
 default, so a JAX configuration copies across field by field; dtypes are
-torch dtypes. The dense, ssm and hybrid families run in the port so far:
-the MoE and enc-dec options are carried but have no effect, and the
-families that need them raise in ``models.transformer`` (ROADMAP Queue 1
-item 12).
+torch dtypes. Every family of the JAX package runs in the port: dense,
+moe, ssm, hybrid and encdec.
 
 Kernel routing knobs (default ``auto``, or ``REPRO_KERNEL_MODE``):
 
@@ -66,7 +64,7 @@ class ModelConfig:
     attn_softcap: float | None = None
     final_softcap: float | None = None
 
-    # --- MoE options (not ported) -----------------------------------------
+    # --- MoE options --------------------------------------------------------
     n_experts: int = 0
     experts_per_token: int = 0
     moe_d_ff: int = 0
@@ -85,7 +83,7 @@ class ModelConfig:
     # --- hybrid (zamba2) ------------------------------------------------------
     hybrid_period: int = 6
 
-    # --- enc-dec (whisper, not ported) --------------------------------------
+    # --- enc-dec (whisper) ----------------------------------------------------
     n_encoder_layers: int = 0
     encoder_len: int = 1500
 
@@ -174,3 +172,16 @@ class ModelConfig:
             total += self.n_encoder_layers * (attn + dense_mlp)
             total += self.n_layers * attn
         return int(total)
+
+    def active_param_count(self) -> int:
+        """Active parameters a token (MoE: the routed top-k and the shared
+        expert only; the JAX package's formula)."""
+        if self.family != "moe":
+            return self.param_count()
+        d = self.d_model
+        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        act_mlp = self.experts_per_token * 3 * d * self.moe_d_ff + (
+            3 * d * self.shared_expert_d_ff if self.shared_expert_d_ff else 0
+        ) + d * self.n_experts
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return int(emb + self.n_layers * (attn + act_mlp))

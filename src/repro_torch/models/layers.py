@@ -1,4 +1,5 @@
-"""Transformer layers of the dense family (counterpart of ``repro.models.layers``).
+"""Transformer layers: norm, rope, GQA self- and cross-attention, the gated
+MLP and the mixture of experts (counterpart of ``repro.models.layers``).
 
 Every layer is ``(cfg, params, activations) -> out``, as in the JAX package:
 matrix products run in ``cfg.compute_dtype`` (each weight is cast to it at
@@ -7,20 +8,29 @@ use, a no-op for serving weights stored in it, see
 ``shard_act`` has no counterpart: it is the identity on one card.
 
 Attention routes as the JAX package routes it:
-  * full-sequence self-attention with no cache and
-    ``cfg.attention_kernel != "jnp"``: the registry's ``flash_attention``
+  * full-sequence self-attention (causal, or not: the enc-dec encoder)
+    with no cache and ``cfg.attention_kernel != "jnp"``: the registry's
+    ``flash_attention``
     (the CUDA kernel on the card, its plain version on the CPU); when a
     gradient is needed it runs as the ``FlashAttention`` autograd Function,
     whose backward is ``flash_attention_bwd`` (mode ``off`` differentiates
     the plain version densely, as the JAX ``ref`` backend does);
-  * with a contiguous cache (``prefill``, ``decode_step``) or under
-    ``"jnp"``: the inline einsum/softmax path below, which the JAX package
-    computes outside any Pallas kernel;
+  * with a contiguous cache (``prefill``, ``decode_step``), cross
+    attention (``kv_x``) or under ``"jnp"``: the inline einsum/softmax path
+    below, which the JAX package computes outside any Pallas kernel;
   * paged serving decode (``paged_attention``): the registry's
     ``decode_attention`` under ``cfg.decode_kernel``.
 
 Caches are updated in place (indexed assignment) where the JAX package
 returns updated copies.
+
+The mixture of experts (``moe``) dispatches by capacity as the JAX package
+does, with either of its routes: ``_moe_scatter`` (tokens scattered into
+(E, C, d) expert buffers) or, with ``cfg.moe_groups``, GShard's grouped
+one-hot einsums (``_moe_grouped_einsum``). The top-k takes the lower expert
+index first among equal router probabilities, as ``jax.lax.top_k`` does
+(``_top_k``); the expert products are batched matrix products, which the
+JAX package also computes outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -74,8 +84,10 @@ def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
 # attention
 # ---------------------------------------------------------------------------
 
-def attention_defs(cfg: ModelConfig) -> dict:
-    """Self-attention projections (and qkv biases where the config has them)."""
+def attention_defs(cfg: ModelConfig, cross: bool = False) -> dict:
+    """Attention projections (and qkv biases where the config has them);
+    cross attention (`cross`) has the same leaves, as in the JAX package."""
+    del cross
     d, hd = cfg.d_model, cfg.head_dim
     defs = {
         "wq": ParamDef((d, cfg.n_heads, hd), ("embed", "heads", None)),
@@ -90,16 +102,18 @@ def attention_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
-def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
-    """q (B, S, H, Dh), k and v (B, S, KV, Dh) in the compute dtype."""
+def _proj(cfg: ModelConfig, p: dict, x: torch.Tensor, w: str) -> torch.Tensor:
+    """x (B, S, d) through projection `w` (and its bias) in the compute dtype."""
     dt = cfg.compute_dtype
-    xc = x.to(dt)
-    q = torch.einsum("bsd,dhq->bshq", xc, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhq->bshq", xc, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhq->bshq", xc, p["wv"].to(dt))
-    if "bq" in p:
-        q, k, v = q + p["bq"].to(dt), k + p["bk"].to(dt), v + p["bv"].to(dt)
-    return q, k, v
+    out = torch.einsum("bsd,dhq->bshq", x.to(dt), p[w].to(dt))
+    bias = "b" + w[1]
+    return out + p[bias].to(dt) if bias in p else out
+
+
+def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, kv_x: torch.Tensor | None = None):
+    """q (B, S, H, Dh) of x, k and v (B, Sk, KV, Dh) of `kv_x` (default x)."""
+    kv_src = x if kv_x is None else kv_x
+    return _proj(cfg, p, x, "wq"), _proj(cfg, p, kv_src, "wk"), _proj(cfg, p, kv_src, "wv")
 
 
 def multi_head_attention(
@@ -108,15 +122,22 @@ def multi_head_attention(
     x: torch.Tensor,  # (B, S, d)
     positions: torch.Tensor,  # (B, S)
     *,
+    kv_x: torch.Tensor | None = None,  # cross-attention source (B, Sk, d)
+    kv_positions: torch.Tensor | None = None,
     causal: bool = True,
     window: int | None = None,
+    use_rope: bool = True,
     cache: dict | None = None,  # {'k', 'v': (B, L, KV, Dh), 'pos': int}
 ) -> tuple[torch.Tensor, dict | None]:
-    """Causal GQA self-attention (the dense, no-cross subset of the JAX layer).
+    """GQA attention, as the JAX layer computes it.
 
-    With a cache, this step's K/V are written in place at ``cache['pos']``
-    and attention covers the ``pos + S`` tokens written so far; the returned
-    cache is ``{'k', 'v', 'pos': pos + S}`` over the same tensors.
+    Self-attention (no `kv_x`) with a cache writes this step's K/V in
+    place at ``cache['pos']`` and attends over the ``pos + S`` tokens
+    written so far; the returned cache is ``{'k', 'v', 'pos': pos + S}``
+    over the same tensors. Cross attention (`kv_x`) is never causal: with
+    a cache it reads the cached encoder K/V (``encode_cross_cache``; `kv_x`
+    is not read) and returns the cache as it was; without one it projects
+    `kv_x` (no rope under ``use_rope=False``).
     """
     if cfg.blockwise_attention:
         raise NotImplementedError(
@@ -125,12 +146,19 @@ def multi_head_attention(
         )
     dt = cfg.compute_dtype
     B, S, _ = x.shape
-    q, k, v = _qkv(cfg, p, x)
-    k = rope(k, positions, cfg.rope_theta)
-    q = rope(q, positions, cfg.rope_theta)
+    cross = kv_x is not None
+    kv_pos = positions if kv_positions is None else kv_positions
+    if cross and cache is not None:
+        q, k, v = _proj(cfg, p, x, "wq"), cache["k"], cache["v"]
+    else:
+        q, k, v = _qkv(cfg, p, x, kv_x)
+        if use_rope:
+            k = rope(k, kv_pos, cfg.rope_theta)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
 
-    new_cache = None
-    if cache is not None:
+    new_cache = cache
+    if cache is not None and not cross:
         pos = int(cache["pos"])
         if pos + S > cache["k"].shape[1]:
             raise ValueError(
@@ -144,10 +172,14 @@ def multi_head_attention(
         # simply not read here
         k, v = cache["k"][:, :pos + S], cache["v"][:, :pos + S]
         q_pos = torch.arange(S, device=x.device) + pos
+        k_pos = torch.arange(pos + S, device=x.device)
+    elif cache is not None:
+        q_pos = torch.arange(S, device=x.device)
+        k_pos = kv_pos[0]
     else:
-        q_pos = positions[0]
+        q_pos, k_pos = positions[0], kv_pos[0]
 
-    if cache is None and cfg.attention_kernel != "jnp":
+    if cache is None and not cross and cfg.attention_kernel != "jnp":
         o = KO.dispatch(
             "flash_attention",
             q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
@@ -159,11 +191,10 @@ def multi_head_attention(
     else:
         G = cfg.n_heads // cfg.n_kv_heads
         qg = q.reshape(B, S, cfg.n_kv_heads, G, cfg.head_dim)
-        k_pos = q_pos if cache is None else torch.arange(k.shape[1], device=x.device)
         scores = torch.einsum("bskgh,btkh->bkgst", qg, k) * cfg.head_dim ** -0.5
         scores = softcap(scores.float(), cfg.attn_softcap)
         mask = torch.ones((S, k.shape[1]), dtype=torch.bool, device=x.device)
-        if causal:
+        if causal and not cross:
             mask &= q_pos[:, None] >= k_pos[None, :]
         if window is not None:
             mask &= q_pos[:, None] - k_pos[None, :] < window
@@ -239,3 +270,143 @@ def mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     dt = cfg.compute_dtype
     h = F.silu(x @ p["wg"].to(dt)) * (x @ p["wu"].to(dt))
     return h @ p["wd"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (capacity-based top-k dispatch)
+# ---------------------------------------------------------------------------
+
+def moe_defs(cfg: ModelConfig) -> dict:
+    """Router, the stacked experts' gate/up/down and the shared expert."""
+    d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    defs = {
+        "router": ParamDef((d, e), ("embed", None), scale=0.02),
+        "wg": ParamDef((e, d, f), ("expert", "embed", None)),
+        "wu": ParamDef((e, d, f), ("expert", "embed", None)),
+        "wd": ParamDef((e, f, d), ("expert", None, "embed")),
+    }
+    if cfg.shared_expert_d_ff:
+        defs["shared"] = mlp_defs(cfg, cfg.shared_expert_d_ff)
+    return defs
+
+
+def moe(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, d) -> (B, S, d): the grouped route with ``cfg.moe_groups``,
+    else the scatter route."""
+    if cfg.moe_groups > 0:
+        return _moe_grouped_einsum(cfg, p, x)
+    return _moe_scatter(cfg, p, x)
+
+
+def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest entries of x's last axis and their indices, the lower
+    index first among equal values (``jax.lax.top_k``'s order; a stable
+    descending sort gives it on every device, ``torch.topk`` promises none)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(cfg: ModelConfig, p: dict, xt: torch.Tensor):
+    """Router top-k: (renormalised float32 weights, expert ids), (..., K).
+    The logits are computed in the compute dtype and read in float32."""
+    logits = (xt @ p["router"].to(cfg.compute_dtype)).float()
+    top_p, top_i = _top_k(torch.softmax(logits, dim=-1), cfg.experts_per_token)
+    return top_p / top_p.sum(-1, keepdim=True), top_i
+
+
+def _experts(cfg: ModelConfig, p: dict, buf: torch.Tensor) -> torch.Tensor:
+    """Every expert's gated MLP on its buffer: buf (..., E, C, d) -> same."""
+    dt = cfg.compute_dtype
+    h = F.silu(torch.matmul(buf, p["wg"].to(dt))) * torch.matmul(buf, p["wu"].to(dt))
+    return torch.matmul(h, p["wd"].to(dt))
+
+
+def math_gcd_groups(g: int, t: int) -> int:
+    """The largest group count <= g that divides t tokens."""
+    while t % g:
+        g -= 1
+    return max(1, g)
+
+
+def grouped_slots(cfg: ModelConfig, p: dict, x: torch.Tensor):
+    """The grouped route's dispatch: (xt (G, Tg, d), top_p, top_i, pos_k,
+    keep, C). Tokens split into G groups; a (token, slot)'s position in its
+    expert counts token-major within its group, and it is kept below the
+    capacity C (8-aligned)."""
+    B, S, d = x.shape
+    T = B * S
+    G = math_gcd_groups(cfg.moe_groups, T)
+    Tg = T // G
+    E, K = cfg.n_experts, cfg.experts_per_token
+    C = max(1, int(Tg * K / E * cfg.capacity_factor))
+    C = -(-C // 8) * 8  # small alignment
+    xt = x.reshape(G, Tg, d)
+    top_p, top_i = _route(cfg, p, xt)  # (G, Tg, K)
+    oh_e = F.one_hot(top_i, E)  # (G, Tg, K, E)
+    pos = torch.cumsum(oh_e.reshape(G, Tg * K, E), dim=1).reshape(G, Tg, K, E) * oh_e - 1
+    pos_k = pos.max(-1).values  # -1 where not routed
+    keep = (pos_k >= 0) & (pos_k < C)
+    return xt, top_p, top_i, pos_k, keep, C
+
+
+def _moe_grouped_einsum(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """GShard-style dispatch: per group, one-hot dispatch and combine
+    einsums (the JAX route keeps every contraction local to a device pair;
+    here it is one card's batched products).
+
+    buf[g,e,c,:] = sum_t dispatch[g,t,e,c] * x[g,t,:]
+    y[g,t,:]     = sum_{e,c} combine[g,t,e,c] * out[g,e,c,:]
+    """
+    dt = cfg.compute_dtype
+    B, S, d = x.shape
+    xt, top_p, top_i, pos_k, keep, C = grouped_slots(cfg, p, x)
+    oh_e = F.one_hot(top_i, cfg.n_experts).to(dt)  # (G, Tg, K, E)
+    # one_hot of a dropped slot is all zeros, as jax.nn.one_hot(-1) is
+    oh_c = ((pos_k[..., None] == torch.arange(C, device=x.device)) & keep[..., None]).to(dt)
+    w_k = torch.where(keep, top_p, 0.0).to(dt)
+    dispatch = torch.einsum("gtke,gtkc->gtec", oh_e, oh_c)
+    combine = torch.einsum("gtke,gtkc,gtk->gtec", oh_e, oh_c, w_k)
+    buf = torch.einsum("gtec,gtd->gecd", dispatch, xt.to(dt))  # (G, E, C, d)
+    y = torch.einsum("gtec,gecd->gtd", combine, _experts(cfg, p, buf))
+    if cfg.shared_expert_d_ff:
+        y = y + mlp(cfg, p["shared"], xt.reshape(B, S, d)).reshape(y.shape)
+    return y.reshape(B, S, d)
+
+
+def scatter_slots(cfg: ModelConfig, p: dict, x: torch.Tensor):
+    """The scatter route's dispatch over the T*K flattened (token, slot)
+    pairs: (xt (T, d), flat_w, flat_e, pos, keep, C). A pair's position in
+    its expert counts token-major; it is kept below the capacity C
+    (128-aligned above 128)."""
+    B, S, d = x.shape
+    T = B * S
+    E, K = cfg.n_experts, cfg.experts_per_token
+    C = max(1, int(T * K / E * cfg.capacity_factor))
+    C = -(-C // 128) * 128 if C > 128 else C
+    xt = x.reshape(T, d)
+    top_p, top_i = _route(cfg, p, xt)  # (T, K)
+    flat_e = top_i.reshape(-1)
+    onehot = F.one_hot(flat_e, E)  # (T*K, E)
+    pos = (torch.cumsum(onehot, dim=0) * onehot).sum(-1) - 1
+    return xt, top_p.reshape(-1).to(cfg.compute_dtype), flat_e, pos, pos < C, C
+
+
+def _moe_scatter(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, d) -> (B, S, d): deterministic capacity-based dispatch into
+    (E, C, d) expert buffers. A dropped pair adds zeros at its expert's
+    position 0 (``index_put_`` accumulating, as the JAX ``.at[].add``), so
+    no kept token's bits change and no host sync is needed."""
+    dt = cfg.compute_dtype
+    B, S, d = x.shape
+    K = cfg.experts_per_token
+    xt, flat_w, flat_e, pos, keep, C = scatter_slots(cfg, p, x)
+    safe_pos = torch.where(keep, pos, 0)
+    tok_rep = torch.where(keep[:, None], xt.to(dt).repeat_interleave(K, dim=0), 0.0)
+    buf = torch.zeros((cfg.n_experts, C, d), dtype=dt, device=x.device)
+    buf.index_put_((flat_e, safe_pos), tok_rep, accumulate=True)
+    gathered = _experts(cfg, p, buf)[flat_e, safe_pos]  # (T*K, d)
+    gathered = torch.where(keep[:, None], gathered, 0.0) * flat_w[:, None]
+    y = gathered.reshape(-1, K, d).sum(1)
+    if cfg.shared_expert_d_ff:
+        y = y + mlp(cfg, p["shared"], xt.reshape(B, S, d)).reshape(-1, d)
+    return y.reshape(B, S, d)

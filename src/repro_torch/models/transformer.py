@@ -1,21 +1,23 @@
-"""Model assembly for the dense, ssm and hybrid families (counterpart of
-``repro.models.transformer``).
+"""Model assembly for every family of the JAX package: dense, moe, ssm,
+hybrid and encdec (counterpart of ``repro.models.transformer``).
 
 Public API, as in the JAX package:
   model_defs(cfg)                      -> ParamDef tree
   init_params(cfg, seed, device)       -> serving parameters drawn on the device
   init_train_params(cfg, seed, device) -> training (float32 master) parameters
-  forward(cfg, params, tokens)         -> logits            (train / scoring)
+  forward(cfg, params, tokens[, enc_embeds=])   -> logits   (train / scoring)
   cache_defs / init_cache              -> contiguous decode cache
   prefill(cfg, params, tok, cache)     -> (cache, logits at valid_len - 1)
   decode_step(cfg, params, tok, cache) -> (cache, logits)
+  encode_cross_cache(cfg, params, enc_embeds, batch) -> the encdec cross K/V
 Serving API (the paged twin, driven by ``repro_torch.serve``):
   paged_cache_defs(cfg, max_batch, n_blocks, block_size, n_pages)
   decode_step_paged(cfg, params, tok, pools, table, lengths)
                                        -> (pools, logits)
 
 Families: ``dense`` (attention + MLP blocks; gemma2's local/global
-alternation), ``ssm`` (Mamba2 blocks, ``models.ssm``: the SSD
+alternation), ``moe`` (the dense blocks with ``layers.moe`` in place of
+the MLP: router, capacity dispatch, a shared expert), ``ssm`` (Mamba2 blocks, ``models.ssm``: the SSD
 within-chunk part through the registry's ``ssd_chunk`` under
 ``cfg.ssm_kernel``) and ``hybrid`` (zamba2: the Mamba2 stack with ONE
 shared attention + MLP block, ``shared_attn``, applied after every
@@ -26,7 +28,16 @@ the contiguous recurrent step. The hybrid cache nests both kinds:
 ``{"ssm": {"state", "conv"} on every layer, "attn": {"k", "v"} on the
 n_layers // hybrid_period uses of the shared block}``, the contiguous one
 with ``attn["pos"]``; its serving pool pages the shared block's K/V and
-holds the ssm state per slot.
+holds the ssm state per slot. ``encdec`` (whisper): a bidirectional encoder
+(``encoder``, self-attention with rope, not causal: the flash kernel's
+non-causal mode) over stubbed frame embeddings ``enc_embeds`` (B, S_enc,
+d), its ``enc_final_norm``, and a causal decoder (``decoder``) whose
+layers add cross attention (``ln_x``, ``xattn``; no rope, the plain path)
+over the encoder output. Its caches are ``{"self": {"k", "v"[, "pos"]},
+"cross": {"k", "v"}}``: the decoder's own K/V (contiguous, or paged in the
+serving pool) and every layer's encoder K/V, which ``encode_cross_cache``
+computes once a request (per slot in the pool, never paged: its length is
+fixed).
 
 Parameters are a nested dict of tensors laid out as the JAX tree: layers
 stacked on axis 0 under ``blocks``; a Python loop over layers takes the
@@ -44,7 +55,9 @@ Training runs each layer of ``forward`` under activation checkpointing
 ``"none"``: ``"full"`` saves each layer's input and recomputes the layer in
 the backward pass (the hybrid family checkpoints each use of the shared
 block too, where the JAX package wraps only the ssm layers: memory and
-recompute differ, the gradients do not). The JAX ``"dots"`` policy (also
+recompute differ, the gradients do not; the encdec family checkpoints
+every encoder and decoder layer, as the JAX package's two scans do). The
+JAX ``"dots"`` policy (also
 save the matmul outputs) runs as ``"full"`` here: the gradients are the
 same, only the memory/recompute trade differs.
 
@@ -52,9 +65,6 @@ Caches are updated in place: the contiguous cache's K/V (or SSM state and
 conv) tensors and the paged pools are allocated once and written by
 indexed assignment, where the JAX package returns updated copies. The
 dense (and hybrid ``attn``) cache position ``pos`` is a host integer.
-
-The moe and encdec families raise ``NotImplementedError`` (ROADMAP Queue 1
-item 12).
 """
 from __future__ import annotations
 
@@ -69,15 +79,13 @@ from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef, TensorSpec, tree_map, tree_materialize
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
+_ATTN_STACKS = ("dense", "moe")  # homogeneous attention stacks under "blocks"
 
 
-def _require_ported(cfg: ModelConfig) -> None:
+def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported; the {FAMILIES} "
-            "families run (ROADMAP Queue 1 item 12)"
-        )
+        raise ValueError(cfg.family)
 
 
 # ---------------------------------------------------------------------------
@@ -93,10 +101,26 @@ def _stack(defs: dict, n: int) -> dict:
 
 
 def _block_defs(cfg: ModelConfig) -> dict:
-    return {
+    blk = {
         "ln1": L.rms_norm_def(cfg.d_model),
         "attn": L.attention_defs(cfg),
         "ln2": L.rms_norm_def(cfg.d_model),
+    }
+    if cfg.family == "moe":
+        blk["moe"] = L.moe_defs(cfg)
+    else:
+        blk["mlp"] = L.mlp_defs(cfg)
+    return blk
+
+
+def _decoder_block_defs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    return {
+        "ln1": L.rms_norm_def(d),
+        "attn": L.attention_defs(cfg),
+        "ln_x": L.rms_norm_def(d),
+        "xattn": L.attention_defs(cfg, cross=True),
+        "ln2": L.rms_norm_def(d),
         "mlp": L.mlp_defs(cfg),
     }
 
@@ -107,7 +131,7 @@ def _ssm_block_defs(cfg: ModelConfig) -> dict:
 
 def model_defs(cfg: ModelConfig) -> dict:
     """The ParamDef tree of the model (the JAX tree of its family)."""
-    _require_ported(cfg)
+    _check_family(cfg)
     d = cfg.d_model
     defs: dict[str, Any] = {
         "embed": ParamDef((cfg.vocab_size, d), ("vocab", "embed"), scale=1.0),
@@ -115,7 +139,12 @@ def model_defs(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((d, cfg.vocab_size), ("embed", "vocab"))
-    blk = _block_defs(cfg) if cfg.family == "dense" else _ssm_block_defs(cfg)
+    if cfg.family == "encdec":
+        defs["encoder"] = _stack(_block_defs(cfg), cfg.n_encoder_layers)
+        defs["decoder"] = _stack(_decoder_block_defs(cfg), cfg.n_layers)
+        defs["enc_final_norm"] = L.rms_norm_def(d)
+        return defs
+    blk = _block_defs(cfg) if cfg.family in _ATTN_STACKS else _ssm_block_defs(cfg)
     defs["blocks"] = _stack(blk, cfg.n_layers)
     if cfg.family == "hybrid":
         defs["shared_attn"] = _block_defs(cfg)  # one attention + MLP block, reused
@@ -126,14 +155,16 @@ def storage_dtype(cfg: ModelConfig):
     """``path -> dtype`` each parameter is held in.
 
     ``param_dtype`` for the leaves the JAX package reads in float32 or
-    gathers: ``embed``, the norm scales (``ln1``, ``ln2``, ``ln``,
-    ``final_norm``; ``layers.rms_norm`` casts the scale to float32), the
+    gathers: ``embed``, the norm scales (``ln1``, ``ln2``, ``ln``, ``ln_x``,
+    ``final_norm``, ``enc_final_norm``; ``layers.rms_norm`` casts the
+    scale to float32), the
     SSM gated norm's ``norm`` and the SSM's ``dt_bias``, ``A_log`` and
     ``D`` (``models.ssm`` reads them ``.float()``, never in the compute
     dtype). Every other leaf is a weight read only as
     ``w.astype(compute_dtype)``, so it is held in ``compute_dtype``.
     """
-    keep = {"embed", "ln1", "ln2", "ln", "final_norm", "norm", "dt_bias", "A_log", "D"}
+    keep = {"embed", "ln1", "ln2", "ln", "ln_x", "final_norm", "enc_final_norm", "norm",
+            "dt_bias", "A_log", "D"}
 
     def rule(path: tuple[str, ...]):
         return cfg.param_dtype if path[-1] in keep else cfg.compute_dtype
@@ -200,14 +231,20 @@ def _unembed(cfg: ModelConfig, params, x):
     return L.softcap(logits, cfg.final_softcap)
 
 
-def _dense_block(cfg: ModelConfig, p, x, positions, window, cache):
+def _ffn(cfg: ModelConfig, p, x):
+    """The block's feed-forward half: the experts (moe) or the MLP."""
+    inner = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    if "moe" in p:
+        return x + L.moe(cfg, p["moe"], inner)
+    return x + L.mlp(cfg, p["mlp"], inner)
+
+
+def _dense_block(cfg: ModelConfig, p, x, positions, window, cache, causal=True):
     h, new_cache = L.multi_head_attention(
         cfg, p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), positions,
-        causal=True, window=window, cache=cache,
+        causal=causal, window=window, cache=cache,
     )
-    x = x + h
-    x = x + L.mlp(cfg, p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps))
-    return x, new_cache
+    return _ffn(cfg, p, x + h), new_cache
 
 
 def _remat_block(cfg, p, x, positions, window):
@@ -295,11 +332,16 @@ def _run_stack(cfg, blocks, x, positions, caches):
 # forward (scoring): full-sequence logits
 # ---------------------------------------------------------------------------
 
-def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+            enc_embeds: torch.Tensor | None = None) -> torch.Tensor:
     """Logits (B, S, vocab) float32 of tokens (B, S); attention through
     ``flash_attention`` unless ``cfg.attention_kernel == "jnp"``, the SSD
-    through ``ssd_chunk`` unless ``cfg.ssm_kernel == "jnp"``."""
-    _require_ported(cfg)
+    through ``ssd_chunk`` unless ``cfg.ssm_kernel == "jnp"``. The encdec
+    family needs `enc_embeds` (B, S_enc, d_model), the frames the decoder
+    attends to."""
+    _check_family(cfg)
+    if cfg.family == "encdec":
+        return _forward_encdec(cfg, params, tokens, enc_embeds)
     B, S = tokens.shape
     x = _embed(cfg, params, tokens)
     if cfg.family == "ssm":
@@ -310,6 +352,69 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tenso
         x = _run_hybrid(cfg, params, x, None, _shared_full(cfg, params, positions))
     else:
         x, _ = _run_stack(cfg, params["blocks"], x, positions, None)
+    return _unembed(cfg, params, x)
+
+
+def _arange_rows(b: int, s: int, device) -> torch.Tensor:
+    """Positions 0..s-1 for each of b rows, (b, s)."""
+    return torch.arange(s, device=device)[None].expand(b, s)
+
+
+def _checkpointed(cfg, fn, *args):
+    """fn(*args), checkpointed when ``_remat_on`` (no cache here)."""
+    if _remat_on(cfg, None):
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _encode(cfg: ModelConfig, params, enc_embeds):
+    """The encoder over frames (B, S_enc, d): bidirectional self-attention
+    (rope, not causal) + MLP per layer, then ``enc_final_norm``."""
+    if enc_embeds is None:
+        raise ValueError("the encdec family needs enc_embeds")
+    x = enc_embeds.to(cfg.compute_dtype)
+    positions = _arange_rows(x.shape[0], x.shape[1], x.device)
+    for p in _layers(params["encoder"], cfg.n_encoder_layers):
+        x = _checkpointed(
+            cfg, lambda x_in, p=p: _dense_block(cfg, p, x_in, positions, None, None,
+                                                 causal=False)[0], x)
+    return L.rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+
+
+def _decoder_layer(cfg, p, x, positions, self_cache, cross_kv, enc_pos):
+    """One decoder layer: causal self-attention (a contiguous cache, or
+    none), cross attention over `cross_kv` (the encoder output (B, S_enc,
+    d), projected here; or a dict of its cached K/V) without rope, MLP."""
+    h, new_cache = L.multi_head_attention(
+        cfg, p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), positions,
+        causal=True, cache=self_cache,
+    )
+    x = x + h
+    x = x + _cross(cfg, p, x, positions, cross_kv, enc_pos)
+    return x + L.mlp(cfg, p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps)), new_cache
+
+
+def _cross(cfg, p, x, positions, cross_kv, enc_pos):
+    """Cross attention of a decoder layer (never causal, no rope)."""
+    xn = L.rms_norm(x, p["ln_x"], cfg.norm_eps)
+    cached = isinstance(cross_kv, dict)  # the cached encoder K/V: kv_x is not read
+    h, _ = L.multi_head_attention(cfg, p["xattn"], xn, positions,
+                                  kv_x=xn if cached else cross_kv, kv_positions=enc_pos,
+                                  causal=False, use_rope=False,
+                                  cache=cross_kv if cached else None)
+    return h
+
+
+def _forward_encdec(cfg, params, tokens, enc_embeds):
+    enc = _encode(cfg, params, enc_embeds)
+    B, S = tokens.shape
+    x = _embed(cfg, params, tokens)
+    positions = _arange_rows(B, S, tokens.device)
+    enc_pos = _arange_rows(B, enc.shape[1], tokens.device)
+    for p in _layers(params["decoder"], cfg.n_layers):
+        x = _checkpointed(
+            cfg, lambda x_in, e, p=p: _decoder_layer(cfg, p, x_in, positions, None, e,
+                                                     enc_pos)[0], x, enc)
     return _unembed(cfg, params, x)
 
 
@@ -349,12 +454,21 @@ def _n_shared(cfg: ModelConfig) -> int:
     return cfg.n_layers // cfg.hybrid_period
 
 
+def _cross_defs(cfg: ModelConfig, rows: int) -> dict:
+    """Every decoder layer's encoder K/V, (n_layers, rows, encoder_len, KV, Dh)."""
+    return _kv_defs(cfg, cfg.n_layers, rows, cfg.encoder_len)
+
+
 def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
-    """TensorSpecs of the contiguous decode cache: dense K/V (``pos``, a
-    host int, is added by ``init_cache``), the ssm state and conv history,
-    whose size does not depend on `max_len`, or the hybrid's both:
-    ``{"ssm": ..., "attn": K/V of the shared block's uses}``."""
-    _require_ported(cfg)
+    """TensorSpecs of the contiguous decode cache: dense and moe K/V
+    (``pos``, a host int, is added by ``init_cache``), the ssm state and
+    conv history, whose size does not depend on `max_len`, the hybrid's
+    both: ``{"ssm": ..., "attn": K/V of the shared block's uses}``, or the
+    encdec's ``{"self": the decoder's K/V, "cross": the encoder K/V}``."""
+    _check_family(cfg)
+    if cfg.family == "encdec":
+        return {"self": _kv_defs(cfg, cfg.n_layers, batch, max_len),
+                "cross": _cross_defs(cfg, batch)}
     if cfg.family == "ssm":
         return _ssm_stacked_defs(cfg, batch)
     if cfg.family == "hybrid":
@@ -368,16 +482,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
     dev = resolve_device(device)
     out = tree_map(lambda _, s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
                    cache_defs(cfg, batch, max_len))
-    if cfg.family == "dense":
+    if cfg.family in _ATTN_STACKS:
         out["pos"] = 0
-    elif cfg.family == "hybrid":
-        out["attn"]["pos"] = 0
+    elif cfg.family in ("hybrid", "encdec"):
+        out["attn" if cfg.family == "hybrid" else "self"]["pos"] = 0
     return out
 
 
 def _stack_apply(cfg, params, tokens, cache, valid_len=None):
-    _require_ported(cfg)
+    _check_family(cfg)
     x = _embed(cfg, params, tokens)
+    if cfg.family == "encdec":
+        return _decode_encdec(cfg, params, x, cache)
     if cfg.family == "ssm":  # the state summarises the past: no position
         x, new_cache = _run_ssm_stack(cfg, params["blocks"], x, cache, valid_len)
         return new_cache, x
@@ -395,6 +511,37 @@ def _stack_apply(cfg, params, tokens, cache, valid_len=None):
         return {"ssm": cache["ssm"], "attn": {**kv, "pos": kv["pos"] + S}}, x
     x, new_cache = _run_stack(cfg, params["blocks"], x, positions, cache)
     return new_cache, x
+
+
+def _decode_encdec(cfg, params, x, cache):
+    """The decoder over x (B, S, d) at positions ``cache['self']['pos']``
+    + 0..S-1: each layer's self K/V written in place, cross attention over
+    the cached encoder K/V (fill ``cache['cross']`` with
+    ``encode_cross_cache`` first). ``pos`` advances by S."""
+    B, S = x.shape[:2]
+    sc, xc = cache["self"], cache["cross"]
+    pos0 = sc["pos"]
+    positions = pos0 + _arange_rows(B, S, x.device)
+    enc_pos = _arange_rows(B, cfg.encoder_len, x.device)
+    for i, p in enumerate(_layers(params["decoder"], cfg.n_layers)):
+        x, _ = _decoder_layer(cfg, p, x, positions,
+                              {"k": sc["k"][i], "v": sc["v"][i], "pos": pos0},
+                              {"k": xc["k"][i], "v": xc["v"][i]}, enc_pos)
+    return {"self": {**sc, "pos": pos0 + S}, "cross": xc}, x
+
+
+def encode_cross_cache(cfg: ModelConfig, params: dict, enc_embeds: torch.Tensor,
+                       batch: int) -> dict:
+    """Run the encoder once over enc_embeds (batch, S_enc, d) and return
+    every decoder layer's cross K/V, ``{"k", "v": (n_layers, batch, S_enc,
+    KV, Dh)}`` in the compute dtype (projected without bias, as in the JAX
+    package)."""
+    del batch  # the JAX signature's; the rows come from enc_embeds
+    enc = _encode(cfg, params, enc_embeds)
+    dt = cfg.compute_dtype
+    xa = params["decoder"]["xattn"]
+    return {"k": torch.einsum("bsd,ldhq->lbshq", enc, xa["wk"].to(dt)),
+            "v": torch.einsum("bsd,ldhq->lbshq", enc, xa["wv"].to(dt))}
 
 
 def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
@@ -429,11 +576,16 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dict,
 def paged_cache_defs(cfg: ModelConfig, max_batch: int, n_blocks: int,
                      block_size: int, n_pages: int) -> dict:
     """TensorSpecs of the serving pool: per-layer K/V pages shared by slots
-    (dense), per-slot ssm state and conv history indexed by slot id (ssm:
-    length-independent, so nothing is paged), or the hybrid's both:
-    ``{"ssm": per slot, "attn": the shared block's uses' K/V pages}``."""
+    (dense, moe), per-slot ssm state and conv history indexed by slot id
+    (ssm: length-independent, so nothing is paged), the hybrid's both:
+    ``{"ssm": per slot, "attn": the shared block's uses' K/V pages}``, or
+    the encdec's ``{"self": the decoder's K/V pages, "cross": per-slot
+    encoder K/V}`` (fixed length, fully live: paging buys nothing)."""
     del n_pages  # the table shape is scheduler state
-    _require_ported(cfg)
+    _check_family(cfg)
+    if cfg.family == "encdec":
+        return {"self": _kv_defs(cfg, cfg.n_layers, n_blocks, block_size),
+                "cross": _cross_defs(cfg, max_batch)}
     if cfg.family == "ssm":
         return _ssm_stacked_defs(cfg, max_batch)
     if cfg.family == "hybrid":
@@ -442,12 +594,16 @@ def paged_cache_defs(cfg: ModelConfig, max_batch: int, n_blocks: int,
     return _kv_defs(cfg, cfg.n_layers, n_blocks, block_size)
 
 
-def _paged_block(cfg, p, x, positions, window, pk, pv, table, lengths):
-    x = x + L.paged_attention(
+def _paged_self(cfg, p, x, positions, window, pk, pv, table, lengths):
+    """x + the block's self-attention through ``paged_attention``."""
+    return x + L.paged_attention(
         cfg, p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), positions,
         pk, pv, table, lengths, window=window,
     )
-    return x + L.mlp(cfg, p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps))
+
+
+def _paged_block(cfg, p, x, positions, window, pk, pv, table, lengths):
+    return _ffn(cfg, p, _paged_self(cfg, p, x, positions, window, pk, pv, table, lengths))
 
 
 def _paged_stack(cfg, blocks, x, positions, pools, table, lengths):
@@ -472,6 +628,19 @@ def _paged_hybrid(cfg, params, x, positions, pools, table, lengths):
     return _run_hybrid(cfg, params, x, pools["ssm"], shared)
 
 
+def _paged_encdec(cfg, params, x, positions, pools, table, lengths):
+    """The encdec's paged decode: each decoder layer's self-attention over
+    its K/V pages, cross attention over the slots' encoder K/V."""
+    enc_pos = _arange_rows(x.shape[0], cfg.encoder_len, x.device)
+    sk, sv = pools["self"]["k"], pools["self"]["v"]
+    xk, xv = pools["cross"]["k"], pools["cross"]["v"]
+    for i, p in enumerate(_layers(params["decoder"], cfg.n_layers)):
+        x = _paged_self(cfg, p, x, positions, None, sk[i], sv[i], table, lengths)
+        x = x + _cross(cfg, p, x, positions, {"k": xk[i], "v": xv[i]}, enc_pos)
+        x = x + L.mlp(cfg, p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps))
+    return x
+
+
 def decode_step_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                       pools: dict, table: torch.Tensor,
                       lengths: torch.Tensor) -> tuple[dict, torch.Tensor]:
@@ -486,9 +655,12 @@ def decode_step_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     slots step their stale state harmlessly. The hybrid family does both
     (``_paged_hybrid``): its ssm layers step ``pools["ssm"]``, each use ai
     of the shared block attends over the pages of ``pools["attn"]``'s
-    layer ai. Returns (pools, logits (B, vocab) float32).
+    layer ai. The encdec family pages its decoder's K/V in
+    ``pools["self"]`` and reads each slot's encoder K/V from
+    ``pools["cross"]`` (``_paged_encdec``). Returns (pools, logits (B,
+    vocab) float32).
     """
-    _require_ported(cfg)
+    _check_family(cfg)
     x = _embed(cfg, params, tokens)
     if cfg.family == "ssm":
         x, _ = _run_ssm_stack(cfg, params["blocks"], x, pools)
@@ -496,6 +668,8 @@ def decode_step_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     positions = lengths[:, None].long()
     if cfg.family == "hybrid":
         x = _paged_hybrid(cfg, params, x, positions, pools, table, lengths)
+    elif cfg.family == "encdec":
+        x = _paged_encdec(cfg, params, x, positions, pools, table, lengths)
     else:
         x = _paged_stack(cfg, params["blocks"], x, positions, pools, table, lengths)
     return pools, _unembed(cfg, params, x[:, -1:])[:, 0]

@@ -29,8 +29,10 @@ overwrites the slot's rows in place. A released slot keeps its stale state
 until the next prefill into it overwrites it, as in the JAX package. The
 hybrid family's pools nest both kinds, ``{"ssm": {"state", "conv"},
 "attn": {"k", "v"}}``: per-slot ssm state beside the pages of its shared
-attention block, so it is paged. The cross caches of the encdec family
-wait for that family (ROADMAP Queue 1 item 12).
+attention block, so it is paged. The encdec family's pools are
+``{"self": {"k", "v"}, "cross": {"k", "v"}}``: the decoder's K/V pages and
+each slot's encoder K/V (its length is fixed), which ``write_prefill``
+overwrites at admission and ``release`` leaves as they are.
 """
 from __future__ import annotations
 
@@ -88,6 +90,10 @@ def _scatter_blocks(pool: torch.Tensor, vals: torch.Tensor, page_ids: torch.Tens
     bs = pool.shape[2]
     blocks = vals.reshape(n, P // bs, bs, *vals.shape[2:])
     pool[:, page_ids] = blocks.to(pool.dtype)
+
+
+# the nested pools: (the per-slot rows, the K/V pages)
+_SPLIT = {"hybrid": ("ssm", "attn"), "encdec": ("cross", "self")}
 
 
 class CachePool:
@@ -190,8 +196,8 @@ class CachePool:
     def release(self, slot: int) -> None:
         """Return slot's pages to the free list and reset its table row.
 
-        Per-slot state (ssm state and conv) is not zeroed: the next
-        write_prefill into this slot overwrites it entirely."""
+        Per-slot state (ssm state and conv, encdec cross K/V) is not zeroed:
+        the next write_prefill into this slot overwrites it entirely."""
         self._free_pages.extend(reversed(self._pages_of[slot]))
         self._pages_of[slot] = []
         self.table[slot, :] = 0
@@ -243,36 +249,38 @@ class CachePool:
         """Land a batch-1 contiguous prefill cache in the pool, in place.
 
         `cache` comes from ``transformer.prefill`` at shape (1, prompt_pad).
-        Dense K/V slabs are scattered onto the slot's pages; ssm state and
-        conv history overwrite row `slot` (never added to it); the hybrid
-        does both (its ``"ssm"`` rows, its ``"attn"`` K/V). Call
-        ``set_length`` afterwards with the TRUE prompt length (pad blocks
-        land in the null page; pad positions inside the last valid block
-        are masked by length).
+        Dense and moe K/V slabs are scattered onto the slot's pages; ssm
+        state and conv history overwrite row `slot` (never added to it);
+        the hybrid does both (its ``"ssm"`` rows, its ``"attn"`` K/V), and
+        so does the encdec (its ``"cross"`` K/V rows, its ``"self"`` K/V).
+        Call ``set_length`` afterwards with the TRUE prompt length (pad
+        blocks land in the null page; pad positions inside the last valid
+        block are masked by length).
         """
         fam = self.cfg.family
-        if fam == "hybrid":
-            states, pages = self.pools["ssm"], self.pools["attn"]
-            state_src, kv_src = cache["ssm"], cache["attn"]
+        if fam in ("hybrid", "encdec"):
+            rows_at, pages = _SPLIT[fam]
+            states, kv = self.pools[rows_at], self.pools[pages]
+            state_src, kv_src = cache[rows_at], cache[pages]
         else:
-            states = pages = self.pools
+            states = kv = self.pools
             state_src = kv_src = cache
-        if fam != "dense":
-            for name in ("state", "conv"):
+        if fam in ("ssm", "hybrid", "encdec"):
+            for name in states:
                 states[name][:, slot] = state_src[name][:, 0].to(states[name].dtype)
         if not self.paged:
             return
         ids = self._prompt_page_ids(slot)
         for name in ("k", "v"):
-            _scatter_blocks(pages[name], kv_src[name][:, 0], ids)
+            _scatter_blocks(kv[name], kv_src[name][:, 0], ids)
 
     # -- parity helper ------------------------------------------------------
 
     def gather_kv(self, slot: int, n_tokens: int) -> dict:
         """Slot's K/V as contiguous (n_layers, n_tokens, KV, Dh) numpy arrays
-        (the dense family's pages; the JAX package reads back no other
-        family's, so the ssm and hybrid families raise)."""
-        if self.cfg.family != "dense":
+        (the dense and moe families' pages; the JAX package reads back no
+        other family's, so the ssm, hybrid and encdec families raise)."""
+        if self.cfg.family not in ("dense", "moe"):
             raise ValueError(f"the {self.cfg.family} family has no K/V pages that "
                              "gather_kv reads back")
         pages = self._pages_of[slot]

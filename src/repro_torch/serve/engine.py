@@ -53,12 +53,18 @@ def _sync(device: torch.device) -> None:
 
 def generate(cfg: ModelConfig, params: dict, prompts: torch.Tensor, *,
              max_new_tokens: int, temperature: float = 0.0,
-             seed: int = 1) -> GenResult:
+             seed: int = 1, enc_embeds: torch.Tensor | None = None) -> GenResult:
     """Prefill prompts (B, P) on their device, then decode max_new_tokens
-    greedily (or with temperature sampling)."""
+    greedily (or with temperature sampling). The encdec family needs
+    `enc_embeds` (B, encoder_len, d_model): the encoder runs once and its
+    cross K/V fill the cache first."""
     B, P = prompts.shape
     dev = prompts.device
     cache = T.init_cache(cfg, B, P + max_new_tokens, dev)
+    if cfg.family == "encdec":
+        if enc_embeds is None:
+            raise ValueError("encdec family needs enc_embeds")
+        cache["cross"] = T.encode_cross_cache(cfg, params, enc_embeds, B)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def sample(logits):

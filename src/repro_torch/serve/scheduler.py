@@ -38,11 +38,16 @@ from repro_torch.serve.cache import CachePool, PoolConfig
 
 @dataclasses.dataclass
 class Request:
-    """One generation request."""
+    """One generation request.
+
+    enc_embeds (encoder_len, d_model) is required for the encdec family
+    (whisper) and ignored otherwise.
+    """
 
     rid: int
     tokens: np.ndarray  # (prompt_len,) int token ids
     max_new_tokens: int
+    enc_embeds: np.ndarray | None = None
 
 
 @dataclasses.dataclass
@@ -147,6 +152,8 @@ class Scheduler:
             raise ValueError(f"prompt length {plen} not in [1, prompt_pad={pc.prompt_pad}]")
         if req.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if self.cfg.family == "encdec" and req.enc_embeds is None:
+            raise ValueError("encdec requests need enc_embeds")
         self.queue.append(req)
 
     # -- sampling -----------------------------------------------------------
@@ -180,6 +187,9 @@ class Scheduler:
         padded = np.zeros((1, pc.prompt_pad), np.int64)
         padded[0, :plen] = np.asarray(req.tokens)
         cache = T.init_cache(self.cfg, 1, pc.prompt_pad, self.device)
+        if self.cfg.family == "encdec":
+            enc = torch.as_tensor(np.asarray(req.enc_embeds), device=self.device)[None]
+            cache["cross"] = T.encode_cross_cache(self.cfg, self.params, enc, 1)
         cache, logits = T.prefill(
             self.cfg, self.params, torch.as_tensor(padded, device=self.device), cache,
             valid_len=torch.tensor([plen], dtype=torch.int32, device=self.device),

@@ -52,8 +52,9 @@ def ce_loss(logits: torch.Tensor, targets: torch.Tensor, mask=None) -> torch.Ten
 
 
 def loss_fn(cfg: ModelConfig, params, batch) -> torch.Tensor:
-    """CE loss of the model's logits on ``batch`` (tokens, targets[, mask])."""
-    logits = T.forward(cfg, params, batch["tokens"])
+    """CE loss of the model's logits on ``batch`` (tokens, targets[, mask];
+    the encdec family's enc_embeds)."""
+    logits = T.forward(cfg, params, batch["tokens"], enc_embeds=batch.get("enc_embeds"))
     return ce_loss(logits, batch["targets"], batch.get("mask"))
 
 

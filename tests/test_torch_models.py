@@ -92,17 +92,20 @@ def test_config_copies_every_jax_field(which):
 
 
 def test_registry_names_every_arch_and_ports_only_minitron():
+    """Every arch id (and alias) of the JAX registry resolves in the port:
+    its get_config and get_reduced equal the JAX ones field by field, with
+    the same analytic counts; an unknown id raises KeyError and falls back
+    to no model. (The name is older than the port of every family.)"""
     from repro.configs import ALIASES, ARCH_IDS
 
     assert C.ARCH_IDS == ARCH_IDS and C.ALIASES == ALIASES
-    assert C.PORTED == ("minitron_8b", "gemma2_2b", "mamba2_1p3b", "zamba2_1p2b")
-    for arch in ARCH_IDS:
-        if arch in C.PORTED:
-            continue
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-            C.get_config(arch)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-            C.get_reduced(arch)
+    assert C.PORTED == tuple(ARCH_IDS)
+    for jget, get in ((jax_get_config, C.get_config), (jax_get_reduced, C.get_reduced)):
+        for arch in [*ARCH_IDS, *ALIASES]:
+            jcfg, mine = jget(arch), get(arch)
+            assert mine == port_config(jcfg), arch
+            assert mine.param_count() == jcfg.param_count(), arch
+            assert mine.active_param_count() == jcfg.active_param_count(), arch
     with pytest.raises(KeyError):
         C.get_config("no-such-model")
 
@@ -152,9 +155,14 @@ def test_param_conversion_roundtrip_and_checks():
 
 
 def test_unported_family_and_interpret_mode_raise():
-    cfg = dataclasses.replace(C.get_reduced("minitron-8b"), family="moe")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    """An unknown family raises ValueError naming it, as the JAX package's
+    ``raise ValueError(cfg.family)`` does; Pallas' interpret mode has no
+    counterpart."""
+    cfg = dataclasses.replace(C.get_reduced("minitron-8b"), family="retnet")
+    with pytest.raises(ValueError, match="retnet"):
         T.model_defs(cfg)
+    with pytest.raises(ValueError, match="retnet"):
+        T.cache_defs(cfg, 1, 8)
     with pytest.raises(ValueError, match="interpret"):
         dataclasses.replace(cfg, decode_kernel="interpret")
 
@@ -328,3 +336,50 @@ def test_paged_decode_matches_jax_contiguous(variant):
     kv = pool.gather_kv(slot, plen + n_new - 1)
     close(kv["k"][:, :, None][:, :, 0], np.asarray(cache["k"])[:, 0, :plen + n_new - 1],
           MODEL_TOL)
+
+
+
+# ---------------------------------------------------------------------------
+# the dense configs too large for one card: reduced-size parity
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["qwen2_72b", "llama3_405b", "chameleon_34b"])
+def test_reduced_dense_configs_match_jax(arch):
+    """qwen2-72b (qkv biases, rope theta 1e6), llama3-405b (theta 5e5) and
+    chameleon-34b at their reduced() size: the forward logits on the
+    inline and kernel routes, and prefill + 2 contiguous decode steps, on
+    one set of weights whose qkv biases and norm scales are drawn nonzero
+    (their init is 0 and 1) and carried across."""
+    jcfg = dataclasses.replace(jax_get_reduced(arch), compute_dtype=jnp.float32)
+    tree = jax.tree_util.tree_map(
+        np.asarray, jax_tree_materialize(JT.model_defs(jcfg), jax.random.PRNGKey(0),
+                                         jcfg.param_dtype))
+    rng = np.random.default_rng(7)
+    blk = tree["blocks"]
+    for key in ("bq", "bk", "bv"):
+        assert (key in blk["attn"]) == jcfg.qkv_bias
+        if key in blk["attn"]:
+            blk["attn"][key] = rng.standard_normal(blk["attn"][key].shape).astype(np.float32)
+    for leaf, key in ((blk, "ln1"), (blk, "ln2"), (tree, "final_norm")):
+        leaf[key] = rng.uniform(0.8, 1.2, leaf[key].shape).astype(np.float32)
+    jparams = jax.tree_util.tree_map(jnp.asarray, tree)
+    pcfg = port_config(jcfg)
+    params = model_params_from_numpy(pcfg, tree, "cpu")
+    if jcfg.qkv_bias:
+        assert float(params["blocks"]["attn"]["bk"].abs().min()) > 0
+    tok = np.random.default_rng(8).integers(0, 256, (2, 13))
+    for jmode, pmode in (("jnp", "jnp"), ("off", "auto")):
+        want = JT.forward(dataclasses.replace(jcfg, attention_kernel=jmode), jparams,
+                          jnp.asarray(tok))
+        got = T.forward(dataclasses.replace(pcfg, attention_kernel=pmode), params,
+                        torch.as_tensor(tok))
+        close(got, want, MODEL_TOL)
+    jc, jl = JT.prefill(jcfg, jparams, jnp.asarray(tok), JT.init_cache(jcfg, 2, 16))
+    pc, pl = T.prefill(pcfg, params, torch.as_tensor(tok), T.init_cache(pcfg, 2, 16, "cpu"))
+    for _ in range(2):
+        close(pl, jl, MODEL_TOL)
+        nxt = np.asarray(jnp.argmax(jl, -1))[:, None]
+        jc, jl = JT.decode_step(jcfg, jparams, jnp.asarray(nxt), jc)
+        pc, pl = T.decode_step(pcfg, params, torch.as_tensor(nxt), pc)
+    close(pl, jl, MODEL_TOL)
+    close(pc["k"], jc["k"], MODEL_TOL)

@@ -262,7 +262,9 @@ def test_cache_is_lru_bounded():
 
 def _sequence(pkg, capacity=None):
     """One call sequence (value sweeps, a lam sweep on fresh problems, the
-    relay, SSDA's static hp, an LRU eviction) and the stats after each call."""
+    relay and relay sweeps (``solve_many`` before and after a sequential
+    relay, so the batched entry is built both ways), SSDA's static hp, an
+    LRU eviction) and the stats after each call."""
     kw = {} if pkg is JS else {"device": CPU}
     cache = JRC if pkg is JS else runner_cache
     pkg.clear_runner_caches()
@@ -277,8 +279,15 @@ def _sequence(pkg, capacity=None):
             lambda: pkg.solve(pkg.make_problem("ridge", p.data, p.graph, lam=1e-3), "dsba",
                               steps=STEPS, record_every=REC, alpha=0.3, **kw),
             lambda: pkg.solve(p, "dsa", steps=STEPS, record_every=REC, **kw),
+            lambda: pkg.solve_many(p, "dsba", "sparse", steps=STEPS, record_every=REC,
+                                   grid=[{"alpha": 0.3}, {"alpha": 0.5}], **kw),
             lambda: pkg.solve(p, "dsba", "sparse", steps=STEPS, record_every=REC, alpha=0.3, **kw),
             lambda: pkg.solve(p, "dsba", "sparse", steps=STEPS, record_every=REC, alpha=0.7, **kw),
+            lambda: pkg.solve_many(p, "dsba", "sparse", steps=STEPS, record_every=REC,
+                                   grid=[{"alpha": a} for a in (0.4, 0.6, 0.7)], **kw),
+            lambda: pkg.solve(p, "dsa", "sparse", steps=STEPS, record_every=REC, **kw),
+            lambda: pkg.solve_many(p, "dsa", "sparse", steps=STEPS, record_every=REC,
+                                   grid=[{"alpha": 0.1}, {"alpha": 0.2}], **kw),
             lambda: pkg.solve(p, "ssda", steps=4, record_every=4, eta=0.05, **kw),
             lambda: pkg.solve(p, "ssda", steps=4, record_every=4, eta=0.01, momentum=0.9, **kw),
             lambda: pkg.solve(p, "ssda", steps=4, record_every=4, inner_newton=4, **kw),
@@ -295,9 +304,10 @@ def _sequence(pkg, capacity=None):
 
 @pytest.mark.parametrize("capacity", [None, 2])
 def test_stats_equal_the_jax_packages(capacity):
-    """The same solve() sequence gives the same stats in both packages,
-    call by call: hits, misses, traces (two a dense runner, one a relay;
-    none on a value sweep), evictions and size. With capacity 2 the third
+    """The same solve()/solve_many() sequence gives the same stats in both
+    packages, call by call: hits, misses, traces (two a dense runner, one a
+    relay's first sequential call and one its batched entry; none on a
+    value sweep), evictions and size. With capacity 2 the third
     runner evicts the first, which then misses again."""
     want = _sequence(JS, capacity)
     got = _sequence(TS, capacity)
