@@ -248,7 +248,34 @@ printed with its seconds:
    fall outside the elementwise bar in the kernel and the plain version
    alike). Train: full depth from a conditioned train state, B=8, S=448, 5
    steps; step 0 holds every flash forward (48) and backward (24) call.
-22. solvers -- in a fresh process (``chip_smoke.py --solvers``; it runs
+22. options -- in a fresh process (``chip_smoke.py --options``; it runs alone
+   too): the training options at full width, TF32 off (float32 products
+   exact). First the flash kernels at llama3-405b's head layout (128/8
+   heads, D=128, causal, B=1, S=4,096), before any model exists (the plain
+   backward's S x S scores take ~8.6 GB a call): one forward and backward
+   through the registry held to the plain version, then each timed beside
+   the plain version, the bound and SDPA. Then llama3-405b (arXiv:2407.21783)
+   at full width cut 126 -> 1 layer (7.39e9 parameters: bf16 weights,
+   gradients and moments 59.1 GB; with float32 moments 88.7 GB, more than
+   the card) trains 3 steps with ``AdamConfig(state_dtype=torch.bfloat16)``
+   under remat "dots" and one under "full", B=1, S=4,096 (the reference's
+   train_4k; its batch of 256 cut to 1) from ``batch_at``, AdamW at the
+   launcher's defaults but warmup 1; each step profiled (wall, device busy,
+   idle share), its launches asserted (2 flash forward, 2 backward), its
+   peak memory under 80 GB, finite loss and grad norm; step 1's update of
+   sampled slices of embed, mlp and a norm scale held to the reference's
+   formula recomputed in float64 from the step's own gradients and moments
+   (within one bf16 ulp). Then minitron-8b at full width and depth with
+   blockwise attention and conditioned attention weights:
+   ``serve.generate`` prefills one seeded 32,768-token prompt (the
+   reference's prefill_32k) and decodes 4 tokens with no kernel launched;
+   the prefill's wall, device time (CUDA events) and peak memory; its
+   last-position logits held to the flash stack on the same tokens with no
+   cache (32 flash launches at S=32,768, a shape no plain version can hold:
+   its scores would take 137 GB) within the bf16 bar; at S=4,096 a
+   blockwise prefill held to the plain cached path the same way. Its
+   launches join the kernels line.
+23. solvers -- in a fresh process (``chip_smoke.py --solvers``; it runs
    alone too): the registry's other methods (extra, dlm, ssda, mudag,
    sliding, dsgda, personal) through ``solve()`` at the paper's rcv1
    Section-7 setup, every (method, family) pair the registry supports
@@ -262,7 +289,7 @@ printed with its seconds:
    equal the reference's counts (``TABLE1_COUNTS``; the CPU's are held to
    them by tests/test_torch_table1.py); each run stops one record period
    past the count; dsba/dsa launch as predicted.
-23. faults -- in a fresh process (``chip_smoke.py --faults``; it runs alone
+24. faults -- in a fresh process (``chip_smoke.py --faults``; it runs alone
    too): dynamic networks, fault injection and checkpoint/resume through
    ``solve()`` at the rcv1 Section-7 setup (ridge; dsgda on AUC), each
    held to the same solve() on the CPU (z and dist2 <= 1e-10; DOUBLEs,
@@ -281,7 +308,7 @@ printed with its seconds:
    Profiles of the dense step plain, with the link mask and with
    stragglers, and of the relay with and without a sent_mask. Its
    launches join the kernels line.
-24. sweep -- in a fresh process (``chip_smoke.py --sweep``; it runs alone
+25. sweep -- in a fresh process (``chip_smoke.py --sweep``; it runs alone
    too): hyperparameter sweeps as one batched computation at the rcv1
    Section-7 setup (ridge). ``solve_many`` over benchmarks/
    bench_convergence.py's 5-alpha dsba grid (0.5-8) and a 3-alpha dsa grid,
@@ -312,6 +339,7 @@ own failure.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -372,6 +400,7 @@ from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.params import tree_leaves, tree_map, tree_num_params  # noqa: E402
 from repro_torch.optim.adam import AdamConfig  # noqa: E402
 from repro_torch.serve import PoolConfig, Request, Scheduler, generate  # noqa: E402
+from repro_torch.train import step as train_mod  # noqa: E402
 from repro_torch.train.step import TrainConfig, init_train_state, local_grads, train_step  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate; float32 and float64
@@ -518,9 +547,11 @@ def device_profile(fn, iters):
     return sum(t for t, _ in kern.values()), kern
 
 
-def replay_step(step, n=10) -> dict:
-    """Wall (no profiler) and device-busy ms of `step` over `n` calls, its
-    idle share and launches (profiler)."""
+def replay_step(step, n=10, profiled=3) -> dict:
+    """Wall (no profiler) ms of `step` over `n` calls; device-busy ms, idle
+    share and launches (profiler) over `profiled` calls. A decode step
+    repeats the same launches, and reading a profiled window's trace takes
+    seconds a step (a serve step launches ~1,000-3,300 kernels)."""
     step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -528,11 +559,12 @@ def replay_step(step, n=10) -> dict:
         step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / n
-    busy_us, kern = device_profile(step, n)
-    busy = busy_us / 1e3 / n
+    busy_us, kern = device_profile(step, profiled)
+    busy = busy_us / 1e3 / profiled
     return {"wall_ms": wall, "device_ms": busy, "idle_share": 1.0 - busy / wall,
-            "launches": sum(c for _, c in kern.values()) / n,
-            "top_kernels_us": top_by_prefix({k: t / n for k, (t, _) in kern.items()}, 6)}
+            "launches": sum(c for _, c in kern.values()) / profiled,
+            "top_kernels_us": top_by_prefix({k: t / profiled for k, (t, _) in kern.items()},
+                                            6)}
 
 
 def kernel_device_ms(fn, names, iters=50, windows=3):
@@ -3528,7 +3560,307 @@ def encdec_run(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 22: the rest of the paper's methods, in a fresh process (--solvers)
+# phase 22: the training options at full width, in a fresh process (--options)
+# ---------------------------------------------------------------------------
+
+OPT_S, OPT_DOTS_STEPS = 4096, 3  # the reference's train_4k sequence; its batch of 256 cut to 1
+PREFILL_S, PREFILL_NEW, PREFILL_CHECK_S = 32768, 4, 4096  # the reference's prefill_32k
+
+
+def options_config():
+    """llama3-405b (arXiv:2407.21783) at full width, cut 126 -> 1 layer: bf16
+    weights and gradients take 14.78 GB each; bf16 moments 29.56 GB (float32
+    ones 59.12 GB, 88.7 GB of state with them: more than the card)."""
+    return dataclasses.replace(get_config("llama3-405b"), n_layers=1, remat="dots")
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Worst |got - want| in bf16 ulps of max(|want|, 2^-15 of the slice's
+    largest): the floor measures what a cancellation leaves (the float32
+    rounding of its terms) against the terms, as
+    tests/test_torch_train_options.py does."""
+    a, b = got.double(), want.double()
+    floor = 2.0 ** -15 * max(float(b.abs().max()), 2.0 ** -100)
+    mag = torch.clamp(torch.maximum(a.abs(), b.abs()), min=floor)
+    return float(((a - b).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max())
+
+
+@contextlib.contextmanager
+def captured_update(slices):
+    """While open, ``train.step.adam_update`` is wrapped so that one
+    ``train_step``'s update of a few slices (``{name: tree -> tensor}``) is
+    recorded: p, g, mu, nu before and p, mu, nu after, in float64 on the
+    card, with the step, the grad norm and the config. Yields the record."""
+    orig, rec = train_mod.adam_update, {}
+
+    def wrapped(cfg, params, grads, opt, step):
+        take = lambda tree: {n: f(tree).detach().double().clone()  # noqa: E731
+                             for n, f in slices.items()}
+        before = [take(t) for t in (params, grads, opt["mu"], opt["nu"])]
+        out = orig(cfg, params, grads, opt, step)
+        rec.update(cfg=cfg, step=int(step), gnorm=float(out[2]["grad_norm"]), before=before,
+                   after=[take(out[0]), take(out[1]["mu"]), take(out[1]["nu"])])
+        return out
+
+    train_mod.adam_update = wrapped
+    try:
+        yield rec
+    finally:
+        train_mod.adam_update = orig
+
+
+def update_vs_formula(rec) -> dict:
+    """The recorded slices' update against the reference's AdamW formula
+    (``repro/optim/adam.py`` upd) in float64 from the step's own gradients
+    and moments: each stored value within one bf16 ulp (``bf16_ulps``)."""
+    c, t = rec["cfg"], rec["step"] + 1
+    p0, g0, mu0, nu0 = rec["before"]
+    scale = min(1.0, c.grad_clip / (rec["gnorm"] + 1e-12))
+    lr = c.lr_at(rec["step"])
+    out = {}
+    for name in p0:
+        g = g0[name] * scale
+        mu = mu0[name] * c.b1 + (1 - c.b1) * g
+        nu = nu0[name] * c.b2 + (1 - c.b2) * g * g
+        delta = (mu / (1 - c.b1 ** t)) / (torch.sqrt(nu / (1 - c.b2 ** t)) + c.eps)
+        p = p0[name] - lr * (delta + c.weight_decay * p0[name])
+        got_p, got_mu, got_nu = (a[name] for a in rec["after"])
+        out[name] = {"p_ulps": bf16_ulps(got_p, p), "mu_ulps": bf16_ulps(got_mu, mu),
+                     "nu_ulps": bf16_ulps(got_nu, nu), "elements": p.numel(),
+                     "p_moved": int((got_p != p0[name]).sum())}
+    worst = max(max(v[k] for k in ("p_ulps", "mu_ulps", "nu_ulps")) for v in out.values())
+    if worst > 1.0:
+        raise AssertionError(f"the step's update is {worst} bf16 ulps from the formula: {out}")
+    return out
+
+
+def options_flash(device) -> dict:
+    """The flash kernels at llama3-405b's head layout (128/8 heads, D=128,
+    causal, B=1, S=4,096), before the model exists (the plain backward's
+    S x S float32 scores take ~8.6 GB a call): one forward and backward
+    through the registry held to the plain version (``held_to_plain``),
+    then each timed beside the plain version, the bound and SDPA."""
+    cfg = options_config()
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = (t.requires_grad_() for t in flash_inputs(1, h, kv, OPT_S, OPT_S, d,
+                                                         torch.bfloat16, device, seed=3))
+    do = flash_inputs(1, h, h, OPT_S, OPT_S, d, torch.bfloat16, device, seed=4)[0]
+    with ops.held_to_plain("flash_attention") as ffwd, \
+            ops.held_to_plain("flash_attention_bwd") as fbwd:
+        o = ops.dispatch("flash_attention", q, k, v, causal=True, mode="on")
+        o.backward(do)
+    torch.cuda.synchronize()
+    if [len(ffwd), len(fbwd)] != [1, 1] or max(fbwd.rel) > GRAD_BAR:
+        raise AssertionError(f"options flash held: {list(ffwd)} {list(fbwd)} {fbwd.rel}")
+    held = {"fwd_max_abs": ffwd[0], "fwd_rel": ffwd.rel[0], "bwd_max_abs": fbwd[0],
+            "bwd_rel": fbwd.rel[0], "bwd_plain_max_abs_grad": fbwd.scale[0]}
+    log("options", f"flash at {h}/{kv} heads S={OPT_S} D={d} held: {json.dumps(held)}")
+    del q, k, v, do, o
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"held": held,
+            "flash_attention": time_attention(device, 1, h, kv, OPT_S, d),
+            "flash_attention_bwd": time_flash_bwd(device, 1, h, kv, OPT_S, d)}
+
+
+def options_train(device) -> tuple[dict, dict]:
+    """llama3-405b at full width, 1 layer: OPT_DOTS_STEPS train steps with
+    bf16 weights and moments under remat "dots", then one under "full",
+    B=1, S=OPT_S from ``batch_at``; AdamW at the launcher's defaults but
+    warmup 1 (a step then moves the bf16 weights by several ulps). Each step
+    profiled (wall under the profiler, device busy, idle share), its
+    launches asserted (the flash forward twice: forward and recompute under
+    either policy; the backward's two kernels), its peak memory; step 1's
+    update of sampled slices of embed, mlp and a norm held to the formula.
+    The wall of a step is taken inside the profiled window (the profiler's
+    own bookkeeping after it is not counted)."""
+    cfg = options_config()
+    tc = TrainConfig(optimizer=AdamConfig(state_dtype=torch.bfloat16, warmup_steps=1))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, tc, 0, device)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n = tree_num_params(T.model_defs(cfg))
+    nbytes = lambda tree: sum(t.numel() * t.element_size() for t in tree_leaves(tree))  # noqa
+    p_bytes, m_bytes = nbytes(state["params"]), nbytes(state["opt"])
+    if {t.dtype for t in tree_leaves({"p": state["params"], "o": state["opt"]})} != {
+            torch.bfloat16}:
+        raise AssertionError("the llama train state is not all bf16")
+    state_info = {
+        "params": n, "param_bytes": p_bytes, "grad_bytes": p_bytes, "moment_bytes": m_bytes,
+        "state_bytes_with_grads": 2 * p_bytes + m_bytes,
+        "state_bytes_with_float32_moments": 2 * p_bytes + 2 * 4 * n, "drawn_s": t_init}
+    log("options-train", f"{cfg.name} x{cfg.n_layers} layer: {json.dumps(state_info)}")
+    ld = LoaderConfig(cfg.vocab_size, 1, OPT_S, seed=0)
+    want = {**dict.fromkeys(WRAPPERS, 0), "flash_attention": 2, "flash_attention_bwd": 2}
+    tokens = batch_at(ld, 1)["tokens"].reshape(-1)
+    seen = torch.as_tensor(np.unique(tokens)[:4], device=device)
+    slices = {"embed_seen_rows": lambda t: t["embed"][seen, :256],
+              "embed_row_0": lambda t: t["embed"][0, :256],
+              "mlp_wg": lambda t: t["blocks"]["mlp"]["wg"][0, :64, :64],
+              "ln1": lambda t: t["blocks"]["ln1"][0]}
+    total, steps, formula = dict.fromkeys(WRAPPERS, 0), [], None
+    for i, remat in enumerate(["dots"] * OPT_DOTS_STEPS + ["full"]):
+        run_cfg = dataclasses.replace(cfg, remat=remat)
+        metrics = {}
+
+        def one(i=i, run_cfg=run_cfg, metrics=metrics):
+            nonlocal state
+            batch = batch_at(ld, i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics["m"] = train_step(run_cfg, tc, state, batch)
+            torch.cuda.synchronize()
+            metrics["wall"] = time.perf_counter() - t0
+
+        torch.cuda.reset_peak_memory_stats()
+        before = launches()
+        with captured_update(slices if i == 1 else {}) as rec:
+            busy_us, kern = device_profile(one, 1)
+        wall = metrics["wall"]
+        got = {k: c - before[k] for k, c in launches().items()}
+        if got != want:
+            raise AssertionError(f"options train step {i}: launches {got} != {want}")
+        for k, c in got.items():
+            total[k] += c
+        if i == 1:
+            formula = update_vs_formula(rec)
+        m = metrics["m"]
+        steps.append({"step": i, "remat": remat, "loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"]), "wall_ms_profiled": wall * 1e3,
+                      "device_busy_ms": busy_us / 1e3, "idle_share": 1 - busy_us / 1e6 / wall,
+                      "launches_profiled": sum(c for _, c in kern.values()),
+                      "port_kernel_launches": {k: c for k, c in got.items() if c},
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "top_kernels_us": top_by_prefix({k: t for k, (t, _) in kern.items()}, 6)})
+        log("options-train", json.dumps(steps[-1]))
+    bad = [s for s in steps if not (math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]))]
+    if bad or max(s["peak_gb"] for s in steps) >= 80:
+        raise AssertionError(f"options train: {steps}")
+    out = {"layers": cfg.n_layers, "B": 1, "S": OPT_S, "state": state_info, "steps": steps,
+           "update_vs_formula": formula}
+    log("options-train", f"update vs the formula: {json.dumps(formula)}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, total
+
+
+@contextlib.contextmanager
+def prefill_events():
+    """While open, ``T.decode_step``'s first call (``generate``'s prefill)
+    runs between two CUDA events; yields {"ms": their elapsed time}."""
+    orig, out = T.decode_step, {}
+
+    def first(*args, **kwargs):
+        T.decode_step = orig
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        res = orig(*args, **kwargs)
+        end.record()
+        end.synchronize()
+        out["ms"] = start.elapsed_time(end)
+        return res
+
+    T.decode_step = first
+    try:
+        yield out
+    finally:
+        T.decode_step = orig
+
+
+def options_prefill(device) -> tuple[dict, dict]:
+    """minitron-8b (arXiv:2407.14679) at full width and depth with
+    blockwise attention (attention_block_k 1,024), its attention
+    conditioned (``condition_attention``: at the reference's init the
+    whole-model logits are chaotic). ``generate`` prefills one seeded
+    PREFILL_S-token prompt and decodes PREFILL_NEW tokens, with no registry
+    kernel (blockwise takes precedence; decode reads the contiguous cache):
+    its prefill's wall (generate's own timer) and device time (CUDA events
+    around the prefill's forward: ~45,000 launches, not profiled, whose
+    trace would take longer to read than the prefill to run) and the peak
+    memory. Its prefill's last-position logits are held to the flash stack
+    on the same tokens with no cache (``_run_stack`` with
+    blockwise_attention off: the flash forward at S = PREFILL_S, which no
+    plain version can hold: its scores would take 137 GB), with only the
+    last position unembedded, within the bf16 bar; at PREFILL_CHECK_S a
+    blockwise prefill is held to the plain cached path the same way."""
+    cfg = dataclasses.replace(get_config("minitron-8b"), blockwise_attention=True)
+    off = dataclasses.replace(cfg, blockwise_attention=False)  # flash, or plain with a cache
+    params = T.init_params(cfg, seed=0, device=device)
+    condition_attention(cfg, params["blocks"]["attn"])
+    prompt = torch.as_tensor(
+        np.random.default_rng(2).integers(0, cfg.vocab_size, (1, PREFILL_S)), device=device)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with prefill_events() as ev:
+        r = generate(cfg, params, prompt, max_new_tokens=PREFILL_NEW)
+    peak = torch.cuda.max_memory_allocated()
+    if any(launches().values()):
+        raise AssertionError(f"blockwise generate launched {launches()}")
+    with torch.no_grad():
+        x = T._embed(off, params, prompt)
+        x, _ = T._run_stack(off, params["blocks"], x, T._arange_rows(1, PREFILL_S, device), None)
+        flash_last = T._unembed(off, params, x[:, -1:])[:, 0]
+        del x
+    got = launches()
+    if got["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"the flash stack launched {got}")
+    blk_last = r.logits[0]
+    err = (blk_last - flash_last).abs().max().item()
+    rel = ops.rel_err(blk_last, flash_last)
+    if not within_bf16_bar(blk_last, flash_last):
+        raise AssertionError(f"blockwise prefill vs the flash stack: max abs {err}, rel {rel}")
+    p4 = prompt[:, :PREFILL_CHECK_S]
+    with torch.no_grad():
+        _, l_blk = T.prefill(cfg, params, p4, T.init_cache(cfg, 1, PREFILL_CHECK_S, device))
+        _, l_plain = T.prefill(off, params, p4, T.init_cache(off, 1, PREFILL_CHECK_S, device))
+    err4 = (l_blk - l_plain).abs().max().item()
+    if not within_bf16_bar(l_blk, l_plain):
+        raise AssertionError(f"blockwise vs plain prefill at {PREFILL_CHECK_S}: {err4}")
+    out = {"S": PREFILL_S, "new_tokens": PREFILL_NEW, "block_k": cfg.attention_block_k,
+           "prefill_wall_s": r.prefill_s, "prefill_device_ms_events": ev["ms"],
+           "decode_wall_s": r.decode_s, "peak_gb": peak / 1e9, "tokens": r.tokens.tolist(),
+           "vs_flash_stack_max_abs": err, "vs_flash_stack_rel_norm": rel,
+           "at_4096_vs_plain_max_abs": err4, "at_4096_vs_plain_rel_norm": ops.rel_err(l_blk,
+                                                                                      l_plain)}
+    log("options-prefill", json.dumps(out))
+    del params, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, got
+
+
+def options_run(device) -> dict:
+    """``chip_smoke.py --options`` (a fresh process): the training options
+    at full width. TF32 stays off (float32 products exact). The flash
+    kernels at llama3-405b's heads (``options_flash``), llama3-405b's bf16
+    training under "dots" and "full" (``options_train``), minitron-8b's
+    blockwise prefill of PREFILL_S tokens through ``generate``
+    (``options_prefill``)."""
+    log("options", subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("TF32 is on: the float32 products would not be exact")
+    _build.build_all()
+    t0 = time.perf_counter()
+    times = options_flash(device)
+    log("options", f"flash done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train, total = options_train(device)
+    log("options", f"train launches {total}; done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    prefill, got = options_prefill(device)
+    for n, c in got.items():
+        total[n] += c
+    log("options", f"prefill launches {got}; done in {time.perf_counter() - t0:.1f} s")
+    return {"launches": total, "times": times, "train": train, "prefill": prefill}
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the rest of the paper's methods, in a fresh process (--solvers)
 # ---------------------------------------------------------------------------
 
 NEW_METHODS = ("extra", "dlm", "ssda", "mudag", "sliding", "dsgda", "personal")
@@ -3720,7 +4052,7 @@ def solvers_run(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 23: dynamic networks, fault injection, checkpoint/resume (--faults)
+# phase 24: dynamic networks, fault injection, checkpoint/resume (--faults)
 # ---------------------------------------------------------------------------
 
 # benchmarks/bench_faults.py's iterations to dist2 <= 1e-6 at p = 0 (the JAX
@@ -3994,7 +4326,7 @@ def faults_run(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 24: hyperparameter sweeps as one batched computation (--sweep)
+# phase 25: hyperparameter sweeps as one batched computation (--sweep)
 # ---------------------------------------------------------------------------
 
 # benchmarks/bench_convergence.py's tune_stochastic grid (dsba, ridge)
@@ -4604,6 +4936,9 @@ def main() -> int:
     encdec = profile_subprocess("--encdec")
     log("encdec", f"done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    options = profile_subprocess("--options")
+    log("options", f"done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     profile_subprocess("--solvers")  # launches no kernel of the line below
     log("solvers", f"done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -4629,11 +4964,13 @@ def main() -> int:
     total["ssd_chunk_bwd"] = ssm_train_launches["ssd_chunk_bwd"]
     # and the hybrid's serve, score, long_500k and train paths (--hybrid),
     # the moe and encdec families' serve, score and train paths (--moe,
-    # --encdec), the fault, schedule, churn and resume paths (--faults) and
-    # the batched sweeps at B*N rows (--sweep)
+    # --encdec), llama3-405b's bf16 train steps and the flash stack beside
+    # minitron-8b's blockwise prefill (--options), the fault, schedule,
+    # churn and resume paths (--faults) and the batched sweeps at B*N rows
+    # (--sweep)
     for name, n in (*hybrid["launches"].items(), *moe["launches"].items(),
-                    *encdec["launches"].items(), *faults["launches"].items(),
-                    *sweep["launches"].items()):
+                    *encdec["launches"].items(), *options["launches"].items(),
+                    *faults["launches"].items(), *sweep["launches"].items()):
         total[name] += n
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -4653,6 +4990,7 @@ def main() -> int:
 if __name__ == "__main__":
     PROFILES = {"--ssm-profile": ssm_profile, "--attention-profile": attention_profile,
                 "--hybrid": hybrid_run, "--moe": moe_run, "--encdec": encdec_run,
+                "--options": options_run,
                 "--solvers": solvers_run, "--faults": faults_run,
                 "--sweep": sweep_run,
                 "--topk-profile": topk_profile,

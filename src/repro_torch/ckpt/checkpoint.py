@@ -24,6 +24,12 @@ Fault-tolerance contract, as in the JAX package:
     in place, so the copy must be taken before the next step)
   * keep_last prunes old steps after commit
 
+bfloat16 leaves are written as the JAX package writes them (numpy has no
+bfloat16; JAX's comes from ``ml_dtypes``, which the port does not use): an
+``.npy`` of the raw 2-byte values with the header's descr ``'<V2'``, and
+``"dtype": "bfloat16"`` in the manifest. They are read back bit for bit as
+``torch.bfloat16``, from either package's files.
+
 ``CheckpointSpec`` is how ``core.solvers.solve(checkpoint=, resume=)``
 snapshots a run.
 """
@@ -114,15 +120,43 @@ def _unflatten(tree, leaves):
     return build(tree)
 
 
+_BF16_RAW = np.dtype("V2")  # a bfloat16 leaf's host copy: its raw 2-byte values
+
+
 def _to_numpy(leaf) -> np.ndarray:
     """A host copy of one leaf (a copy also for CPU tensors and numpy
-    arrays: the train step updates its tensors in place)."""
+    arrays: the train step updates its tensors in place); a bfloat16
+    tensor's is its raw values, dtype ``V2``."""
     if isinstance(leaf, torch.Tensor):
-        if leaf.dtype == torch.bfloat16:
-            raise TypeError("bfloat16 leaves have no numpy dtype here; cast them to "
-                            "float32 before saving")
-        return leaf.detach().to("cpu", copy=True).numpy()
+        host = leaf.detach().to("cpu", copy=True)
+        if host.dtype == torch.bfloat16:
+            return host.view(torch.int16).numpy().view(_BF16_RAW)
+        return host.numpy()
     return np.array(leaf)
+
+
+def _save_leaf(path: pathlib.Path, arr: np.ndarray) -> str:
+    """Write one host leaf as ``.npy``; its manifest dtype. Raw bfloat16
+    values get the header the JAX package's ``np.save`` writes ('<V2')."""
+    if arr.dtype != _BF16_RAW:
+        np.save(path, arr)
+        return str(arr.dtype)
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": "<V2", "fortran_order": False, "shape": arr.shape})
+        f.write(arr.tobytes())
+    return "bfloat16"
+
+
+def _load_leaf(path: pathlib.Path, dtype: str):
+    """One leaf file as numpy, or as a ``torch.bfloat16`` tensor when the
+    manifest says bfloat16."""
+    arr = np.load(path)
+    if dtype != "bfloat16":
+        return arr
+    if arr.dtype.itemsize != 2:
+        raise ValueError(f"{path.name}: a bfloat16 leaf stored as {arr.dtype}")
+    return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
 
 
 def save_checkpoint(directory, step: int, tree, *, keep_last: int = 3,
@@ -140,10 +174,9 @@ def save_checkpoint(directory, step: int, tree, *, keep_last: int = 3,
     manifest = {"step": step, "metadata": metadata or {}, "leaves": []}
     for i, (p, leaf) in enumerate(zip(paths, leaves)):
         arr = _to_numpy(leaf)
-        np.save(tmp / f"arr_{i}.npy", arr)
+        dtype = _save_leaf(tmp / f"arr_{i}.npy", arr)
         manifest["leaves"].append(
-            {"path": p, "file": f"arr_{i}.npy", "shape": list(arr.shape),
-             "dtype": str(arr.dtype)}
+            {"path": p, "file": f"arr_{i}.npy", "shape": list(arr.shape), "dtype": dtype}
         )
     (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
     if final.exists():
@@ -169,9 +202,10 @@ def committed_steps(directory) -> list[int]:
     return sorted(out)
 
 
-def _like(arr: np.ndarray, like):
-    """`arr` as `like`'s kind: a tensor with its dtype and device, a host
-    int or float (a solver's step counter), else numpy."""
+def _like(arr, like):
+    """`arr` (numpy, or a bfloat16 tensor) as `like`'s kind: a tensor with
+    its dtype and device, a host int or float (a solver's step counter),
+    else numpy."""
     if isinstance(like, torch.Tensor):
         return torch.as_tensor(arr).to(device=like.device, dtype=like.dtype)
     if isinstance(like, (int, float)) and not isinstance(like, bool):
@@ -197,7 +231,7 @@ def restore_checkpoint(directory, tree_like, step: int | None = None):
         raise ValueError(f"checkpoint tree mismatch; differing paths: {missing}")
     new_leaves = []
     for p, like in zip(paths, leaves):
-        arr = np.load(d / by_path[p]["file"])
+        arr = _load_leaf(d / by_path[p]["file"], by_path[p]["dtype"])
         if tuple(arr.shape) != tuple(np.shape(like)):
             raise ValueError(f"shape mismatch at {p}: {arr.shape} vs {tuple(np.shape(like))}")
         new_leaves.append(_like(arr, like))
@@ -208,8 +242,9 @@ def load_checkpoint(directory, step: int | None = None):
     """Load a committed checkpoint without a template tree.
 
     Returns ``(step, metadata, {path: np.ndarray})`` for the newest (or
-    requested) committed step, or ``(None, None, None)`` when the directory
-    holds no committed checkpoint.
+    requested) committed step (a bfloat16 leaf as a ``torch.bfloat16``
+    tensor), or ``(None, None, None)`` when the directory holds no
+    committed checkpoint.
     """
     directory = pathlib.Path(directory)
     steps = committed_steps(directory)
@@ -222,7 +257,7 @@ def load_checkpoint(directory, step: int | None = None):
         )
     d = directory / f"step_{step}"
     manifest = json.loads((d / "manifest.json").read_text())
-    leaves = {e["path"]: np.load(d / e["file"]) for e in manifest["leaves"]}
+    leaves = {e["path"]: _load_leaf(d / e["file"], e["dtype"]) for e in manifest["leaves"]}
     return step, manifest.get("metadata", {}), leaves
 
 

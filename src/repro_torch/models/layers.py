@@ -18,6 +18,11 @@ Attention routes as the JAX package routes it:
   * with a contiguous cache (``prefill``, ``decode_step``), cross
     attention (``kv_x``) or under ``"jnp"``: the inline einsum/softmax path
     below, which the JAX package computes outside any Pallas kernel;
+  * with ``cfg.blockwise_attention``, at every one of those call sites
+    (training too: it takes precedence over the flash kernel, as in the
+    JAX package): ``_blockwise_attention``, the online softmax over key
+    blocks of ``cfg.attention_block_k``, which never holds an S x Sk score
+    buffer (also plain PyTorch, as the JAX twin is plain jnp);
   * paged serving decode (``paged_attention``): the registry's
     ``decode_attention`` under ``cfg.decode_kernel``.
 
@@ -33,6 +38,8 @@ index first among equal router probabilities, as ``jax.lax.top_k`` does
 JAX package also computes outside any Pallas kernel.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -102,10 +109,21 @@ def attention_defs(cfg: ModelConfig, cross: bool = False) -> dict:
     return defs
 
 
+def contract(x: torch.Tensor, w: torch.Tensor, k: int = 1) -> torch.Tensor:
+    """x (..., K) times w (K, N...), K being w's first `k` axes: a product
+    with no batch dimension (the JAX einsums ``bsd,dhq->bshq`` and
+    ``bshq,hqd->bsd``), computed as one 2-D ``mm``. ``torch.einsum`` would
+    lower it to a ``bmm`` of batch 1, which the "dots" remat policy
+    (``transformer._dots_policy``) could not tell from a batched product."""
+    kdim = math.prod(w.shape[:k])
+    out = torch.mm(x.reshape(-1, kdim), w.reshape(kdim, -1))
+    return out.reshape(*x.shape[:x.dim() - k], *w.shape[k:])
+
+
 def _proj(cfg: ModelConfig, p: dict, x: torch.Tensor, w: str) -> torch.Tensor:
     """x (B, S, d) through projection `w` (and its bias) in the compute dtype."""
     dt = cfg.compute_dtype
-    out = torch.einsum("bsd,dhq->bshq", x.to(dt), p[w].to(dt))
+    out = contract(x.to(dt), p[w].to(dt))  # bsd,dhq->bshq
     bias = "b" + w[1]
     return out + p[bias].to(dt) if bias in p else out
 
@@ -139,11 +157,6 @@ def multi_head_attention(
     is not read) and returns the cache as it was; without one it projects
     `kv_x` (no rope under ``use_rope=False``).
     """
-    if cfg.blockwise_attention:
-        raise NotImplementedError(
-            "blockwise_attention (the JAX package's online-softmax training "
-            "option) is not ported (ROADMAP Queue 1 item 12)"
-        )
     dt = cfg.compute_dtype
     B, S, _ = x.shape
     cross = kv_x is not None
@@ -158,6 +171,7 @@ def multi_head_attention(
         q = rope(q, positions, cfg.rope_theta)
 
     new_cache = cache
+    valid_len = None
     if cache is not None and not cross:
         pos = int(cache["pos"])
         if pos + S > cache["k"].shape[1]:
@@ -168,18 +182,26 @@ def multi_head_attention(
         cache["k"][:, pos:pos + S] = k.to(cache["k"].dtype)
         cache["v"][:, pos:pos + S] = v.to(cache["v"].dtype)
         new_cache = {"k": cache["k"], "v": cache["v"], "pos": pos + S}
-        # positions past pos + S are masked in the JAX package; they are
-        # simply not read here
-        k, v = cache["k"][:, :pos + S], cache["v"][:, :pos + S]
         q_pos = torch.arange(S, device=x.device) + pos
-        k_pos = torch.arange(pos + S, device=x.device)
+        valid_len = pos + S
+        if cfg.blockwise_attention:
+            # the whole cache, masked past valid_len, as the JAX package
+            # reads it (the blocks past it are skipped: see the function)
+            k, v = cache["k"], cache["v"]
+        else:
+            # positions past pos + S are masked in the JAX package; they
+            # are simply not read here
+            k, v = cache["k"][:, :valid_len], cache["v"][:, :valid_len]
+        k_pos = torch.arange(k.shape[1], device=x.device)
     elif cache is not None:
         q_pos = torch.arange(S, device=x.device)
         k_pos = kv_pos[0]
     else:
         q_pos, k_pos = positions[0], kv_pos[0]
 
-    if cache is None and not cross and cfg.attention_kernel != "jnp":
+    G = cfg.n_heads // cfg.n_kv_heads
+    if (cache is None and not cross and cfg.attention_kernel != "jnp"
+            and not cfg.blockwise_attention):
         o = KO.dispatch(
             "flash_attention",
             q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
@@ -188,8 +210,16 @@ def multi_head_attention(
             mode=cfg.attention_kernel,
         )
         out = o.transpose(1, 2).to(dt)  # (B, S, H, Dh)
+    elif cfg.blockwise_attention:
+        # the queries are scaled in the compute dtype (the JAX weak-typed
+        # scalar is rounded to it first), then upcast inside
+        scale = torch.tensor(cfg.head_dim ** -0.5, dtype=q.dtype, device=q.device)
+        out = _blockwise_attention(
+            q.reshape(B, S, cfg.n_kv_heads, G, cfg.head_dim) * scale, k, v, q_pos, k_pos,
+            causal=causal and not cross, window=window, softcap_v=cfg.attn_softcap,
+            block_k=cfg.attention_block_k, valid_len=valid_len,
+        ).to(dt).reshape(B, S, cfg.n_heads, cfg.head_dim)
     else:
-        G = cfg.n_heads // cfg.n_kv_heads
         qg = q.reshape(B, S, cfg.n_kv_heads, G, cfg.head_dim)
         scores = torch.einsum("bskgh,btkh->bkgst", qg, k) * cfg.head_dim ** -0.5
         scores = softcap(scores.float(), cfg.attn_softcap)
@@ -202,8 +232,82 @@ def multi_head_attention(
         probs = torch.softmax(scores, dim=-1).to(dt)
         out = torch.einsum("bkgst,btkh->bskgh", probs, v)
         out = out.reshape(B, S, cfg.n_heads, cfg.head_dim)
-    y = torch.einsum("bshq,hqd->bsd", out, p["wo"].to(dt))
+    y = contract(out, p["wo"].to(dt), 2)  # bshq,hqd->bsd
     return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# blockwise attention: the online softmax over key blocks (the plain twin of
+# kernels/flash_attention.py). No (S x Sk) buffer is ever held: the working
+# set is one key block a step. Enabled by ``ModelConfig.blockwise_attention``.
+# ---------------------------------------------------------------------------
+
+def _blockwise_attention(
+    qg: torch.Tensor,  # (B, Sq, KV, G, Dh), pre-scaled queries
+    k: torch.Tensor,  # (B, Sk, KV, Dh)
+    v: torch.Tensor,  # (B, Sk, KV, Dh)
+    q_pos: torch.Tensor,  # (Sq,)
+    k_pos: torch.Tensor,  # (Sk,)
+    *,
+    causal: bool,
+    window: int | None,
+    softcap_v: float | None,
+    block_k: int,
+    valid_len: int | None = None,  # a contiguous cache's fill level
+) -> torch.Tensor:
+    """Attention out (B, Sq, KV, G, Dh) in float32, the JAX function's
+    arithmetic: scores, softcap and softmax in float32, masked scores
+    -1e30, the m / l / acc recurrence over key blocks of `block_k`, and
+    ``acc / max(l, 1e-30)``. Keys padded to a whole block get position
+    -1e9 and are masked by ``p >= 0``. A Python loop takes the place of
+    ``lax.scan``; autograd differentiates through it.
+
+    With `valid_len`, keys at positions >= valid_len are masked, and the
+    blocks that hold only such keys are not computed: each query's own
+    position (< valid_len) lies in an earlier block, so by then every row's
+    running max is a real score, and a masked block would leave m, l and
+    acc exactly as they were (its alpha is exp(0) = 1, its p exp(-1e30 - m)
+    = 0).
+    """
+    B, Sq, KV, G, Dh = qg.shape
+    Sk = k.shape[1]
+    block_k = min(block_k, Sk)
+    if valid_len is not None:
+        used = min(Sk, -(-valid_len // block_k) * block_k)
+        k, v, k_pos, Sk = k[:, :used], v[:, :used], k_pos[:used], used
+    pad = (-Sk) % block_k
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad), value=-10**9)
+    nb = k.shape[1] // block_k
+
+    qf = qg.float()
+    acc = torch.zeros((B, KV, G, Sq, Dh), dtype=torch.float32, device=qg.device)
+    m = torch.full((B, KV, G, Sq), NEG_INF, dtype=torch.float32, device=qg.device)
+    l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=qg.device)
+    for j in range(nb):
+        blk = slice(j * block_k, (j + 1) * block_k)
+        p_t = k_pos[blk]
+        s = torch.einsum("bskgh,btkh->bkgst", qf, k[:, blk].float())
+        if softcap_v is not None:
+            s = softcap_v * torch.tanh(s / softcap_v)
+        mask = (p_t >= 0)[None, :].expand(Sq, block_k)
+        if causal:
+            mask = mask & (q_pos[:, None] >= p_t[None, :])
+        if window is not None:
+            mask = mask & (q_pos[:, None] - p_t[None, :] < window)
+        if valid_len is not None:
+            mask = mask & (p_t < valid_len)[None, :]
+        s = torch.where(mask, s, NEG_INF)
+        m_cur = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_cur)
+        p = torch.exp(s - m_cur[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgst,btkh->bkgsh", p, v[:, blk].float())
+        m = m_cur
+    out = acc / torch.clamp(l, min=1e-30)[..., None]  # (B, KV, G, Sq, Dh)
+    return out.permute(0, 3, 1, 2, 4)
 
 
 # ---------------------------------------------------------------------------

@@ -51,15 +51,19 @@ every leaf in ``cfg.param_dtype``, as the JAX train state does, and the
 gradient flows back through the casts to those master weights.
 
 Training runs each layer of ``forward`` under activation checkpointing
-(``torch.utils.checkpoint``, non-reentrant) unless ``cfg.remat`` is
-``"none"``: ``"full"`` saves each layer's input and recomputes the layer in
-the backward pass (the hybrid family checkpoints each use of the shared
-block too, where the JAX package wraps only the ssm layers: memory and
-recompute differ, the gradients do not; the encdec family checkpoints
-every encoder and decoder layer, as the JAX package's two scans do). The
-JAX ``"dots"`` policy (also
-save the matmul outputs) runs as ``"full"`` here: the gradients are the
-same, only the memory/recompute trade differs.
+(``torch.utils.checkpoint``, non-reentrant; ``_checkpoint``) unless
+``cfg.remat`` is ``"none"``, with the JAX package's policies: ``"dots"``
+(``dots_with_no_batch_dims_saveable``) saves the outputs of the products
+with no batch dimension (the attention projections, the MLP, the router
+and the ssm projections: ``aten.mm``) by ``torch.utils.checkpoint``'s
+selective checkpointing and recomputes the rest (the batched attention,
+expert and SSD products, the kernels, norms and elementwise work); any
+other value is ``"full"``: each layer's input is saved and the layer
+recomputed in the backward pass. The hybrid family checkpoints each use of
+the shared block too, where the JAX package wraps only the ssm layers
+(memory and recompute differ, the gradients do not); the encdec family
+checkpoints every encoder and decoder layer, as the JAX package's two
+scans do.
 
 Caches are updated in place: the contiguous cache's K/V (or SSM state and
 conv) tensors and the paged pools are allocated once and written by
@@ -68,10 +72,12 @@ dense (and hybrid ``attn``) cache position ``pos`` is a host integer.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
 import torch.utils.checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -247,12 +253,36 @@ def _dense_block(cfg: ModelConfig, p, x, positions, window, cache, causal=True):
     return _ffn(cfg, p, x + h), new_cache
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the outputs of the products with no batch dimension, recompute
+    everything else. Those products are the ``aten.mm`` calls:
+    ``layers.contract`` and ``x @ w`` of a (B, S, d) activation and a 2-D
+    weight lower to ``mm``, every batched product (attention, experts, SSD)
+    to ``bmm``."""
+    del ctx, args, kwargs
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpoint(cfg: ModelConfig, fn, *args):
+    """fn(*args) under activation checkpointing by ``cfg.remat``: "dots"
+    saves the no-batch products (``_dots_policy``), any other value
+    recomputes the whole of fn (JAX ``_remat``'s rule; "none" never reaches
+    here, see ``_remat_on``)."""
+    if cfg.remat == "dots":
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _dots_policy))
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
 def _remat_block(cfg, p, x, positions, window):
     """One cache-free layer under activation checkpointing (``cfg.remat``)."""
     def fn(x_in):
         return _dense_block(cfg, p, x_in, positions, window, None)[0]
 
-    return torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False)
+    return _checkpoint(cfg, fn, x)
 
 
 def _ssm_layer(cfg: ModelConfig, p, x, cache, valid_len=None):
@@ -271,8 +301,7 @@ def _ssm_stack_layer(cfg, p, x, caches, i, valid_len, remat):
     pools) its state and conv history are read from ``caches[...][i]`` and
     the new ones written back in place; with `remat` it is checkpointed."""
     if remat:
-        return torch.utils.checkpoint.checkpoint(
-            lambda x_in: _ssm_layer(cfg, p, x_in, None)[0], x, use_reentrant=False)
+        return _checkpoint(cfg, lambda x_in: _ssm_layer(cfg, p, x_in, None)[0], x)
     cache = None if caches is None else {k: caches[k][i] for k in ("state", "conv")}
     x, new = _ssm_layer(cfg, p, x, cache, valid_len)
     if cache is not None:
@@ -363,7 +392,7 @@ def _arange_rows(b: int, s: int, device) -> torch.Tensor:
 def _checkpointed(cfg, fn, *args):
     """fn(*args), checkpointed when ``_remat_on`` (no cache here)."""
     if _remat_on(cfg, None):
-        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+        return _checkpoint(cfg, fn, *args)
     return fn(*args)
 
 

@@ -1,22 +1,27 @@
-"""AdamW (+ SGD-momentum) in float32 (counterpart of ``repro.optim.adam``).
+"""AdamW (+ SGD-momentum) with a configurable state dtype (counterpart of
+``repro.optim.adam``).
 
-State mirrors the parameters: a nested dict per moment. Global-norm
-clipping, bias correction and decoupled weight decay are included; the
-learning rate warms up linearly over ``warmup_steps``.
+State mirrors the parameters: a nested dict per moment, each leaf in
+``AdamConfig.state_dtype`` (float32, or bf16 for the 405B/1T configs).
+Global-norm clipping, bias correction and decoupled weight decay are
+included; the learning rate warms up linearly over ``warmup_steps``.
 
 The JAX update is functional. This one writes the parameters and the
 moments in place (under ``torch.no_grad``): a functional copy at
 minitron-8b's width would hold a second set of parameters and moments.
-Parameters and moments are float32: the JAX ``state_dtype`` option (bf16
-moments for the 405B/1T configs) is not ported, and ``AdamConfig`` refuses
-another dtype.
-Each leaf is updated in chunks of ``_CHUNK`` elements, so the float32
-temporaries of one update stay small whatever the leaf's size. The
+Each leaf is updated in chunks of ``_CHUNK`` elements, whatever its dtype:
+the chunk of p, mu and nu is upcast to float32, updated, and written back
+with ``copy_`` (round to nearest even, as JAX's ``astype``), so the float32
+temporaries of one update stay small whatever the leaf's size (a
+whole-leaf float32 copy of llama3-405b's embedding would be 8.4 GB). The
 arithmetic follows the JAX ``upd`` step by step, in float32:
 
-    g = g * clip_scale;  mu = mu * b1 + (1 - b1) g;  nu = nu * b2 + (1 - b2) g g
-    delta = (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps)   (sgdm: delta = mu)
-    p = p - lr (delta + weight_decay p)
+    g = g * clip_scale;  mu32 = mu * b1 + (1 - b1) g;  nu32 = nu * b2 + (1 - b2) g g
+    delta = (mu32 / (1 - b1^t)) / (sqrt(nu32 / (1 - b2^t)) + eps)   (sgdm: delta = mu32)
+    p = p - lr (delta + weight_decay p);  mu = mu32;  nu = nu32
+
+The new parameter is computed from the unrounded mu32 and nu32; only the
+stored moments are rounded to ``state_dtype``.
 """
 from __future__ import annotations
 
@@ -40,19 +45,14 @@ class AdamConfig:
     eps: float = 1e-8
     weight_decay: float = 0.1
     grad_clip: float = 1.0
-    state_dtype: Any = torch.float32  # the only one taken here
+    state_dtype: Any = torch.float32  # bf16 for the 405B/1T configs
     kind: str = "adamw"  # adamw | sgdm
     warmup_steps: int = 100
 
     def __post_init__(self):
-        """Reject an unknown optimizer kind and a state dtype not ported."""
+        """Reject an unknown optimizer kind."""
         if self.kind not in ("adamw", "sgdm"):
             raise ValueError(f"kind={self.kind!r} not in ('adamw', 'sgdm')")
-        if self.state_dtype != torch.float32:
-            raise NotImplementedError(
-                f"state_dtype={self.state_dtype}: only float32 optimizer state is ported "
-                "(the bf16 moments of the 405B/1T configs are not)"
-            )
 
     def lr_at(self, step) -> float:
         """Learning rate at `step` (0-based): linear warmup to ``lr``."""
@@ -60,7 +60,7 @@ class AdamConfig:
 
 
 def adam_init(cfg: AdamConfig, params) -> dict:
-    """Zero float32 moments shaped like `params`, on their devices."""
+    """Zero moments in ``cfg.state_dtype`` shaped like `params`, on their devices."""
     def zeros(_, p):
         return torch.zeros(p.shape, dtype=cfg.state_dtype, device=p.device)
 
@@ -76,27 +76,43 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def _flat(t: torch.Tensor, what: str) -> torch.Tensor:
-    if t.dtype != torch.float32:
-        raise ValueError(f"{what} is {t.dtype}; the update is written in place in float32")
+    if not t.is_floating_point():
+        raise ValueError(f"{what} is {t.dtype}; the update needs a floating-point leaf")
     if not t.is_contiguous():
         raise ValueError(f"{what} must be contiguous to be updated in place")
     return t.view(-1)
 
 
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """`t` itself when float32 (updated in place), else a float32 copy."""
+    return t if t.dtype == torch.float32 else t.float()
+
+
+def _store(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Write the float32 result `src` into `dst` (rounded to its dtype)."""
+    if src is not dst:
+        dst.copy_(src)
+
+
 def _update_chunk(cfg, p, g, mu, nu, scale, lr, bc1, bc2):
-    """One chunk of one leaf, in place (the JAX ``upd``); p, mu, nu float32."""
+    """One chunk of one leaf, in place (the JAX ``upd``), in float32."""
     g = g.float() * scale
-    mu.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
+    mu32 = _f32(mu).mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
+    _store(mu, mu32)
     if cfg.kind == "sgdm":
-        delta = mu.clone()
+        delta = mu32.clone()
     else:
-        nu.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
+        nu32 = _f32(nu).mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
+        _store(nu, nu32)
         del g
-        den = torch.div(nu, bc2).sqrt_().add_(cfg.eps)
-        delta = torch.div(mu, bc1).div_(den)
+        den = torch.div(nu32, bc2).sqrt_().add_(cfg.eps)
+        del nu32
+        delta = torch.div(mu32, bc1).div_(den)
         del den
-    delta.add_(p, alpha=cfg.weight_decay)
-    p.sub_(delta, alpha=lr)
+    del mu32
+    p32 = _f32(p)
+    delta.add_(p32, alpha=cfg.weight_decay)
+    _store(p, p32.sub_(delta, alpha=lr))
 
 
 def adam_update(cfg: AdamConfig, params, grads, opt_state, step):

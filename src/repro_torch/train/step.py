@@ -4,9 +4,19 @@
 The single-replica step on one device: ``local_grads`` runs the model
 forward and ``torch.autograd`` backward (attention's gradient through the
 ``flash_attention`` Function: the CUDA backward kernels on the card, their
-plain version on the CPU), ``adam_update`` writes the new parameters and
-moments in place. Nothing here changes with the kernel routing; it is all
-in ``ModelConfig`` (``attention_kernel``), as in the JAX package.
+plain version on the CPU; or through the blockwise loop under
+``cfg.blockwise_attention``), ``adam_update`` writes the new parameters and
+moments in place. Nothing here changes with the kernel routing, the remat
+policy or the attention route; it is all in ``ModelConfig``
+(``attention_kernel``, ``remat``, ``blockwise_attention``), as in the JAX
+package.
+
+Dtypes, as in the JAX package: the parameters are held in
+``cfg.param_dtype`` (float32 masters, or bf16 for llama3-405b and kimi-k2)
+and the moments in ``TrainConfig.optimizer.state_dtype``. With one
+microbatch the gradients come back in the parameters' dtype; with more
+they are accumulated in float32. The update computes in float32 either way
+and rounds each result to its leaf's dtype.
 
 The mesh tools of the JAX module (``make_train_state_defs``,
 ``batch_specs``, ``make_jitted_train_step``: FSDP x TP over a device mesh)
@@ -118,9 +128,10 @@ make_jitted_train_step = _mesh_tool("make_jitted_train_step")
 
 
 def init_train_state(cfg: ModelConfig, tc: TrainConfig, seed: int = 0, device=None) -> dict:
-    """{'params', 'opt', 'step'}: float32 master parameters drawn from `seed`
-    on `device` (the card unless told otherwise), zero moments, and the step
-    count as a 0-d int32 tensor on the host."""
+    """{'params', 'opt', 'step'}: parameters in ``cfg.param_dtype`` drawn
+    from `seed` on `device` (the card unless told otherwise), zero moments in
+    ``tc.optimizer.state_dtype``, and the step count as a 0-d int32 tensor
+    on the host."""
     params = T.init_train_params(cfg, seed, device)
     return {
         "params": params,

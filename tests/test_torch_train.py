@@ -276,15 +276,37 @@ def test_sgdm_kind():
 
 
 def test_adam_takes_float32_state_only():
-    """bf16 moments (the JAX state_dtype option) are not ported: refused at
-    the config; a non-float32 parameter is refused by the update."""
-    with pytest.raises(NotImplementedError, match="float32"):
-        AdamConfig(state_dtype=torch.bfloat16)
+    """The float32-only refusal is gone: bf16 moments (the JAX state_dtype
+    option) and bf16 leaves are updated in place, as the JAX update
+    computes them (float32 arithmetic from the unrounded moments, each
+    result rounded to its leaf's dtype); an integer leaf is still refused."""
+    for state_dtype in (torch.float32, torch.bfloat16):
+        cfg = AdamConfig(lr=1e-2, warmup_steps=1, state_dtype=state_dtype)
+        params = {"a": torch.ones(3), "b": torch.full((2,), 0.5, dtype=torch.bfloat16)}
+        grads = {"a": torch.ones(3), "b": torch.tensor([1.0, -2.0], dtype=torch.bfloat16)}
+        opt = adam_init(cfg, params)
+        assert all(t.dtype == state_dtype for t in tree_leaves(opt))
+        ptrs = [t.data_ptr() for t in tree_leaves({"p": params, "o": opt})]
+        new_p, new_opt, _ = adam_update(cfg, params, grads, opt, 0)
+        assert [t.data_ptr() for t in tree_leaves({"p": new_p, "o": new_opt})] == ptrs
+        assert new_p["b"].dtype == torch.bfloat16 and new_opt["nu"]["b"].dtype == state_dtype
+        jp, jo, _ = JA.adam_update(
+            JA.AdamConfig(lr=1e-2, warmup_steps=1,
+                          state_dtype={torch.float32: jnp.float32,
+                                       torch.bfloat16: jnp.bfloat16}[state_dtype]),
+            {"a": jnp.ones(3), "b": jnp.full((2,), 0.5, jnp.bfloat16)},
+            {"a": jnp.ones(3), "b": jnp.asarray([1.0, -2.0], jnp.bfloat16)},
+            JA.adam_init(JA.AdamConfig(state_dtype={torch.float32: jnp.float32,
+                                                    torch.bfloat16: jnp.bfloat16}[state_dtype]),
+                         {"a": jnp.ones(3), "b": jnp.ones(2, jnp.bfloat16)}), jnp.int32(0))
+        for got, want in ((new_p["b"], jp["b"]), (new_opt["mu"]["b"], jo["mu"]["b"]),
+                          (new_opt["nu"]["b"], jo["nu"]["b"])):
+            np.testing.assert_array_equal(got.float().numpy(),
+                                          np.asarray(want.astype(jnp.float32)))
     cfg = AdamConfig(warmup_steps=1)
-    params = {"a": torch.ones(3), "b": torch.ones(2, dtype=torch.bfloat16)}
-    opt = adam_init(cfg, {"a": params["a"], "b": torch.ones(2)})
-    with pytest.raises(ValueError, match="float32"):
-        adam_update(cfg, params, {"a": torch.ones(3), "b": torch.ones(2)}, opt, 0)
+    bad = {"a": torch.ones(3, dtype=torch.int32)}
+    with pytest.raises(ValueError, match="floating-point"):
+        adam_update(cfg, bad, {"a": torch.ones(3)}, adam_init(cfg, bad), 0)
 
 
 def test_global_norm():
@@ -313,7 +335,9 @@ def test_step_goes_through_the_flash_function_and_backward():
 
 
 def test_mesh_tools_raise():
-    """What the slice leaves out raises, naming its ROADMAP item."""
+    """What the port leaves out raises, naming its ROADMAP item; blockwise
+    attention, once refused here too, now trains (its loss is the flash
+    route's; tests/test_torch_train_options.py holds it to the JAX package)."""
     for fn in (S.make_train_state_defs, S.batch_specs, S.make_jitted_train_step):
         with pytest.raises(NotImplementedError, match="Queue 1 items 10 and 14"):
             fn(_cfg(), TrainConfig())
@@ -321,10 +345,12 @@ def test_mesh_tools_raise():
         launcher.run(launcher.parse_args(["--reduced", "--device", "cpu", "--mesh", "single"]))
     spec = CheckpointSpec("/tmp", every=10)
     assert (spec.every, spec.keep_last) == (10, 3)
-    cfg = _cfg(blockwise_attention=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        local_grads(cfg, TrainConfig(), init_train_state(cfg, TrainConfig(), 0, "cpu")["params"],
-                    _batch(cfg))
+    cfg = _cfg(compute_dtype=torch.float32)
+    params = init_train_state(cfg, TrainConfig(), 0, "cpu")["params"]
+    blk = dataclasses.replace(cfg, blockwise_attention=True, attention_block_k=8)
+    loss_blk, _ = local_grads(blk, TrainConfig(), params, _batch(cfg))
+    loss, _ = local_grads(cfg, TrainConfig(), params, _batch(cfg))
+    assert float(loss_blk) == pytest.approx(float(loss), rel=1e-5)
 
 
 # ---------------------------------------------------------------------------
