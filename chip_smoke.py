@@ -298,10 +298,12 @@ printed with its seconds:
    plan bit-equal to the plan-free run (dense and relay); link faults
    (dsba, dsa, mudag), stragglers and both composed (dense); link faults
    on the relay; a three-segment schedule (ER seed 0, ring, ER seed 1 at
-   0/60/120 of 180) dense and relay; a kill of the degree-6 hub at 60 and
-   a join at 120 (dsba dense and relay, mudag, dsgda on AUC). Checkpoint/
-   resume: dense dsba 200 steps (every 50, stopped at 100) and relay 100
-   steps (every 50, stopped at 50), bit-equal to the uninterrupted card
+   0/15/30 of 90) dense and relay; a kill of the degree-6 hub at 15 and
+   a join at 30 (dsba dense and relay, mudag, dsgda on AUC); every check's
+   length is ``FAULTS_CHECK_STEPS`` (cut to pay for ``--launch``: p = 0
+   24 steps, link faults and stragglers 30). Checkpoint/
+   resume: dense dsba 100 steps (every 25, stopped at 50) and relay 50
+   steps (every 25, stopped at 25), bit-equal to the uninterrupted card
    run, with a save's and a restore's bytes and seconds.
    benchmarks/bench_faults.py's curve: the p = 0 counts equal
    ``FAULTS_COUNTS``, the p > 0 plateaus the CPU's within 1e-10 relative.
@@ -328,6 +330,28 @@ printed with its seconds:
    ``solve()`` (dsba dense and relay, EXTRA), and ``clear_runner_caches()``
    returning the card's allocated bytes to their level before the phase.
    Its launches join the kernels line.
+26. launch -- in a fresh process (``chip_smoke.py --launch``; it runs alone
+   too): the examples, the registry's public entry points, the dry run and
+   the build cache. The examples' ``main()`` on the card with every kernel
+   call held to its plain version and their launches counted: quickstart
+   (500 steps), decentralized_ridge at rcv1's published width (--dataset
+   rcv1 --d 47236, k = 74, 2 passes; SSDA through its q x q Woodbury
+   factor), auc_maximization (10 passes), serve_decode for mamba2-1.3b
+   (reduced; ssd_chunk in its prefill). The six entry points
+   (``flash_attention``, ``decode_attention``, ``saga_sparse_dot``,
+   ``saga_sparse_axpy``, ``topk_blocks``, ``ssd_chunk``) with mode "on"
+   against "off" at small shapes within the registry's bars, gradients for
+   flash (bf16 and f32) and ssd. The dry run of minitron-8b train_4k,
+   mamba2-1.3b long_500k, zamba2-1.2b decode_32k, qwen2-moe-a2.7b
+   prefill_32k and whisper-small train_4k at full size on the meta device
+   with no kernel launched (the wrappers decide by the tensor's device);
+   then minitron-8b at 4 layers, train at B=1, S=4,096, counted on meta and
+   run on the card: its peak beside ``max_memory_allocated``, its counted
+   kernel calls beside the card's launches, its counted FLOPs beside
+   ``model_flops``. Two child processes against a private build cache: the
+   first builds the sparse kernels' library, the second builds nothing.
+   Its launches (the examples' and the fitting cell's) join the kernels
+   line.
 Before phase 9, flash_attention_bwd is held to its plain version at the
 train shape and at ragged small shapes (every head dim, GQA, MQA, window,
 softcap), bf16 and f32 (bars 5e-2, 2e-4); its times come from the
@@ -382,6 +406,9 @@ from repro_torch.core.gossip import (  # noqa: E402
     GossipConfig, consensus_distance, init_gossip_state, make_gossip_train_step,
     wire_bytes_per_pod,
 )
+from repro_torch.examples import (  # noqa: E402
+    auc_maximization, decentralized_ridge, quickstart, serve_decode,
+)
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention, decode_plan  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -395,6 +422,9 @@ from repro_torch.kernels.ref import (  # noqa: E402
 from repro_torch.kernels.sparse_saga import sparse_axpy, sparse_dot  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_chunk_bwd, ssd_chunk_fwd, ssd_plan  # noqa: E402
 from repro_torch.kernels.topk_compress import block_topk, topk_plan  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.cost_analysis import count_step, model_flops  # noqa: E402
+from repro_torch.launch.shapes import ShapeSpec  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.params import tree_leaves, tree_map, tree_num_params  # noqa: E402
@@ -620,15 +650,21 @@ def bound(nbytes: float, nops: float, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def kernel_bound(name: str, *args, dtype, products: int = 1, **kwargs) -> tuple[float, str]:
+    """``bound`` of the work the registry's ``KernelSpec.cost`` counts for
+    this call of kernel `name` (each input read once, each output written
+    once; the dry run counts the same), its operations at `dtype`'s rate,
+    `products` of them an operation counted (3: the SSD kernels' TF32 split)."""
+    nops, nbytes = ops.get_kernel(name).cost(*args, **kwargs)
+    return bound(nbytes, products * nops, dtype)
+
+
 def time_kernels(device, n, d, k, dtype=torch.float64) -> dict[str, dict]:
     """Kernel, plain version and library times at the main path's shape."""
     psi, idx, val, coef, rho = kernel_inputs(n, d, k, dtype, device, dups=False)
-    esize = psi.element_size()
-    distinct = len({(r, c) for r, row in enumerate(idx.cpu().tolist()) for c in row})
     out = {}
 
-    b_axpy = bound(2 * n * d * esize + n * k * (4 + esize) + 2 * n * esize,
-                   n * d + 2 * n * k, dtype)
+    b_axpy = kernel_bound("sparse_axpy", psi, idx, val, coef, rho, dtype=dtype)
     out["sparse_axpy"] = {
         "ms": cuda_ms(lambda: sparse_axpy(psi, idx, val, coef, rho)),
         # the kernels' own device time (ms above includes the host's launch
@@ -640,7 +676,7 @@ def time_kernels(device, n, d, k, dtype=torch.float64) -> dict[str, dict]:
         "library_ms": None,  # no single PyTorch call computes rho*psi + coef*scatter
     }
 
-    b_dot = bound(distinct * esize + n * k * (4 + esize) + n * esize, 2 * n * k, dtype)
+    b_dot = kernel_bound("sparse_dot", psi, idx, val, dtype=dtype)  # its distinct entries
     crow = torch.arange(0, n * k + 1, k, device=device)
     cols = (torch.arange(n, device=device)[:, None] * d + idx.long()).reshape(-1)
     csr = torch.sparse_csr_tensor(crow, cols, val.reshape(-1), size=(n, n * d))
@@ -750,9 +786,8 @@ def time_topk_shape(device, shape, iters) -> dict:
     registry's comparator, not bit for bit)."""
     nb, block, k = shape
     x = topk_rows(nb, block, "random", device)
-    # each input read once, each output written once; one comparison an
-    # element is the least work a selection does
-    b = bound(4 * nb * block + 8 * nb * k, nb * block, torch.float32)
+    # one comparison an element is the least work a selection does
+    b = kernel_bound("block_topk", x, k, dtype=torch.float32)
     kern = lambda: block_topk(x, k)  # noqa: E731
 
     def lib():
@@ -1186,19 +1221,13 @@ def flash_bwd_kernels(d: int) -> tuple[str, ...]:
     return tuple(bwd_kernels(tile_plan(torch.bfloat16, d)))
 
 
-def attention_pairs(b, hq, s, sk, causal) -> int:
-    """(query, key) pairs a mask keeps: the causal band (s = sk) or all."""
-    return b * hq * s * (s + 1) // 2 if causal else b * hq * s * sk
-
-
 def time_attention(device, b=1, hq=32, hkv=8, s=2048, d=128, causal=True) -> dict:
     """The flash forward at the score phase's shape (bf16, B=1, 32/8 heads,
     S=2048, D=128, causal; or the one given, S = Sk): kernel, plain version
     and SDPA, beside the bound."""
     q, k, v = flash_inputs(b, hq, hkv, s, s, d, torch.bfloat16, device)
-    pairs = attention_pairs(b, hq, s, s, causal)  # what this run's mask keeps
-    bound_f = bound(2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * b * hq * s,
-                    4 * pairs * d, torch.bfloat16)
+    # over the pairs this run's mask keeps
+    bound_f = kernel_bound("flash_attention", q, k, v, causal, dtype=torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_out = sdpa(q, k, v, is_causal=causal, enable_gqa=True)
     plain_out = attention_ref(q, k, v, causal=causal)
@@ -1233,8 +1262,7 @@ def time_decode_shape(device, args, label, iters) -> dict:
     hkv = kp.shape[2]
     live = int(lengths.clamp(min=0).sum())
     esize = kp.element_size()
-    bound_d = bound(2 * qd.numel() * esize + 2 * live * hkv * D * esize
-                    + 4 * (table.numel() + B), 4 * Hq * D * live, torch.bfloat16)
+    bound_d = kernel_bound("decode_attention", *args, dtype=torch.bfloat16)  # its live positions
     rows = torch.tensor(decode_rows(B), device=device)
     sub = (qd[rows], kp, vp, table[rows], lengths[rows])
     kern = lambda: decode_attention(*args)  # noqa: E731
@@ -1571,12 +1599,9 @@ def time_flash_bwd(device, b=TRAIN_B, hq=32, hkv=8, s=TRAIN_S, d=128, causal=Tru
     q, k, v = flash_inputs(b, hq, hkv, s, s, d, torch.bfloat16, device)
     do = flash_inputs(b, hq, hq, s, s, d, torch.bfloat16, device, seed=1)[0]
     o, lse = flash_attention(q, k, v, causal, return_lse=True)
-    pairs = attention_pairs(b, hq, s, s, causal)  # what this run's mask keeps
-    # five products over the kept pairs (s, dp, dq, dk, dv), 2 ops a multiply-add;
-    # reads q, k, v, o, do, lse once, writes dq, dk, dv once
-    nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + o.numel() + do.numel()) \
-        + 4 * lse.numel()
-    bound_b = bound(nbytes, 10 * pairs * d, torch.bfloat16)
+    # five products over the pairs this run's mask keeps (s, dp, dq, dk, dv)
+    bound_b = kernel_bound("flash_attention_bwd", q, k, v, o, lse, do, causal,
+                           dtype=torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     out = sdpa(*leaves, is_causal=causal, enable_gqa=True)
@@ -2188,16 +2213,14 @@ def ssd_bounds(shape) -> dict[str, dict]:
     use (``bound_ms``, the lesser: the least time for float32-accurate
     products on this card)."""
     B, nc, Q, nh, hd, ds = shape
-    bc, pairs = B * nc, Q * (Q + 1) // 2
-    fwd_ops = bc * (pairs * 2 * ds + nh * (pairs * 2 * hd + 2 * Q * ds * hd))
-    bwd_ops = bc * (3 * pairs * 2 * ds + nh * (2 * pairs * 2 * hd + 2 * 2 * Q * ds * hd))
-    x, c, bcd, st = bc * Q * nh * hd, bc * Q * nh, bc * Q * ds, bc * nh * ds * hd
-    fwd_bytes = 4 * (x + c + 2 * bcd + x + st)
-    bwd_bytes = 4 * (x + c + 2 * bcd + x + st + x + c + 2 * bcd)
+    meta = lambda *size: torch.empty(size, device="meta")  # noqa: E731
+    x, bc = meta(B, nc, Q, nh, hd), meta(B, nc, Q, ds)
+    args = (x, meta(B, nc, Q, nh), bc, bc)
     out = {}
-    for name, nbytes, nops in (("ssd_chunk", fwd_bytes, fwd_ops),
-                               ("ssd_chunk_bwd", bwd_bytes, bwd_ops)):
-        fp32, tf32 = bound(nbytes, nops, torch.float32), bound(nbytes, 3 * nops, TF32)
+    for name, call in (("ssd_chunk", args), ("ssd_chunk_bwd", (*args, x, meta(B, nc, nh, ds, hd)))):
+        nops, _ = ops.get_kernel(name).cost(*call)  # KernelSpec.cost, as the dry run counts
+        fp32 = kernel_bound(name, *call, dtype=torch.float32)
+        tf32 = kernel_bound(name, *call, dtype=TF32, products=3)
         out[name] = {"bound_ms": tf32[0], "bound_by": tf32[1], "bound_fp32_ms": fp32[0],
                      "gflop": nops / 1e9, "bound_counts": "3 TF32 products a float32 product"}
     return out
@@ -4065,8 +4088,13 @@ PLATEAU_RTOL = 1e-10
 # the CPU side's steps where the full run is too slow there (a relay step at
 # rcv1 width is ~0.1 s on the CPU); the card runs the same solve() at the
 # cut length for the comparison, and every cut is logged
-FAULTS_CPU_STEPS = {"p0 sparse": 20, "link sparse": 20, "schedule sparse": 65,
-                    "churn sparse": 125, "churn mudag": 125, "churn dsgda": 125}
+FAULTS_CPU_STEPS = {"p0 sparse": 10, "link sparse": 10, "schedule sparse": 35,
+                    "churn sparse": 35, "churn mudag": 35, "churn dsgda": 35}
+# the checks' lengths: p = 0, link faults and stragglers, schedules and
+# churn (their events at a sixth and a third of it, so the CPU side covers
+# both in 35 steps); cut from 50, 60 and 180 (events at 60 and 120), and the
+# resumes halved, to pay for the --launch process's time
+FAULTS_CHECK_STEPS = {"p0": 24, "link": 30, "dynamic": 90}
 
 
 def faults_graphs(n_nodes=10):
@@ -4079,7 +4107,8 @@ def faults_graphs(n_nodes=10):
     joined = mixing.Graph(n_nodes, tuple(sorted(surv.edges + ((0, 9), (4, 9)))))
     if not (er1.is_connected() and joined.is_connected()):
         raise AssertionError("faults graphs are not connected")
-    return ((0, er0), (60, mixing.ring_graph(n_nodes)), (120, er1)), joined
+    sixth = FAULTS_CHECK_STEPS["dynamic"] // 6
+    return ((0, er0), (sixth, mixing.ring_graph(n_nodes)), (2 * sixth, er1)), joined
 
 
 def faults_launches(method, comm, steps) -> dict[str, int]:
@@ -4146,9 +4175,10 @@ def fault_checks(device, d, k, total) -> list[dict]:
     both = FaultPlan(link=LinkFault(p=0.1, seed=7),
                      straggler=StragglerSpec(p=0.2, max_staleness=2, seed=3))
     # p = 0 is bit-equal to a plan-free run, with the same launches
+    n_p0, n_link, n_dyn = (FAULTS_CHECK_STEPS[k] for k in ("p0", "link", "dynamic"))
     for comm in ("dense", "sparse"):
-        plain, row = check(f"p0 {comm}", "dsba", comm, 50, record_every=25)
-        zero, _ = check(f"p0 {comm}", "dsba", comm, 50, record_every=25,
+        plain, row = check(f"p0 {comm}", "dsba", comm, n_p0, record_every=n_p0 // 2)
+        zero, _ = check(f"p0 {comm}", "dsba", comm, n_p0, record_every=n_p0 // 2,
                         comm_options={"fault_plan": FaultPlan(link=LinkFault(p=0.0))})
         same = (np.array_equal(plain.z, zero.z) and np.array_equal(plain.consensus, zero.consensus)
                 and np.array_equal(plain.doubles_received, zero.doubles_received))
@@ -4160,19 +4190,20 @@ def fault_checks(device, d, k, total) -> list[dict]:
         ("straggler dsba", "dsba", strag, {}), ("link+straggler dsba", "dsba", both, {}),
         ("link mudag", "mudag", link, FAULTS_HP["mudag"]),
     ):
-        rows.append(check(name, method, "dense", 60, record_every=30,
+        rows.append(check(name, method, "dense", n_link, record_every=n_link // 2,
                           comm_options={"fault_plan": plan}, **kw)[1])
-    rows.append(check("link sparse", "dsba", "sparse", 60, record_every=10,
+    rows.append(check("link sparse", "dsba", "sparse", n_link, record_every=5,
                       comm_options={"fault_plan": link})[1])
     schedule, joined = faults_graphs()
     sched = dataclasses.replace(ridge, schedule=schedule)
     for comm in ("dense", "sparse"):
-        rows.append(check(f"schedule {comm}", "dsba", comm, 180, problem=sched,
-                          record_every=5 if comm == "sparse" else 60)[1])
-    # kill the degree-6 hub at 60; at 120 one node joins, seeded from node 0
+        rows.append(check(f"schedule {comm}", "dsba", comm, n_dyn, problem=sched,
+                          record_every=5 if comm == "sparse" else n_dyn // 6)[1])
+    # kill the degree-6 hub at a sixth; at a third one node joins, seeded
+    # from node 0
     churn = FaultPlan(churn=ChurnPlan((
-        ChurnEvent(at=60, kind="kill", nodes=(6,)),
-        ChurnEvent(at=120, kind="join", n_new=1, seed_from=0, graph=joined))))
+        ChurnEvent(at=n_dyn // 6, kind="kill", nodes=(6,)),
+        ChurnEvent(at=n_dyn // 3, kind="join", n_new=1, seed_from=0, graph=joined))))
     auc = paper_problem("auc", d, k)
     for name, method, comm, problem, kw in (
         ("churn dense", "dsba", "dense", ridge, {}),
@@ -4180,7 +4211,7 @@ def fault_checks(device, d, k, total) -> list[dict]:
         ("churn mudag", "mudag", "dense", ridge, FAULTS_HP["mudag"]),
         ("churn dsgda", "dsgda", "dense", auc, {}),
     ):
-        rows.append(check(name, method, comm, 180, problem=problem, record_every=5,
+        rows.append(check(name, method, comm, n_dyn, problem=problem, record_every=5,
                           comm_options={"fault_plan": churn}, **kw)[1])
     return rows
 
@@ -4195,7 +4226,7 @@ def resume_check(device, d, k, comm, steps, every, stop, total) -> dict:
     `steps`, bit-equal to the uninterrupted card run in z, dist2/consensus
     and the counts; the bytes and seconds of one save and one restore."""
     problem = paper_problem("ridge", d, k)
-    kw = dict(record_every=50, seed=3, alpha=EXPERIMENTS["ridge_rcv1"].alpha)
+    kw = dict(record_every=every, seed=3, alpha=EXPERIMENTS["ridge_rcv1"].alpha)
     full = counted_solve(problem, "dsba", comm, device, steps, total, **kw)
     with tempfile.TemporaryDirectory() as tmp:
         ck = Path(tmp) / "ck"
@@ -4268,7 +4299,7 @@ def faults_curve(device) -> dict:
     return out
 
 
-def fault_profiles(device, d, k, steps=30) -> list[dict]:
+def fault_profiles(device, d, k, steps=10) -> list[dict]:
     """``_profile_row`` of the dense dsba step plain, with the link mask and
     with stragglers (the step alone: its comm, masks and state built
     before), and of the relay solve with and without a sent_mask (setup
@@ -4311,8 +4342,9 @@ def faults_run(device) -> dict:
     out = {}
     for part, fn in (
         ("checks", lambda: fault_checks(device, rcv1["d"], rcv1["k"], total)),
-        ("resume", lambda: [resume_check(device, rcv1["d"], rcv1["k"], "dense", 200, 50, 100, total),
-                            resume_check(device, rcv1["d"], rcv1["k"], "sparse", 100, 50, 50, total)]),
+        ("resume", lambda: [
+            resume_check(device, rcv1["d"], rcv1["k"], "dense", 100, 25, 50, total),
+            resume_check(device, rcv1["d"], rcv1["k"], "sparse", 50, 25, 25, total)]),
         ("curve", lambda: faults_curve(device)),
         ("profiles", lambda: fault_profiles(device, rcv1["d"], rcv1["k"])),
     ):
@@ -4643,6 +4675,284 @@ def sweep_run(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the examples, the public entry points, the meta-device dry run and
+# the kernel build cache (--launch)
+# ---------------------------------------------------------------------------
+
+SOLVER_KERNELS = ("sparse_dot", "sparse_axpy")
+# the examples' lengths on the card (their defaults: quickstart 8,000 steps,
+# decentralized_ridge 40 passes, auc_maximization 30): every held
+# sparse_axpy call runs the plain version's k-column scatter beside the
+# kernel (8,000 held quickstart steps took 60 s)
+QUICKSTART_STEPS = 500
+RIDGE_PASSES = 2
+AUC_PASSES = 10
+
+
+def held_run(names, fn):
+    """``fn()`` with every call of the kernels `names` held to its plain
+    version; (its result, {name: HeldCalls}, the launches it made)."""
+    reset_launches()
+    with contextlib.ExitStack() as stack:
+        held = {n: stack.enter_context(ops.held_to_plain(n)) for n in names}
+        out = fn()
+    torch.cuda.synchronize()
+    return out, held, launches()
+
+
+def launch_examples(device) -> dict:
+    """The four examples' ``main()`` on the card, every kernel call held to
+    its plain version: quickstart (``QUICKSTART_STEPS``), decentralized_ridge
+    at rcv1's published width (d = 47,236, k = 74; ``RIDGE_PASSES``),
+    auc_maximization (``AUC_PASSES``), serve_decode for mamba2-1.3b
+    (reduced; its prefill runs ssd_chunk)."""
+    rcv1 = DATASET_PRESETS["rcv1"]
+    runs = {
+        "quickstart": (SOLVER_KERNELS, lambda: quickstart.main(
+            steps=QUICKSTART_STEPS, record_every=QUICKSTART_STEPS // 4, device=device)),
+        "decentralized_ridge": (SOLVER_KERNELS, lambda: decentralized_ridge.main(
+            ["--dataset", "rcv1", "--d", str(rcv1["d"]), "--passes", str(RIDGE_PASSES)],
+            device=device)),
+        "auc_maximization": (SOLVER_KERNELS, lambda: auc_maximization.main(
+            passes=AUC_PASSES, device=device)),
+        "serve_decode": (("ssd_chunk",), lambda: serve_decode.main(
+            ["--arch", "mamba2-1.3b"], device=device)),
+    }
+    out, total = {}, {}
+    for name, (kernels, fn) in runs.items():
+        t0 = time.perf_counter()
+        res, held, got = held_run(kernels, fn)
+        seconds = time.perf_counter() - t0
+        for k in kernels:
+            if got[k] == 0 or len(held[k]) != got[k]:
+                raise AssertionError(f"{name}: {got[k]} {k} launches, {len(held[k])} held calls")
+        curves = ([res.dist2] if name != "decentralized_ridge"
+                  else [d2 for _, d2 in res.values()]) if res is not None else []
+        if not all(np.all(np.isfinite(c)) and len(c) for c in curves):
+            raise AssertionError(f"{name}: a non-finite or empty dist2 curve")
+        out[name] = {"s": seconds, "launches": {k: c for k, c in got.items() if c},
+                     "max_abs_err": {k: max(held[k]) for k in kernels},
+                     "exact": {k: all(held[k].exact) for k in kernels}}
+        if name == "decentralized_ridge":
+            out[name]["final_dist2"] = {m: float(d2[-1]) for m, (_, d2) in res.items()}
+        log("launch", f"example {name}: {json.dumps(out[name])}")
+        for k, c in got.items():
+            total[k] = total.get(k, 0) + c
+    return {"runs": out, "launches": total}
+
+
+def _on_off(name, on, off, tol) -> float:
+    """Hold mode 'on' outputs (a tensor or tuple) to mode 'off' ones."""
+    pairs = zip(on, off) if isinstance(on, tuple) else [(on, off)]
+    err = max(ops.assert_close(a.detach(), b.detach(), tol) for a, b in pairs)
+    log("launch", f"entry {name}: on vs off max abs err {err!r}")
+    return err
+
+
+def launch_entries(device) -> dict:
+    """The six public entry points of the registry, mode 'on' (the CUDA
+    kernel) against 'off' (the plain version) on the same inputs at small
+    shapes, within the registry's tolerance; gradients for flash_attention
+    and ssd_chunk within its gradient tolerance. The SSD's plain side runs
+    in float64, the registry's ``plain_dtype``."""
+    g = torch.Generator(device=device).manual_seed(0)
+
+    def rnd(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=g, device=device) * scale).to(dtype)
+
+    errs = {}
+    spec = ops.get_kernel("flash_attention")
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = rnd(2, 4, 96, 64, dtype=dtype), rnd(2, 2, 96, 64, dtype=dtype), \
+            rnd(2, 2, 96, 64, dtype=dtype)
+        do = rnd(2, 4, 96, 64, dtype=dtype)
+        for kw in (dict(causal=True), dict(causal=False, window=32, softcap=20.0)):
+            outs, grads = {}, {}
+            for mode in ("on", "off"):
+                leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                outs[mode] = ops.flash_attention(*leaves, mode=mode, **kw)
+                grads[mode] = torch.autograd.grad(outs[mode], leaves, do)
+            tag = f"flash_attention {dtype} {kw}"
+            errs[tag] = _on_off(tag, outs["on"], outs["off"], spec.tolerance(dtype))
+            errs[tag + " grad"] = _on_off(tag + " grad", tuple(grads["on"]),
+                                          tuple(grads["off"]), spec.grad_tolerance(dtype))
+    bs, n_pages, lengths = 16, 4, torch.tensor([1, 40, 64], dtype=torch.int32, device=device)
+    pool = (rnd(3 * n_pages + 1, bs, 2, 64, dtype=torch.bfloat16),
+            rnd(3 * n_pages + 1, bs, 2, 64, dtype=torch.bfloat16))
+    table = torch.arange(1, 3 * n_pages + 1, dtype=torch.int32, device=device).reshape(3, -1)
+    dargs = (rnd(3, 8, 64, dtype=torch.bfloat16), *pool, table, lengths)
+    errs["decode_attention"] = _on_off(
+        "decode_attention", ops.decode_attention(*dargs, mode="on", softcap=30.0),
+        ops.decode_attention(*dargs, mode="off", softcap=30.0),
+        ops.get_kernel("decode_attention").tolerance(torch.bfloat16))
+    psi, idx, val, coef, rho = kernel_inputs(10, 1000, 9, torch.float64, device, dups=False)
+    errs["saga_sparse_dot"] = _on_off(
+        "saga_sparse_dot", ops.saga_sparse_dot(psi, idx, val, mode="on"),
+        ops.saga_sparse_dot(psi, idx, val, mode="off"),
+        ops.get_kernel("sparse_dot").tolerance(torch.float64))
+    errs["saga_sparse_axpy"] = _on_off(
+        "saga_sparse_axpy", ops.saga_sparse_axpy(psi, idx, val, coef, rho, mode="on"),
+        ops.saga_sparse_axpy(psi, idx, val, coef, rho, mode="off"),
+        ops.get_kernel("sparse_axpy").tolerance(torch.float64))
+    x = rnd(64, 512)
+    tspec = ops.get_kernel("block_topk")
+    errs["topk_blocks"] = tspec.compare((x, 8), ops.topk_blocks(x, 8, mode="on"),
+                                        ops.topk_blocks(x, 8, mode="off"),
+                                        tspec.tolerance(torch.float32))
+    log("launch", f"entry topk_blocks: on vs off {errs['topk_blocks']!r}")
+    args, cts = ssd_inputs((1, 2, 64, 4, 32, 16), device)
+    sspec = ops.get_kernel("ssd_chunk")
+    outs, grads = {}, {}
+    for mode, dtype in (("on", torch.float32), ("off", torch.float64)):
+        leaves = [t.detach().to(dtype).requires_grad_() for t in args]
+        outs[mode] = ops.ssd_chunk(*leaves, mode=mode)
+        grads[mode] = torch.autograd.grad(outs[mode], leaves, [c.to(dtype) for c in cts])
+    errs["ssd_chunk"] = _on_off("ssd_chunk", outs["on"], outs["off"],
+                                sspec.tolerance(torch.float32))
+    errs["ssd_chunk grad"] = _on_off("ssd_chunk grad", tuple(grads["on"]), tuple(grads["off"]),
+                                     sspec.grad_tolerance(torch.float32))
+    return errs
+
+
+LAUNCH_CELLS = (("minitron-8b", "train_4k"), ("mamba2-1.3b", "long_500k"),
+                ("zamba2-1.2b", "decode_32k"), ("qwen2-moe-a2.7b", "prefill_32k"),
+                ("whisper-small", "train_4k"))
+# the cell that fits the card: minitron-8b cut to 4 layers, train_4k's 256
+# rows cut to 1
+FIT_LAYERS = 4
+FIT_SHAPE = ShapeSpec("train_4k_b1", "train", 4096, 1)
+
+
+def _dry_summary(rec) -> dict:
+    rl = rec["roofline"]
+    return {"tflop": rec["hlo_flops"] / 1e12, "gbytes": rec["hlo_bytes"] / 1e9,
+            "peak_gb": rec["memory"]["peak_bytes"] / 1e9, "fits_one_card": rec["fits_one_card"],
+            "compute_s": rl["compute_s"], "memory_s": rl["memory_s"], "dominant": rl["dominant"],
+            "useful_flop_ratio": rl["useful_flop_ratio"], "count_s": rec["count_s"],
+            "kernels": {op: r["calls"] for op, r in rec["op_table"].items()
+                        if op.startswith("kernel:")}}
+
+
+def launch_dryrun(device) -> dict:
+    """The dry run on this CUDA machine: the five full-config cells on the
+    meta device (no kernel may launch: a kernel wrapper decides by its
+    tensor's device, and these are meta), then the fitting cell both on
+    meta and for real on the card: the counted peak beside
+    ``torch.cuda.max_memory_allocated()``, the argument bytes beside the
+    card's allocation before the step, the counted kernel calls beside the
+    card's launches, the counted FLOPs beside ``model_flops``."""
+    out = {}
+    reset_launches()
+    for arch, shape in LAUNCH_CELLS:
+        rec = dryrun.run_cell(arch, shape)
+        if not rec["ok"]:
+            raise AssertionError(f"dry run {arch} {shape}: {rec['error']}\n{rec['traceback']}")
+        out[f"{arch} {shape}"] = _dry_summary(rec)
+        log("launch", f"dry run {arch} {shape}: {json.dumps(out[f'{arch} {shape}'])}")
+    if any(launches().values()):
+        raise AssertionError(f"the dry run launched kernels: {launches()}")
+    cfg = dataclasses.replace(get_config("minitron-8b"), n_layers=FIT_LAYERS)
+    fn, args = dryrun.build_cell(cfg, FIT_SHAPE, "meta")
+    _, costs = count_step(fn, *args)
+    del fn, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    fn, args = dryrun.build_cell(cfg, FIT_SHAPE, device)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    _, metrics = fn(*args)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak, got = torch.cuda.max_memory_allocated(), launches()
+    loss = float(metrics["loss"])
+    del fn, args, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    counted = {k.removeprefix("kernel:"): r.calls for k, r in costs.table.items()
+               if k.startswith("kernel:")}
+    # flash_attention_bwd launches two kernels a call
+    want = {"flash_attention": counted["flash_attention"],
+            "flash_attention_bwd": 2 * counted["flash_attention_bwd"]}
+    if {k: got[k] for k in want} != want or not math.isfinite(loss):
+        raise AssertionError(f"fitting cell: launches {got}, counted calls {counted}, "
+                             f"loss {loss}")
+    mf = model_flops(cfg, FIT_SHAPE.kind, FIT_SHAPE.batch, FIT_SHAPE.seq)
+    fit = {"arch": "minitron-8b", "layers": FIT_LAYERS, "batch": FIT_SHAPE.batch,
+           "seq": FIT_SHAPE.seq, "meta_peak_gb": costs.peak_bytes / 1e9,
+           "card_peak_gb": peak / 1e9, "card_over_meta_peak": peak / costs.peak_bytes,
+           "meta_argument_gb": costs.argument_bytes / 1e9, "card_before_step_gb": before / 1e9,
+           "counted_tflop": costs.flops / 1e12, "model_tflop": mf / 1e12,
+           "counted_over_model_flops": costs.flops / mf, "step_s": step_s, "loss": loss,
+           "launches": {k: c for k, c in got.items() if c}}
+    log("launch", f"fitting cell: {json.dumps(fit)}")
+    out["fit"] = fit
+    out["launches"] = got
+    return out
+
+
+# a child's build and load of the main path's library, reporting whether
+# nvcc ran
+BUILD_PROBE = ("import json; from repro_torch.kernels import _build; "
+               "cold = not _build._library_path('sparse_saga').exists(); "
+               "_build.load_library('sparse_saga'); "
+               "print(json.dumps({'dir': str(_build.build_dir()), "
+               "'built': ['sparse_saga'] if cold else []}))")
+
+
+def build_cache_check() -> list[dict]:
+    """Two child processes against one private build cache
+    (``REPRO_COMPILE_CACHE_DIR``), each loading the sparse kernels'
+    library: the first builds it, the second builds nothing and loads it."""
+    runs = []
+    with tempfile.TemporaryDirectory() as cache:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), REPRO_COMPILE_CACHE_DIR=cache)
+        env.pop("REPRO_NO_COMPILE_CACHE", None)
+        for _ in range(2):
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-c", BUILD_PROBE], cwd=ROOT, env=env,
+                               capture_output=True, text=True, timeout=600)
+            if r.returncode != 0:
+                raise AssertionError(f"build cache child failed:\n{r.stderr[-4000:]}")
+            runs.append({**json.loads(r.stdout.strip().splitlines()[-1]),
+                         "s": time.perf_counter() - t0,
+                         "libraries": sorted(p.name for p in Path(cache).glob("*.so"))})
+    if (runs[0]["built"] != ["sparse_saga"] or runs[1]["built"]
+            or {r["dir"] for r in runs} != {cache} or len(runs[1]["libraries"]) != 1):
+        raise AssertionError(f"build cache: {runs}")
+    log("launch", f"build cache: {json.dumps(runs)}")
+    return runs
+
+
+def launch_run(device) -> dict:
+    """``chip_smoke.py --launch`` (a fresh process; it runs alone too): the
+    examples, the public entry points, the dry run and the build cache."""
+    t_all = time.perf_counter()
+    log("launch", subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    built = _build.build_all()  # none when the main run built them; all when run alone
+    log("launch", f"{sorted(built)} built in {time.perf_counter() - t_all:.1f} s")
+    out = {}
+    for name, fn in (("examples", lambda: launch_examples(device)),
+                     ("entries", lambda: launch_entries(device)),
+                     ("dryrun", lambda: launch_dryrun(device)),
+                     ("build_cache", build_cache_check)):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        log("launch", f"{name} done in {time.perf_counter() - t0:.1f} s")
+    total = dict(out["examples"]["launches"])
+    for k, c in out["dryrun"]["launches"].items():
+        total[k] = total.get(k, 0) + c
+    out["launches"] = total
+    out["seconds"] = time.perf_counter() - t_all
+    log("launch", f"launches {total}; all done in {out['seconds']:.1f} s")
+    return out
+
+
 def ptxas_report(outputs) -> dict:
     """{kernel<dtype,template ints>: registers, spills, static smem} from
     the nvcc -Xptxas -v output of each library (``_build.build_all``)."""
@@ -4690,12 +5000,10 @@ def time_flash_d256(device) -> dict:
     q, k, v = flash_inputs(b, hq, hkv, s, s, d, torch.bfloat16, device)
     do = flash_inputs(b, hq, hq, s, s, d, torch.bfloat16, device, seed=1)[0]
     o, lse = flash_attention(q, k, v, causal, window, cap, return_lse=True)
-    pairs = b * hq * s * (s + 1) // 2  # causal; the window (4096 > S) keeps every pair
     kw = dict(causal=causal, window=window, softcap=cap)
-    b_f = bound(2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel(),
-                4 * pairs * d, torch.bfloat16)
-    b_b = bound(2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + o.numel() + do.numel())
-                + 4 * lse.numel(), 10 * pairs * d, torch.bfloat16)
+    # causal; the window (4096 > S) keeps every pair
+    b_f = kernel_bound("flash_attention", q, k, v, **kw, dtype=torch.bfloat16)
+    b_b = kernel_bound("flash_attention_bwd", q, k, v, o, lse, do, **kw, dtype=torch.bfloat16)
     fwd = lambda: flash_attention(q, k, v, causal, window, cap)  # noqa: E731
     bwd = lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw)  # noqa: E731
     out = {
@@ -4947,6 +5255,9 @@ def main() -> int:
     t0 = time.perf_counter()
     sweep = profile_subprocess("--sweep")
     log("sweep", f"done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launch = profile_subprocess("--launch")
+    log("launch", f"done in {time.perf_counter() - t0:.1f} s")
 
     total["decode_attention"] = serve_launches["decode_attention"]
     # flash_attention runs on three main paths: the score phase, the train
@@ -4966,11 +5277,13 @@ def main() -> int:
     # the moe and encdec families' serve, score and train paths (--moe,
     # --encdec), llama3-405b's bf16 train steps and the flash stack beside
     # minitron-8b's blockwise prefill (--options), the fault, schedule,
-    # churn and resume paths (--faults) and the batched sweeps at B*N rows
-    # (--sweep)
+    # churn and resume paths (--faults), the batched sweeps at B*N rows
+    # (--sweep), the examples and the dry run's fitting cell on the card
+    # (--launch)
     for name, n in (*hybrid["launches"].items(), *moe["launches"].items(),
                     *encdec["launches"].items(), *options["launches"].items(),
-                    *faults["launches"].items(), *sweep["launches"].items()):
+                    *faults["launches"].items(), *sweep["launches"].items(),
+                    *launch["launches"].items()):
         total[name] += n
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -4992,7 +5305,7 @@ if __name__ == "__main__":
                 "--hybrid": hybrid_run, "--moe": moe_run, "--encdec": encdec_run,
                 "--options": options_run,
                 "--solvers": solvers_run, "--faults": faults_run,
-                "--sweep": sweep_run,
+                "--sweep": sweep_run, "--launch": launch_run,
                 "--topk-profile": topk_profile,
                 "--gossip-profile": lambda dev: gossip_phase(dev, topk_rows=True)[0],
                 "--decode-profile": lambda dev, *a: decode_profile(dev, *map(json.loads, a))}

@@ -56,3 +56,8 @@ def get_config(arch: str):
 def get_reduced(arch: str):
     """The small same-family ``ModelConfig`` of `arch` (CPU tests)."""
     return _module(arch).reduced()
+
+
+def list_archs() -> list[str]:
+    """Every arch id of the registry, in the JAX registry's order."""
+    return list(ARCH_IDS)

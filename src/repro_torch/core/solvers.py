@@ -48,6 +48,7 @@ branches (ROADMAP Queue 1 item 10).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Callable, Mapping
 
@@ -87,6 +88,9 @@ from repro_torch.ft.faults import (  # noqa: F401  (re-exported)
 )
 
 COMM_BACKENDS = ("dense", "sparse", "sharded")
+# SSDA ridge: above this many bytes of d x d factors (all nodes) a node's
+# grad f* goes through its q x q Woodbury factor (``_ssda_conj_grad``)
+SSDA_DENSE_BYTES = 8 << 30
 _NOT_PORTED = {
     "sharded": "comm='sharded' is not ported yet (ROADMAP Queue 1 item 10)",
 }
@@ -2142,7 +2146,10 @@ def _ssda_conj_grad(problem: Problem, data, inner_newton: int):
     ``data``.
 
     Ridge solves ``(A^T A / q + lam I) x = s + A^T y / q`` with a Cholesky
-    factor per node. Logistic inverts grad f_n by ``inner_newton`` Newton
+    factor per node: of the d x d matrix, or, when a node has fewer rows
+    than columns and the N d x d factors would take more than
+    ``SSDA_DENSE_BYTES``, of the q x q ``q lam I + A A^T`` through the
+    Woodbury identity (the same solve, rounded differently). Logistic inverts grad f_n by ``inner_newton`` Newton
     steps from 0 with the closed-form Jacobian
     ``A^T diag(g'(u)) A / q + lam I`` (the JAX package's ``jacfwd`` of the
     same map). The step and the read-out share the factorization; lam is
@@ -2154,11 +2161,25 @@ def _ssda_conj_grad(problem: Problem, data, inner_newton: int):
         return data.derived[key]
     feats, labels = _dense_setup(problem, data)
     n, q, d = feats.shape
-    eye = torch.eye(d, dtype=feats.dtype, device=feats.device)
+    eye = functools.partial(torch.eye, dtype=feats.dtype, device=feats.device)
 
-    if spec.kind == "ridge":
+    if spec.kind == "ridge" and q < d and n * d * d * feats.element_size() > SSDA_DENSE_BYTES:
+        # Woodbury: (A^T A / q + lam I)^-1 = (I - A^T (q lam I + A A^T)^-1 A) / lam,
+        # a q x q factor a node where the d x d ones would not fit the card
+        # (rcv1, d = 47,236: 17.8 GB a node)
+        chol = torch.linalg.cholesky(torch.einsum("nqd,npd->nqp", feats, feats)
+                                     + q * lam * eye(q)[None])
+        rhs0 = torch.einsum("nqd,nq->nd", feats, labels) / q
+
+        def conj_grad(S):
+            v = S + rhs0
+            w = torch.cholesky_solve(torch.einsum("nqd,...nd->...nq", feats, v)[..., None],
+                                     chol)[..., 0]
+            return (v - torch.einsum("nqd,...nq->...nd", feats, w)) / lam
+
+    elif spec.kind == "ridge":
         gram = torch.einsum("nqd,nqe->nde", feats, feats) / q
-        chol = torch.linalg.cholesky(gram + lam * eye[None])
+        chol = torch.linalg.cholesky(gram + lam * eye(d)[None])
         rhs0 = torch.einsum("nqd,nq->nd", feats, labels) / q
 
         def conj_grad(S):
@@ -2178,7 +2199,7 @@ def _ssda_conj_grad(problem: Problem, data, inner_newton: int):
                 # solve_ex: no host sync on the card (the systems are
                 # positive definite)
                 x = x - torch.linalg.solve_ex(
-                    jac + lam * eye, (gn - S)[..., None]
+                    jac + lam * eye(d), (gn - S)[..., None]
                 )[0][..., 0]
             return x
 

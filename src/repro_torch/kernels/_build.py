@@ -3,7 +3,8 @@
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface; no PyTorch headers are included, so a
 build takes seconds; ``build_all`` starts one ``nvcc`` per source at once.
-Libraries go into ``kernels/build/`` (listed in
+Libraries go into ``BUILD_DIR``, the persistent build cache of
+``launch.compile_cache`` (``kernels/build/`` by default, listed in
 ``.gitignore``), named by a hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is. Nothing here
@@ -22,8 +23,9 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from repro_torch.launch import compile_cache
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent / "build"
 # -Xptxas -v: ptxas reports each kernel's registers, spills and static
 # shared memory; build_all returns that report (chip_smoke.py logs it)
 NVCC_FLAGS = (
@@ -106,17 +108,30 @@ def nvcc_path() -> str:
     )
 
 
+def build_dir() -> Path:
+    """The directory libraries are built into and loaded from
+    (``launch.compile_cache.build_dir``)."""
+    return compile_cache.build_dir()
+
+
+def __getattr__(name: str):
+    """``BUILD_DIR``: ``build_dir()``, resolved at each use (PEP 562)."""
+    if name == "BUILD_DIR":
+        return build_dir()
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 def _library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))  # shared by sources
     digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    return build_dir() / f"lib{name}_{digest}.so"
 
 
 def _start(name: str):
     """Start nvcc on ``csrc/<name>.cu``; (output path, temp path, process)."""
     out = _library_path(name)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)

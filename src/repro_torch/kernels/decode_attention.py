@@ -203,3 +203,38 @@ def decode_attention(q, k_pool, v_pool, table, lengths, window=None, softcap=Non
 
 
 decode_attention.launches = 0
+
+
+def _live_positions(table, lengths, block_size, window) -> int:
+    """Positions a call reads, summed over the batch: each row's length
+    (capped by the window); on meta tensors, which hold no lengths, what
+    the table can address (``n_pages * block_size`` a row)."""
+    if lengths.is_meta:
+        per_row = table.shape[1] * block_size
+        return lengths.shape[0] * (per_row if window is None else min(per_row, window))
+    lens = lengths.long().clamp(min=0)
+    if window is not None:
+        lens = lens.clamp(max=window)
+    return int(lens.sum())
+
+
+def decode_attention_cost(q, k_pool, v_pool, table, lengths, window=None,
+                          softcap=None) -> tuple[int, int]:
+    """(operations, bytes) of a call: two products of each query head over
+    its row's live positions, 2 operations a multiply-add; q read and out
+    written once, each live position's K and V read once, the table and
+    lengths read once (bytes)."""
+    B, Hq, D = q.shape
+    live = _live_positions(table, lengths, k_pool.shape[1], window)
+    esize = k_pool.element_size()
+    return (4 * Hq * D * live,
+            2 * q.numel() * esize + 2 * live * k_pool.shape[2] * D * esize
+            + 4 * (table.numel() + B))
+
+
+def decode_attention_meta(q, k_pool, v_pool, table, lengths, window=None, softcap=None):
+    """``decode_attention``'s output as an empty tensor (the dry run's stand-in)."""
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    _check_inputs(q, k_pool, v_pool, table, lengths)
+    return torch.empty_like(q)

@@ -53,6 +53,7 @@ from __future__ import annotations
 import functools
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -229,14 +230,22 @@ def _forward(q, k, v, causal, window, softcap, return_lse):
     return (o, lse) if return_lse else o
 
 
+def _meta_forward(q):
+    """The forward's outputs (o, lse) as empty tensors on q's device."""
+    B, Hq, S, _ = q.shape
+    return torch.empty_like(q), torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+
+
 class FlashAttention(torch.autograd.Function):
     """Differentiable attention: the forward kernel saving (q, k, v, o, lse),
-    the backward through the registry's ``flash_attention_bwd``."""
+    the backward through the registry's ``flash_attention_bwd``. With
+    `meta` (``flash_attention_meta`` alone passes it) the forward makes
+    empty outputs instead of launching."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap):
+    def forward(ctx, q, k, v, causal, window, softcap, meta=False):
         """(o, lse); saves (q, k, v, o, lse) for the backward."""
-        o, lse = _forward(q, k, v, causal, window, softcap, True)
+        o, lse = _meta_forward(q) if meta else _forward(q, k, v, causal, window, softcap, True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.statics = dict(causal=causal, window=window, softcap=softcap)
         ctx.mark_non_differentiable(lse)
@@ -250,7 +259,7 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = ops.dispatch("flash_attention_bwd", q, k, v, o, lse, do.contiguous(),
                                   **ctx.statics)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, causal=True, window=None, softcap=None, return_lse=False):
@@ -258,7 +267,7 @@ def flash_attention(q, k, v, causal=True, window=None, softcap=None, return_lse=
     (through ``FlashAttention``) when a gradient is needed."""
     _check_window(window)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        o, lse = FlashAttention.apply(q, k, v, causal, window, softcap)
+        o, lse = FlashAttention.apply(q, k, v, causal, window, softcap, False)
         return (o, lse) if return_lse else o
     return _forward(q, k, v, causal, window, softcap, return_lse)
 
@@ -291,3 +300,63 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=None, softcap=N
 
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the dry run's stand-ins (``KernelSpec.meta``) and the work each call does
+# (``KernelSpec.cost``): the counts behind chip_smoke.py's bounds
+# ---------------------------------------------------------------------------
+
+def attention_pairs(B, Hq, S, Sk, causal=True, window=None) -> int:
+    """(query, key) pairs the mask keeps, positions from 0 on both axes
+    (``ref.attention_scores``): key j for query i when j <= i (causal) and
+    i - j < window."""
+    i = np.arange(S, dtype=np.int64)
+    hi = np.minimum(i, Sk - 1) if causal else np.full(S, Sk - 1, dtype=np.int64)
+    lo = np.maximum(i - window + 1, 0) if window is not None else 0
+    return B * Hq * int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def flash_attention_cost(q, k, v, causal=True, window=None, softcap=None,
+                         return_lse=False) -> tuple[int, int]:
+    """(operations, bytes) of a forward call: two products over the kept
+    pairs (scores, then P V), 2 operations a multiply-add; q, k, v read
+    once, o and the float32 lse written once (the kernel always writes lse)."""
+    B, Hq, S, D = q.shape
+    pairs = attention_pairs(B, Hq, S, k.shape[2], causal, window)
+    return (4 * pairs * D,
+            q.element_size() * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * Hq * S)
+
+
+def flash_attention_bwd_cost(q, k, v, o, lse, do, causal=True, window=None,
+                             softcap=None) -> tuple[int, int]:
+    """(operations, bytes) of a backward call: five products over the kept
+    pairs (s, dp, dq, dk, dv); q, k, v, o, do and lse read once, dq, dk and
+    dv written once."""
+    B, Hq, S, D = q.shape
+    pairs = attention_pairs(B, Hq, S, k.shape[2], causal, window)
+    esize = q.element_size()
+    return (10 * pairs * D,
+            esize * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + o.numel() + do.numel())
+            + 4 * lse.numel())
+
+
+def flash_attention_meta(q, k, v, causal=True, window=None, softcap=None, return_lse=False):
+    """``flash_attention``'s outputs as empty tensors of the kernel's shapes
+    and dtypes (the dry run's stand-in, on meta tensors); differentiable as
+    ``flash_attention`` is, through ``FlashAttention``, whose backward goes
+    through the registry."""
+    _check_window(window)
+    _check_inputs(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        o, lse = FlashAttention.apply(q, k, v, causal, window, softcap, True)
+    else:
+        o, lse = _meta_forward(q)
+    return (o, lse) if return_lse else o
+
+
+def flash_attention_bwd_meta(q, k, v, o, lse, do, causal=True, window=None, softcap=None):
+    """``flash_attention_bwd``'s (dq, dk, dv) as empty tensors."""
+    _check_window(window)
+    _check_bwd_inputs(q, k, v, o, lse, do)
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

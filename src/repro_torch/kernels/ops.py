@@ -6,11 +6,23 @@ an optional comparator. ``dispatch`` resolves a mode to one of the two and
 calls it; ``parity_check`` runs a kernel and its plain version on the same
 inputs and asserts agreement within the declared tolerance.
 
-Modes:
+Modes (``resolve_mode`` names what each runs on a device):
   auto  the kernel for a CUDA tensor, the plain version for a CPU tensor
   on    the kernel; a CPU tensor raises (there is no interpreter on a GPU,
         so Pallas' ``interpret`` mode has no counterpart)
   off   the plain version
+
+The dry run (``launch.dryrun``): on meta tensors, which hold shapes and no
+data, ``auto`` and ``on`` return the spec's ``meta`` (empty outputs of the
+kernel's shapes and dtypes; differentiable where the kernel is, so a
+backward kernel is reached through the registry as on the card) and report
+the spec's ``cost`` (operations, bytes) to every open ``kernel_costs``
+sink; ``off`` runs the plain version on them as torch ops. The costs are
+the counts behind ``chip_smoke.py``'s bounds.
+
+Public entry points, the counterparts of the JAX package's jitted
+wrappers: ``flash_attention``, ``decode_attention``, ``ssd_chunk``,
+``saga_sparse_dot``, ``saga_sparse_axpy`` and ``topk_blocks``.
 
 dtype policy: the kernels compute in the input dtype. The JAX package's
 compiled TPU kernels accumulate in float32 (``ops._resolve_compute_dtype``);
@@ -46,14 +58,35 @@ from typing import Callable
 
 import torch
 
+from repro_torch.kernels import decode_attention as _DA
+from repro_torch.kernels import flash_attention as _FA
 from repro_torch.kernels import ref as R
-from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
-from repro_torch.kernels.sparse_saga import sparse_axpy, sparse_dot
+from repro_torch.kernels import sparse_saga as _SS
 from repro_torch.kernels import ssd_scan as SSD
-from repro_torch.kernels.topk_compress import block_topk
+from repro_torch.kernels import topk_compress as _TK
 
 MODES = ("auto", "on", "off")
+_DEVICES = ("cpu", "cuda", "meta")
+
+
+def resolve_mode(mode: str, device) -> str:
+    """What `mode` runs on `device`: ``"cuda"`` (the hand kernel; on the
+    meta device, the dry run's stand-in for it) or ``"ref"`` (the plain
+    version). The counterpart of ``repro.kernels.ops.resolve_mode``, whose
+    ``pallas`` is ``cuda`` here; its ``interpret`` raises: the card has no
+    interpreter for a CUDA kernel. ``on`` names the kernel on any device
+    (``dispatch`` then refuses a CPU tensor)."""
+    if mode == "interpret":
+        raise ValueError("mode='interpret' has no counterpart: the card has no interpreter "
+                         "for a CUDA kernel; use 'off' for the plain version")
+    if mode not in MODES:
+        raise ValueError(f"mode={mode!r} not in {MODES}")
+    dev = torch.device(device).type
+    if dev not in _DEVICES:
+        raise ValueError(f"unsupported device {device}: one of {_DEVICES}")
+    if mode == "off" or (mode == "auto" and dev == "cpu"):
+        return "ref"
+    return "cuda"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +115,10 @@ class KernelSpec:
     kernel: the wrapper (launches the CUDA kernel on CUDA tensors).
     ref: the plain PyTorch version with the same positional surface.
     tol: {dtype name: Tolerance}; a missing dtype falls back to float32's.
+    meta: the same surface; empty outputs of the kernel's shapes and dtypes
+        (the dry run's stand-in on meta tensors).
+    cost: the same surface -> (operations, bytes) of the call: each input
+        read once, each output written once (``chip_smoke.py``'s bounds).
     compare: optional (args, got, want, tol) -> max_err comparator for
         outputs that match by another rule than elementwise.
     grad_tol: {dtype name: Tolerance} for gradients through the kernel;
@@ -94,6 +131,8 @@ class KernelSpec:
     kernel: Callable
     ref: Callable
     tol: dict[str, Tolerance]
+    meta: Callable
+    cost: Callable
     compare: Callable | None = None
     grad_tol: dict[str, Tolerance] | None = None
     plain_dtype: torch.dtype | None = None
@@ -191,8 +230,37 @@ def held_to_plain(name: str):
         del _HELD[name]
 
 
+# the open kernel_costs sinks: each takes (name, operations, bytes)
+_COST_SINKS: list[Callable[[str, int, int], None]] = []
+
+
+@contextlib.contextmanager
+def kernel_costs(sink: Callable[[str, int, int], None]):
+    """While open, every kernel call that ``dispatch`` answers with the
+    spec's ``meta`` (meta tensors, modes auto and on) reports
+    ``sink(name, operations, bytes)`` from the spec's ``cost``."""
+    _COST_SINKS.append(sink)
+    try:
+        yield
+    finally:
+        _COST_SINKS.remove(sink)
+
+
+def _meta_call(spec: KernelSpec, mode: str, args, kwargs):
+    """The dry run's kernel call: costs to the open sinks, empty outputs."""
+    if mode not in MODES:
+        raise ValueError(f"mode={mode!r} not in {MODES}")
+    if _COST_SINKS:
+        ops_, bytes_ = spec.cost(*args, **kwargs)
+        for sink in _COST_SINKS:
+            sink(spec.name, ops_, bytes_)
+    return spec.meta(*args, **kwargs)
+
+
 def dispatch(name: str, *args, mode: str = "auto", **kwargs):
     """Run kernel `name` on `args` (and keyword options) under `mode`."""
+    if args[0].is_meta and mode != "off":  # the dry run; every first argument is a tensor
+        return _meta_call(_REGISTRY[name], mode, args, kwargs)
     if mode == "auto" and not _HELD:  # the wrapper, which picks plain or kernel itself
         return _REGISTRY[name].kernel(*args, **kwargs)
     fn = _resolve(name, mode, *args)
@@ -333,15 +401,19 @@ def _compare(spec: KernelSpec, args, got, want) -> float:
 
 register_kernel(KernelSpec(
     name="sparse_dot",
-    kernel=sparse_dot,
+    kernel=_SS.sparse_dot,
     ref=R.sparse_dot_ref,
+    meta=_SS.sparse_dot_meta,
+    cost=_SS.sparse_dot_cost,
     tol={"float32": Tolerance(1e-5, 1e-5), "float64": Tolerance(1e-12, 1e-12)},
 ))
 
 register_kernel(KernelSpec(
     name="sparse_axpy",
-    kernel=sparse_axpy,
+    kernel=_SS.sparse_axpy,
     ref=R.sparse_axpy_ref,
+    meta=_SS.sparse_axpy_meta,
+    cost=_SS.sparse_axpy_cost,
     # the CUDA kernel rounds every product and sum explicitly (no FMA) and
     # folds duplicates in k order, so f64 is bit-exact for any rho
     tol={"float32": Tolerance(1e-5, 1e-5), "float64": Tolerance(0.0, 0.0)},
@@ -349,16 +421,20 @@ register_kernel(KernelSpec(
 
 register_kernel(KernelSpec(
     name="flash_attention",
-    kernel=flash_attention,
+    kernel=_FA.flash_attention,
     ref=R.attention_ref,
+    meta=_FA.flash_attention_meta,
+    cost=_FA.flash_attention_cost,
     tol={"float32": _F32_TOL, "bfloat16": _BF16_TOL},
     grad_tol={"float32": _F32_GRAD_TOL, "bfloat16": _BF16_GRAD_TOL},
 ))
 
 register_kernel(KernelSpec(
     name="flash_attention_bwd",
-    kernel=flash_attention_bwd,
+    kernel=_FA.flash_attention_bwd,
     ref=R.flash_attention_bwd_ref,
+    meta=_FA.flash_attention_bwd_meta,
+    cost=_FA.flash_attention_bwd_cost,
     # its outputs are gradients: the grad bars, elementwise and by norm
     tol={"float32": _F32_GRAD_TOL, "bfloat16": _BF16_GRAD_TOL},
     compare=_grad_compare(("dq", "dk", "dv")),
@@ -366,15 +442,19 @@ register_kernel(KernelSpec(
 
 register_kernel(KernelSpec(
     name="decode_attention",
-    kernel=decode_attention,
+    kernel=_DA.decode_attention,
     ref=R.decode_attention_ref,
+    meta=_DA.decode_attention_meta,
+    cost=_DA.decode_attention_cost,
     tol={"float32": _F32_TOL, "bfloat16": _BF16_TOL},
 ))
 
 register_kernel(KernelSpec(
     name="block_topk",
-    kernel=block_topk,
+    kernel=_TK.block_topk,
     ref=R.block_topk_ref,
+    meta=_TK.block_topk_meta,
+    cost=_TK.block_topk_cost,
     tol={"float32": Tolerance(1e-6, 1e-6)},
     compare=_topk_compare,
 ))
@@ -384,6 +464,8 @@ register_kernel(KernelSpec(
     name="ssd_chunk",
     kernel=SSD.ssd_chunk,
     ref=R.ssd_chunk_ref,
+    meta=SSD.ssd_chunk_meta,
+    cost=SSD.ssd_chunk_cost,
     tol={"float32": _F32_TOL, "bfloat16": _BF16_TOL},
     # models/ssm.py always feeds float32: no bf16 gradient bar (as in JAX)
     grad_tol={"float32": _F32_GRAD_TOL},
@@ -394,11 +476,53 @@ register_kernel(KernelSpec(
     name="ssd_chunk_bwd",
     kernel=SSD.ssd_chunk_bwd,
     ref=R.ssd_chunk_bwd_ref,
+    meta=SSD.ssd_chunk_bwd_meta,
+    cost=SSD.ssd_chunk_bwd_cost,
     # its outputs are gradients: the grad bar, elementwise and by norm
     tol={"float32": _F32_GRAD_TOL},
     compare=_grad_compare(("dxdt", "dcum", "dB", "dC")),
     plain_dtype=torch.float64,
 ))
+
+
+# ---------------------------------------------------------------------------
+# public entry points (the JAX package's jitted wrappers; `mode` is its
+# `use_pallas`, without 'interpret')
+# ---------------------------------------------------------------------------
+
+def flash_attention(q, k, v, *, causal=True, window=None, softcap=None, mode: str = "auto"):
+    """Registry-dispatched attention, o (B, Hq, S, D) of q (B, Hq, S, D) and
+    k, v (B, Hkv, Sk, D); differentiable in every mode (the
+    ``FlashAttention`` Function, its backward through the registry's
+    ``flash_attention_bwd``, or autograd through the plain version under
+    'off')."""
+    return dispatch("flash_attention", q, k, v, causal=causal, window=window, softcap=softcap,
+                    mode=mode)
+
+
+def decode_attention(q, k_pool, v_pool, table, lengths, *, window=None, softcap=None,
+                     mode: str = "auto"):
+    """Registry-dispatched paged single-query decode attention (the serving
+    hot path; ``ModelConfig.decode_kernel`` picks the mode): (B, Hq, D)."""
+    return dispatch("decode_attention", q, k_pool, v_pool, table, lengths, window=window,
+                    softcap=softcap, mode=mode)
+
+
+def saga_sparse_dot(psi, idx, val, *, mode: str = "auto"):
+    """Registry-dispatched per-node sparse dot (DSBA step, eq. 30 input): (N,)."""
+    return dispatch("sparse_dot", psi, idx, val, mode=mode)
+
+
+def saga_sparse_axpy(psi, idx, val, coef, rho, *, mode: str = "auto", compute_dtype=None,
+                     node_block: int = 1):
+    """Registry-dispatched sparse AXPY row update (the DSBA-s relay's
+    densification hot path): (N, D). `compute_dtype` and `node_block` are
+    the JAX adapter's (its TPU kernel accumulates in float32 and blocks
+    nodes on its grid); the CUDA kernel computes in psi's dtype (the card
+    has native float64) and takes one node a grid row, so they have no
+    effect."""
+    del compute_dtype, node_block
+    return dispatch("sparse_axpy", psi, idx, val, coef, rho, mode=mode)
 
 
 def ssd_chunk(xdt, cum, Bc, Cc, *, mode: str = "auto", head_block=None):

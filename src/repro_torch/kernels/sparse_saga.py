@@ -144,3 +144,43 @@ def sparse_axpy(
 
 
 sparse_axpy.launches = 0
+
+
+# the dry run's stand-ins (``KernelSpec.meta``) and the work of a call
+# (``KernelSpec.cost``): each input read once, each output written once
+
+
+def sparse_dot_cost(psi, idx, val) -> tuple[int, int]:
+    """(operations, bytes): a multiply-add an entry; the distinct (row,
+    column) entries of psi it gathers (every entry on meta tensors, which
+    hold no indices), idx and val read once, out written once."""
+    n, d = psi.shape
+    k = idx.shape[1]
+    if idx.is_meta:
+        gathered = n * k
+    else:
+        rows = torch.arange(n, device=idx.device)[:, None] * d
+        gathered = int(torch.unique(rows + idx.long()).numel())
+    esize = psi.element_size()
+    return 2 * n * k, gathered * esize + n * k * (4 + esize) + n * esize
+
+
+def sparse_axpy_cost(psi, idx, val, coef, rho) -> tuple[int, int]:
+    """(operations, bytes): a scale an element of psi and a multiply-add an
+    entry; psi read and out written once, idx, val, coef and rho read once."""
+    n, d = psi.shape
+    k = idx.shape[1]
+    esize = psi.element_size()
+    return n * d + 2 * n * k, 2 * n * d * esize + n * k * (4 + esize) + 2 * n * esize
+
+
+def sparse_dot_meta(psi, idx, val):
+    """``sparse_dot``'s output as an empty tensor."""
+    n, _, _ = _check_inputs(psi, idx, val)
+    return torch.empty((n,), dtype=psi.dtype, device=psi.device)
+
+
+def sparse_axpy_meta(psi, idx, val, coef, rho):
+    """``sparse_axpy``'s output as an empty tensor."""
+    _check_inputs(psi, idx, val, (("coef", coef), ("rho", rho)))
+    return torch.empty_like(psi)

@@ -259,15 +259,24 @@ def ssd_chunk_bwd(xdt, cum, Bc, Cc, dy, dst):
     return tuple(outs)
 
 
+def _meta_forward(xdt, Bc):
+    """The forward's outputs (y, states) as empty tensors on xdt's device."""
+    B, nc, _, nh, hd = xdt.shape
+    return (torch.empty_like(xdt),
+            torch.empty((B, nc, nh, Bc.shape[-1], hd), dtype=torch.float32, device=xdt.device))
+
+
 class SsdChunk(torch.autograd.Function):
     """Differentiable within-chunk SSD: the forward kernel saving only
-    (xdt, cum, Bc, Cc), the backward through the registry's ``ssd_chunk_bwd``."""
+    (xdt, cum, Bc, Cc), the backward through the registry's ``ssd_chunk_bwd``.
+    With `meta` (``ssd_chunk_meta`` alone passes it) the forward makes empty
+    outputs instead of launching."""
 
     @staticmethod
-    def forward(ctx, xdt, cum, Bc, Cc):
+    def forward(ctx, xdt, cum, Bc, Cc, meta=False):
         """(y_intra, states); saves the inputs alone."""
         ctx.save_for_backward(xdt, cum, Bc, Cc)
-        return ssd_chunk_fwd(xdt, cum, Bc, Cc)
+        return _meta_forward(xdt, Bc) if meta else ssd_chunk_fwd(xdt, cum, Bc, Cc)
 
     @staticmethod
     def backward(ctx, dy, dst):
@@ -276,17 +285,67 @@ class SsdChunk(torch.autograd.Function):
 
         xdt, cum, Bc, Cc = ctx.saved_tensors
         # an output unused downstream arrives as zeros (materialized grads)
-        return ops.dispatch("ssd_chunk_bwd", xdt, cum, Bc, Cc, dy.contiguous(),
-                            dst.contiguous())
+        return (*ops.dispatch("ssd_chunk_bwd", xdt, cum, Bc, Cc, dy.contiguous(),
+                              dst.contiguous()), None)
 
 
 def ssd_chunk(xdt, cum, Bc, Cc):
     """(y_intra, chunk states); differentiable (through ``SsdChunk``) when a
     gradient is needed."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (xdt, cum, Bc, Cc)):
-        return SsdChunk.apply(xdt, cum, Bc, Cc)
+        return SsdChunk.apply(xdt, cum, Bc, Cc, False)
     return ssd_chunk_fwd(xdt, cum, Bc, Cc)
 
 
 ssd_chunk_fwd.launches = 0
 ssd_chunk_bwd.launches = 0
+
+
+# the dry run's stand-ins (``KernelSpec.meta``) and the work of a call
+# (``KernelSpec.cost``)
+
+
+def _ssd_counts(xdt, Bc) -> tuple[int, int, int, int, int, int, int]:
+    """(chunks B nc, causal pairs a chunk, Q, nh, hd, ds, bytes an element)."""
+    B, nc, Q, nh, hd = xdt.shape
+    return B * nc, Q * (Q + 1) // 2, Q, nh, hd, Bc.shape[-1], xdt.element_size()
+
+
+def ssd_chunk_cost(xdt, cum, Bc, Cc) -> tuple[int, int]:
+    """(operations, bytes) of a forward call. Operations of the float32
+    products over the causal pairs i >= j the function needs: the scores
+    (2 ds a pair), per head 2 hd a pair for y and 2 Q ds hd for the chunk
+    state. Bytes: xdt, cum, Bc, Cc read once, y and the states written once.
+    (The kernels run each product as three TF32 products: chip_smoke.py's
+    bound counts 3x these operations at the TF32 rate.)"""
+    bc, pairs, Q, nh, hd, ds, e = _ssd_counts(xdt, Bc)
+    x, c, bcd, st = bc * Q * nh * hd, bc * Q * nh, bc * Q * ds, bc * nh * ds * hd
+    return (bc * (pairs * 2 * ds + nh * (pairs * 2 * hd + 2 * Q * ds * hd)),
+            e * (x + c + 2 * bcd + x + st))
+
+
+def ssd_chunk_bwd_cost(xdt, cum, Bc, Cc, dy, dst) -> tuple[int, int]:
+    """(operations, bytes) of a backward call: the scores again (2 ds a
+    pair) and dscores -> dB, dC (4 ds a pair), per head 2 hd a pair for dM
+    and for dxdt and 2 Q ds hd for each of the state's two gradient terms.
+    Bytes: the four inputs and two cotangents read once, the four gradients
+    written once."""
+    bc, pairs, Q, nh, hd, ds, e = _ssd_counts(xdt, Bc)
+    x, c, bcd, st = bc * Q * nh * hd, bc * Q * nh, bc * Q * ds, bc * nh * ds * hd
+    return (bc * (3 * pairs * 2 * ds + nh * (2 * pairs * 2 * hd + 2 * 2 * Q * ds * hd)),
+            e * (x + c + 2 * bcd + x + st + x + c + 2 * bcd))
+
+
+def ssd_chunk_meta(xdt, cum, Bc, Cc):
+    """``ssd_chunk``'s (y_intra, states) as empty tensors (the dry run's
+    stand-in); differentiable as ``ssd_chunk`` is, through ``SsdChunk``."""
+    _check_inputs(xdt, cum, Bc, Cc)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (xdt, cum, Bc, Cc)):
+        return SsdChunk.apply(xdt, cum, Bc, Cc, True)
+    return _meta_forward(xdt, Bc)
+
+
+def ssd_chunk_bwd_meta(xdt, cum, Bc, Cc, dy, dst):
+    """``ssd_chunk_bwd``'s (dxdt, dcum, dB, dC) as empty tensors."""
+    _check_inputs(xdt, cum, Bc, Cc)
+    return tuple(torch.empty_like(t) for t in (xdt, cum, Bc, Cc))

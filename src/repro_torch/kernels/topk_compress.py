@@ -169,3 +169,17 @@ def block_topk(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 block_topk.launches = 0
+
+
+def block_topk_cost(x, k) -> tuple[int, int]:
+    """(operations, bytes): one comparison an element, the least work a
+    selection does; x read once, vals and idx written once."""
+    nb, block = x.shape
+    return nb * block, 4 * nb * block + 8 * nb * k
+
+
+def block_topk_meta(x, k):
+    """``block_topk``'s (vals, idx) as empty tensors."""
+    nb, _ = _check_inputs(x, k)
+    return (torch.empty((nb, k), dtype=torch.float32, device=x.device),
+            torch.empty((nb, k), dtype=torch.int32, device=x.device))

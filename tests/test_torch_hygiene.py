@@ -23,7 +23,12 @@ new = {"repro_torch.data.sharded_loader", "repro_torch.optim.adam", "repro_torch
        "repro_torch.configs.gemma2_2b", "repro_torch.examples.train_lm_gossip",
        "repro_torch.models.ssm", "repro_torch.kernels.ssd_scan",
        "repro_torch.configs.mamba2_1p3b", "repro_torch.core.baselines",
-       "repro_torch.core.deprecation", "repro_torch.ft.faults"}
+       "repro_torch.core.deprecation", "repro_torch.ft.faults",
+       "repro_torch.examples.quickstart", "repro_torch.examples.decentralized_ridge",
+       "repro_torch.examples.auc_maximization", "repro_torch.examples.serve_decode",
+       "repro_torch.launch.shapes", "repro_torch.launch.cost_analysis",
+       "repro_torch.launch.dryrun", "repro_torch.launch.reanalyze",
+       "repro_torch.launch.compile_cache"}
 assert new <= set(mods), sorted(new - set(mods))
 print("ok", len(mods))
 """
