@@ -352,6 +352,23 @@ printed with its seconds:
    first builds the sparse kernels' library, the second builds nothing.
    Its launches (the examples' and the fitting cell's) join the kernels
    line.
+27. sharded -- in a fresh process (``chip_smoke.py --sharded``; it runs
+   alone too): ``solve(comm="sharded")`` with N = 10 ranks (worker
+   processes of ``launch.mesh.make_node_mesh``, one gloo group) sharing
+   the card at the rcv1 Section-7 setup (ridge): DSBA and DSA 100 steps,
+   twice each (the ranks bind their runner in the first), held to the
+   dense run on the card (1e-12) and to the CPU (1e-10), DOUBLEs equal;
+   a DSBA link-fault run (p = 0.2, 30 steps) held to the dense fault run
+   (1e-12, the faults record equal, the counted exchanges the fault-free
+   run's). Every rank launches ``expected_launches`` (init included) and
+   the parent none. It logs the edge colouring, the collectives record,
+   wall and per-rank loop ms a step beside the dense step's, the
+   exchange's share of a rank's loop (and the host-staging copies'),
+   each rank's peak bytes, the processes on the card and its memory in
+   use; closes the mesh and checks that no worker
+   outlived it; then asks gloo to send a CUDA tensor on a mesh of 2 ranks
+   of its own and logs what happens. The launches, summed over the ranks,
+   join the kernels line.
 Before phase 9, flash_attention_bwd is held to its plain version at the
 train shape and at ragged small shapes (every head dim, GQA, MQA, window,
 softcap), bf16 and f32 (bars 5e-2, 2e-4); its times come from the
@@ -5060,6 +5077,194 @@ def attention_profile(device) -> dict:
             "flash_attention_bwd": time_flash_bwd(device), "d256": time_flash_d256(device)}
 
 
+# ---------------------------------------------------------------------------
+# phase 27: comm="sharded", one rank a graph node on the card (--sharded)
+# ---------------------------------------------------------------------------
+
+SHARDED_STEPS = 100
+SHARDED_LINK_STEPS = 30
+SHARDED_TOL = 1e-12  # sharded vs dense on one device: the reference's bar
+
+
+def gloo_cuda_probe(me, peer):
+    """On a rank: exchange a CUDA tensor with ``peer`` through gloo directly,
+    without the host staging ``ShardedComm`` does; what it received."""
+    import torch.distributed as dist
+
+    x = torch.full((4,), float(me.rank), dtype=torch.float64, device=me.device)
+    got = torch.empty_like(x)
+    for w in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, peer),
+                                     dist.P2POp(dist.irecv, got, peer)]):
+        w.wait()
+    return float(got[0])
+
+
+def gloo_cuda_answer(device) -> str:
+    """What gloo does with a CUDA tensor, on a mesh of 2 ranks of its own
+    (a rank gloo aborts takes its mesh down with it)."""
+    from repro_torch.launch.mesh import NodeMesh
+
+    mesh = NodeMesh(2, device)
+    try:
+        got = mesh.run(gloo_cuda_probe, [1, 0])
+    except RuntimeError as e:  # the probe's finding, logged; the mesh is closed
+        lines = [ln.strip() for ln in str(e).splitlines() if ln.strip()]
+        return f"{lines[0]} {lines[-1][:300]}"  # which rank, and its exception
+    finally:
+        mesh.close()
+    return f"delivered {got} (expected [1.0, 0.0])"
+
+
+def _rank_summary(res, steps) -> dict:
+    """A sharded run's per-rank costs: loop ms a step, exchange share, peak
+    bytes, summed launches."""
+    ranks = res.extras["ranks"]
+    loop = [r["loop_s"] for r in ranks]
+    share = [r["exchange_s"] / r["loop_s"] for r in ranks]
+    staging = [r["staging_s"] / r["loop_s"] for r in ranks]
+    launched: dict[str, int] = {}
+    for r in ranks:
+        for k_, c in r["launches"].items():
+            launched[k_] = launched.get(k_, 0) + c
+    return {
+        "wall_ms_per_step": 1e3 * res.wall_time / steps,
+        "rank_loop_ms_per_step": [1e3 * s / steps for s in loop],
+        "exchange_share": share,
+        "staging_share": staging,
+        "peak_bytes": [r["peak_bytes"] for r in ranks],
+        "sent_bytes_per_step": [r["sent_bytes"] / steps for r in ranks],
+        "launches": launched,
+    }
+
+
+def sharded_checks(device, d, k, n_nodes=10, q=100, steps=SHARDED_STEPS,
+                   link_steps=SHARDED_LINK_STEPS, record_every=25, total=None) -> dict:
+    """The sharded backend at the rcv1 Section-7 setup on the card (N ranks
+    on one device, gloo between them): DSBA and DSA held to the port's dense
+    run on the same device (SHARDED_TOL) and on the CPU (DENSE_TOL_CPU),
+    one link-fault DSBA run held to the dense fault run; each rank launches
+    ``expected_launches`` (summed into ``total``); per-rank times, the
+    exchange's share, peak bytes and the collectives record."""
+    from repro_torch.core.comm import edge_coloring
+    from repro_torch.launch.mesh import make_node_mesh
+
+    total = {} if total is None else total
+    cpu = torch.device("cpu")
+    problem = paper_problem("ridge", d, k, n_nodes, q)
+    colors = edge_coloring(problem.graph.edges, n_nodes)
+    out = {"colors": [list(map(list, c)) for c in colors]}
+    t0 = time.perf_counter()
+    mesh = make_node_mesh(n_nodes, device)
+    out["mesh_s"] = time.perf_counter() - t0
+    log("sharded", f"{n_nodes} ranks on {device.type} up in {out['mesh_s']:.1f} s; "
+        f"{len(colors)} colours {json.dumps(out['colors'])}")
+    kw = dict(steps=steps, record_every=record_every)
+    want = {k_: n_nodes * c for k_, c in expected_launches(steps, "dense").items()}
+    for method in ("dsba", "dsa"):
+        row = {}
+        dense = [solve(problem, method, device=device, **kw) for _ in range(2)]  # cold, warm
+        runs = []
+        for _ in range(2):  # cold (the ranks bind the runner), warm
+            reset_launches()
+            runs.append(solve(problem, method, "sharded", comm_options={"mesh": mesh}, **kw))
+            if launches() != dict.fromkeys(WRAPPERS, 0):
+                raise AssertionError(f"sharded {method}: the parent launched {launches()}")
+            summ = _rank_summary(runs[-1], steps)
+            got = summ["launches"]
+            if device.type == "cuda" and got != want:
+                raise AssertionError(f"sharded {method}: rank launches {got} != {want}")
+            for k_, c in got.items():
+                total[k_] = total.get(k_, 0) + c
+        res = runs[-1]
+        ref_cpu = solve(problem, method, device=cpu, **kw)
+        row["vs_dense"] = float(np.max(np.abs(res.z - dense[-1].z)))
+        row["vs_cpu"] = float(np.max(np.abs(res.z - ref_cpu.z)))
+        row["consensus_vs_dense"] = float(np.max(np.abs(res.consensus - dense[-1].consensus)))
+        if row["vs_dense"] > SHARDED_TOL or row["consensus_vs_dense"] > SHARDED_TOL:
+            raise AssertionError(f"sharded {method} vs dense: {row}")
+        if row["vs_cpu"] > DENSE_TOL_CPU:
+            raise AssertionError(f"sharded {method} vs CPU: {row}")
+        if not np.array_equal(res.doubles_received, dense[-1].doubles_received):
+            raise AssertionError(f"sharded {method}: DOUBLEs differ from dense")
+        if not (np.all(np.isfinite(res.z)) and res.z.shape == (n_nodes, problem.dim)):
+            raise AssertionError(f"sharded {method}: z {res.z.shape}, finite "
+                                 f"{np.all(np.isfinite(res.z))}")
+        row.update(collectives=res.extras["collectives"],
+                   measured_bytes=res.measured_collective_bytes.tolist(),
+                   cold_wall_s=runs[0].wall_time, warm=_rank_summary(res, steps),
+                   dense_wall_ms_per_step=1e3 * dense[-1].wall_time / steps)
+        out[method] = row
+        log("sharded", f"{method}: {json.dumps(row)}")
+
+    plan = FaultPlan(link=LinkFault(p=0.2, seed=7))
+    lkw = dict(steps=link_steps, record_every=10, comm_options={"fault_plan": plan})
+    rd = solve(problem, "dsba", device=device, **lkw)
+    rs = solve(problem, "dsba", "sharded", **dict(lkw, comm_options={"fault_plan": plan,
+                                                                       "mesh": mesh}))
+    got = _rank_summary(rs, link_steps)["launches"]
+    lwant = {k_: n_nodes * c for k_, c in expected_launches(link_steps, "dense").items()}
+    if device.type == "cuda" and got != lwant:
+        raise AssertionError(f"sharded link faults: rank launches {got} != {lwant}")
+    for k_, c in got.items():
+        total[k_] = total.get(k_, 0) + c
+    link = {"vs_dense": float(np.max(np.abs(rs.z - rd.z))), "faults": rs.extras["faults"]}
+    if link["vs_dense"] > SHARDED_TOL or rs.extras["faults"] != rd.extras["faults"]:
+        raise AssertionError(f"sharded link faults vs dense: {link}, {rd.extras['faults']}")
+    if rs.extras["collectives"] != out["dsba"]["collectives"]:
+        raise AssertionError("sharded link faults: the counted exchanges differ")
+    if not 0 < rs.extras["faults"]["delivered_messages"] < rs.extras["faults"][
+            "injected_messages"]:
+        raise AssertionError(f"sharded link faults: nothing dropped {rs.extras['faults']}")
+    out["link"] = link
+    log("sharded", f"link faults p=0.2, {link_steps} steps: {json.dumps(link)}")
+
+    if device.type == "cuda":
+        apps = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+            capture_output=True, text=True).stdout.strip()
+        free, card = torch.cuda.mem_get_info()
+        out["card_used_gb"] = (card - free) / 1e9
+        out["compute_apps"] = len(apps.splitlines())
+        log("sharded", f"{out['compute_apps']} processes on the card, "
+            f"{out['card_used_gb']:.2f} GB of it in use (the ranks' contexts and "
+            f"tensors, the parent's)")
+    pids = mesh.pids()
+    mesh.close()
+    alive = [p for p in pids if _pid_alive(p)]
+    if alive:
+        raise AssertionError(f"sharded: workers {alive} outlived close()")
+    if device.type == "cuda":
+        out["gloo_cuda"] = gloo_cuda_answer(device)
+        log("sharded", f"gloo send/recv of a CUDA tensor: {out['gloo_cuda']}")
+    out["launches"] = total
+    return out
+
+
+def _pid_alive(pid: int) -> bool:
+    """Whether process ``pid`` exists (``close`` joins, so reaps, its
+    workers)."""
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def sharded_run(device) -> dict:
+    """``chip_smoke.py --sharded`` (a fresh process): ``sharded_checks`` with
+    N = 10 ranks on the card at the rcv1 Section-7 setup. Its launches
+    (summed over the ranks) join the kernels line."""
+    t_all = time.perf_counter()
+    log("sharded", subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    rcv1 = DATASET_PRESETS["rcv1"]
+    out = sharded_checks(device, rcv1["d"], rcv1["k"])
+    out["seconds"] = time.perf_counter() - t_all
+    log("sharded", f"launches {out['launches']}; all done in {out['seconds']:.1f} s")
+    return out
+
+
 def profile_subprocess(flag: str, *args: str, timeout: float = 900) -> dict:
     """``chip_smoke.py <flag> [args]`` in a fresh process on the same card;
     its JSON result (the last line of its output)."""
@@ -5258,6 +5463,9 @@ def main() -> int:
     t0 = time.perf_counter()
     launch = profile_subprocess("--launch")
     log("launch", f"done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sharded = profile_subprocess("--sharded")
+    log("sharded", f"done in {time.perf_counter() - t0:.1f} s")
 
     total["decode_attention"] = serve_launches["decode_attention"]
     # flash_attention runs on three main paths: the score phase, the train
@@ -5279,11 +5487,11 @@ def main() -> int:
     # minitron-8b's blockwise prefill (--options), the fault, schedule,
     # churn and resume paths (--faults), the batched sweeps at B*N rows
     # (--sweep), the examples and the dry run's fitting cell on the card
-    # (--launch)
+    # (--launch), and the ranks of the sharded backend (--sharded)
     for name, n in (*hybrid["launches"].items(), *moe["launches"].items(),
                     *encdec["launches"].items(), *options["launches"].items(),
                     *faults["launches"].items(), *sweep["launches"].items(),
-                    *launch["launches"].items()):
+                    *launch["launches"].items(), *sharded["launches"].items()):
         total[name] += n
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -5305,7 +5513,7 @@ if __name__ == "__main__":
                 "--hybrid": hybrid_run, "--moe": moe_run, "--encdec": encdec_run,
                 "--options": options_run,
                 "--solvers": solvers_run, "--faults": faults_run,
-                "--sweep": sweep_run, "--launch": launch_run,
+                "--sweep": sweep_run, "--launch": launch_run, "--sharded": sharded_run,
                 "--topk-profile": topk_profile,
                 "--gossip-profile": lambda dev: gossip_phase(dev, topk_rows=True)[0],
                 "--decode-profile": lambda dev, *a: decode_profile(dev, *map(json.loads, a))}

@@ -133,20 +133,29 @@ class StepCoeffs:
     rho: torch.Tensor  # 1 / (1 + alpha * lam)
     neg_a_eff: torch.Tensor  # -(rho * alpha)
     a_eff: torch.Tensor
-    rho_rows: torch.Tensor  # (R,) rho per kernel row, R = prod(lead) * N
+    rho_rows: torch.Tensor  # (R,) rho per kernel row, R = prod(lead) * M
     ones: torch.Tensor  # (R,)
-    node: torch.Tensor  # (N,) node index
+    node: torch.Tensor  # (M,) global ids of the nodes this caller steps
 
 
-def step_coeffs(alpha: torch.Tensor, lam: torch.Tensor, n: int, q: int) -> StepCoeffs:
-    """``StepCoeffs`` for ``n`` nodes of ``q`` samples (see the class)."""
+def step_coeffs(alpha: torch.Tensor, lam: torch.Tensor, n: int, q: int,
+                node: torch.Tensor | None = None) -> StepCoeffs:
+    """``StepCoeffs`` for ``n`` nodes of ``q`` samples (see the class).
+
+    ``node`` holds the global ids of the nodes the caller steps: all ``n``
+    by default, one (its rank's) on a rank of the sharded backend, where
+    the data stays the graph's N nodes and the step reads its rows.
+    """
     lead = tuple(alpha.shape)
+    if node is None:
+        node = torch.arange(n, device=alpha.device)
+    m = node.numel()
     a = alpha[..., None]
     al = a * lam
     opal = 1.0 + al
     rho = 1.0 / opal
     a_eff = rho * a
-    rows = int(np.prod(lead, dtype=np.int64)) * n
+    rows = int(np.prod(lead, dtype=np.int64)) * m
     return StepCoeffs(
         alpha=a,
         neg_alpha=-a,
@@ -156,9 +165,9 @@ def step_coeffs(alpha: torch.Tensor, lam: torch.Tensor, n: int, q: int) -> StepC
         rho=rho,
         neg_a_eff=-a_eff,
         a_eff=a_eff,
-        rho_rows=rho.expand(*lead, n).reshape(rows).contiguous(),
+        rho_rows=rho.expand(*lead, m).reshape(rows).contiguous(),
         ones=torch.ones((rows,), dtype=alpha.dtype, device=alpha.device),
-        node=torch.arange(n, device=alpha.device),
+        node=node,
     )
 
 
@@ -291,15 +300,15 @@ def step_hp(cfg: DSBAConfig, dtype, device) -> dict:
     }
 
 
-def coeffs_memo(n: int, q: int):
+def coeffs_memo(n: int, q: int, node: torch.Tensor | None = None):
     """``coeffs(hp) -> StepCoeffs`` that rebuilds only when handed another
     hp dict: a run passes one dict every step, so its coefficients are
-    computed on the device once a run."""
+    computed on the device once a run. ``node``: see ``step_coeffs``."""
     memo = {}
 
     def coeffs(hp) -> StepCoeffs:
         if memo.get("hp") is not hp:
-            memo["hp"], memo["c"] = hp, step_coeffs(hp["alpha"], hp["lam"], n, q)
+            memo["hp"], memo["c"] = hp, step_coeffs(hp["alpha"], hp["lam"], n, q, node)
         return memo["c"]
 
     return coeffs
@@ -312,12 +321,17 @@ def make_hp_step_fn(cfg: DSBAConfig, data, w: np.ndarray, comm):
     backend, through whose ``matvec`` both neighbor-mixing products run
     (the mixing matrices go to the device once). ``hp`` holds ``alpha``
     and ``lam`` as tensors (``step_hp``, or a batch of alphas from
-    ``solve_many``); ``cfg``'s own values are not read.
+    ``solve_many``); ``cfg``'s own values are not read. The step reads its
+    nodes' data rows through ``comm.local``: every node on one device, the
+    rank's own node under the sharded backend (the graph's N still sets
+    the coefficients).
     """
     dt = data.val.dtype
     w_mix = comm.matvec(w, dt)
     wt_mix = comm.matvec(w_tilde(np.asarray(w)), dt)
-    coeffs = coeffs_memo(data.val.shape[0], data.val.shape[1])
+    n = data.val.shape[0]
+    node = comm.local(torch.arange(n, device=data.val.device))
+    coeffs = coeffs_memo(n, data.val.shape[1], node)
 
     def step(state: DSBAState, i_t: torch.Tensor, hp) -> DSBAState:
         return dsba_step(

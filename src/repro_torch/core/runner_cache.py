@@ -109,10 +109,11 @@ class RunnerCache:
 
 
 # The process-global caches: the dense runners of core.solvers.solve /
-# solve_many and the relay runners of core.sparse_comm. SHARDED stays empty
-# until the sharded backend is ported (its keys gain a mesh fingerprint
-# then). Module-level so stats survive across solve() calls; separate
-# caches per backend guarantee a runner never crosses comm backends.
+# solve_many, the relay runners of core.sparse_comm and the sharded
+# runners (keyed with a mesh fingerprint; the parent keeps the keys and
+# stats, each rank its bound step under the runner's token). Module-level
+# so stats survive across solve() calls; separate caches per backend
+# guarantee a runner never crosses comm backends.
 DENSE = RunnerCache("dense")
 SPARSE = RunnerCache("sparse")
 SHARDED = RunnerCache("sharded")
@@ -166,6 +167,18 @@ def fault_fingerprint(
     can never collide with a faulty one.
     """
     return ("faults", bool(has_link), bool(has_straggler), int(n_slots))
+
+
+def mesh_fingerprint(mesh) -> tuple:
+    """The mesh component of every sharded runner key: ``(n, device,
+    ranks)``, the ranks being the worker processes' ids.
+
+    Two meshes of the same size and device but other workers (a mesh
+    rebuilt after ``close``) key distinct runners, since the ranks hold the
+    bound steps; a dense runner (no mesh) can never collide with a
+    sharded one (separate cache and key schema).
+    """
+    return (int(mesh.n), mesh.device.type, tuple(mesh.ranks))
 
 
 def stats() -> dict[str, dict[str, int]]:

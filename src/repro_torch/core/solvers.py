@@ -41,15 +41,27 @@ routes through the plain step, so p = 0 is bit-equal to a plan-free run.
 ``solve(checkpoint=CheckpointSpec(...))`` snapshots the state and the
 recorder, and ``solve(resume=directory)`` continues bit-equal to an
 uninterrupted run (dense and sparse), in the JAX package's checkpoint
-layout. Not ported yet, and raising ``NotImplementedError`` rather than
-taking another path: ``comm="sharded"`` with its fault and schedule
-branches (ROADMAP Queue 1 item 10).
+layout.
+
+``comm="sharded"`` runs each graph node as its own rank of a
+``launch.mesh.NodeMesh`` (worker processes in one ``torch.distributed``
+gloo group, on the card or on the CPU): the same step factories bind a
+``ShardedComm``, whose ``mix`` is one neighbour exchange a edge colour and
+whose ``local`` is the rank's row, so each rank steps its own node. The
+parent hands each rank the problem, its column of the sample stream and
+(for link faults) its rows of the delivery mask, gathers the (N, D)
+iterates at the record points into the same recorder, and reports the
+collective traffic by the reference's counting rule
+(``extras["collectives"]``, ``measured_collective_bytes``). Schedules
+and churn re-mesh per phase (meshes of other sizes come from the mesh
+registry); a ``solve_many`` sweep runs its entries one after another.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import time
+from collections import OrderedDict
 from typing import Any, Callable, Mapping
 
 import numpy as np
@@ -63,7 +75,9 @@ from repro_torch.ckpt.checkpoint import (  # noqa: F401  (re-exported)
 )
 from repro_torch.convert import dataset_to_torch
 from repro_torch.core import reference, runner_cache
-from repro_torch.core.comm import DenseComm, FaultyDenseComm
+from repro_torch.core.comm import (
+    PERMUTE, DenseComm, FaultyDenseComm, FaultyShardedComm, ShardedComm,
+)
 from repro_torch.core.dsba import DSBAConfig, draw_indices, init_state, make_hp_step_fn
 from repro_torch.core.mixing import Graph, laplacian_mixing, spectral_gap, w_tilde
 from repro_torch.core.operators import (
@@ -91,9 +105,6 @@ COMM_BACKENDS = ("dense", "sparse", "sharded")
 # SSDA ridge: above this many bytes of d x d factors (all nodes) a node's
 # grad f* goes through its q x q Woodbury factor (``_ssda_conj_grad``)
 SSDA_DENSE_BYTES = 8 << 30
-_NOT_PORTED = {
-    "sharded": "comm='sharded' is not ported yet (ROADMAP Queue 1 item 10)",
-}
 #: per-backend comm_options schema enforced by ``_validate_options``
 _COMM_OPTION_KEYS = {
     "dense": ("fault_plan",),
@@ -603,13 +614,16 @@ class _DenseRunner:
     data: Any  # convert.TensorDataset
 
 
-def _build_dense_runner(spec, problem, hp, dev, comm) -> _DenseRunner:
-    """Bind ``spec``'s factories on ``problem``'s data on ``dev``."""
-    runner_cache.DENSE.note_trace()  # build-time only: the step's binding
+def _build_dense_runner(spec, problem, hp, dev, comm,
+                        note=runner_cache.DENSE.note_trace) -> _DenseRunner:
+    """Bind ``spec``'s factories on ``problem``'s data on ``dev`` (a rank of
+    the sharded backend binds them too, with its ``ShardedComm``);
+    ``note`` counts the two binds in the caller's cache stats."""
+    note()  # build-time only: the step's binding
     data = dataset_to_torch(problem.data, dev)
     fhp = _FactoryHP(hp, spec.static_hp)
     step_fn = spec.step(problem, fhp, data, comm)
-    runner_cache.DENSE.note_trace()  # and the read-out's
+    note()  # and the read-out's
     z_fn = spec.z_of(problem, fhp, data, comm)
     return _DenseRunner(
         init=lambda z0: spec.init(problem, fhp, data, z0),
@@ -655,6 +669,252 @@ def _phase_runner(spec, problem, hp, dev, link_mask, strag_mask) -> _DenseRunner
     return runner
 
 
+# ---------------------------------------------------------------------------
+# The sharded backend: one rank a graph node (launch.mesh.NodeMesh)
+# ---------------------------------------------------------------------------
+
+
+def _node_partition(state, n: int, rank: int):
+    """A rank's part of a solver state: the counterpart of the reference's
+    ``_node_partition_specs``.
+
+    Every registered solver keeps its per-node state with a leading N
+    axis: such a leaf goes to the ranks by row (rank r keeps row r as a
+    (1, ...) tensor). Scalars (0-d step counters, host ints) are
+    replicated. A leaf that is neither is ambiguous and raises rather than
+    being copied whole to every rank.
+    """
+
+    def part(leaf):
+        shape = getattr(leaf, "shape", None)
+        if shape is None or len(shape) == 0:
+            return leaf
+        if shape[0] == n:
+            return leaf[rank:rank + 1].clone()
+        raise ValueError(
+            f"state leaf with shape {tuple(shape)} has no leading node axis "
+            f"(N = {n}) and is not a scalar; the sharded backend cannot "
+            "place it (see docs/solvers.md)"
+        )
+
+    from repro_torch.ft.elastic import _map_leaves  # see _elastic_remap
+
+    return _map_leaves(part, state)
+
+
+def _join_parts(parts: list):
+    """The (N, ...) state from the ranks' numpy parts, in rank order: row
+    leaves concatenate, replicated scalars come from rank 0."""
+    t = parts[0]
+    if isinstance(t, dict):
+        return {k: _join_parts([p[k] for p in parts]) for k in t}
+    if dataclasses.is_dataclass(t) and not isinstance(t, type):
+        return dataclasses.replace(t, **{
+            f.name: _join_parts([getattr(p, f.name) for p in parts])
+            for f in dataclasses.fields(t) if f.init
+        })
+    if isinstance(t, (tuple, list)):
+        return type(t)(_join_parts([p[i] for p in parts]) for i in range(len(t)))
+    if isinstance(t, np.ndarray) and t.ndim >= 1:
+        return np.concatenate(parts, axis=0)
+    return t
+
+
+def _state_to_numpy(state):
+    """Tensors to host numpy arrays (host ints stay), to cross processes."""
+    from repro_torch.ft.elastic import _map_leaves  # see _elastic_remap
+
+    return _map_leaves(
+        lambda x: x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x, state)
+
+
+def _state_to_torch(state, dev):
+    """``_state_to_numpy``'s inverse on ``dev``."""
+    from repro_torch.ft.elastic import _map_leaves  # see _elastic_remap
+
+    return _map_leaves(
+        lambda x: torch.as_tensor(x, device=dev) if isinstance(x, np.ndarray) else x, state)
+
+
+_TOKENS = iter(range(1, 1 << 62))
+
+
+def _get_sharded_runner(spec: SolverSpec, problem: Problem, hp: Mapping, mesh,
+                        faulty: bool = False) -> int:
+    """Fetch (or make) the sharded runner for (spec, problem, hp, mesh):
+    the parent keeps only its token, under which every rank keeps its
+    bound step (built from the job's problem at first use). ``faulty``
+    selects the link-fault runner (its own key)."""
+    base_key, guards = _runner_key(spec, problem, hp, mesh.device)
+    key = base_key + (runner_cache.mesh_fingerprint(mesh),)
+    if faulty:
+        key += (runner_cache.fault_fingerprint(True, False),)
+
+    def build() -> int:
+        ShardedComm(problem.graph, mesh)  # the mesh-size check
+        runner_cache.SHARDED.note_trace()  # the ranks' step binding
+        runner_cache.SHARDED.note_trace()  # and read-out
+        return next(_TOKENS)
+
+    return runner_cache.SHARDED.get_or_build(key, (*guards, mesh), build)
+
+
+# a rank's bound runners, by the parent's token (only ever filled in a rank)
+_RANK_RUNNERS: "OrderedDict[int, _DenseRunner]" = OrderedDict()
+
+
+def _rank_runner(me, job) -> _DenseRunner:
+    """The bound step of ``job``'s runner on this rank (built at first use)."""
+    token = job["token"]
+    runner = _RANK_RUNNERS.get(token)
+    if runner is None:
+        problem = job["problem"]
+        comm_cls = FaultyShardedComm if job["link"] is not None else ShardedComm
+        runner = _build_dense_runner(
+            get_solver(job["method"]), problem, job["hp"], me.device,
+            comm_cls(problem.graph, me), note=lambda: None,
+        )
+        _RANK_RUNNERS[token] = runner
+        while len(_RANK_RUNNERS) > runner_cache.SHARDED.capacity:
+            _RANK_RUNNERS.popitem(last=False)
+    _RANK_RUNNERS.move_to_end(token)
+    return runner
+
+
+def _rank_job(me, job) -> dict:
+    """One static phase on one rank (runs in a ``NodeMesh`` worker).
+
+    Starts from ``job["state"]`` (the whole (N, ...) state, as numpy) or
+    from the method's init at ``job["z0"]`` (computed for all N nodes, so
+    the rank's rows are the dense init's bits), keeps this rank's rows and
+    steps them ``len(job["idx"])`` times on its column of the sample
+    stream. Returns its iterate row and the counted collective bytes at
+    each mark, its final state part, and what the run cost it.
+    """
+    from repro_torch.kernels import sparse_saga
+
+    spec = get_solver(job["method"])
+    problem = job["problem"]
+    dev = me.device
+    runner = _rank_runner(me, job)
+    comm = runner.comm
+    comm.reset_counters()
+    if job["link"] is not None:
+        comm.bind(job["link"])
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    launches0 = (sparse_saga.sparse_dot.launches, sparse_saga.sparse_axpy.launches)
+    if job["state"] is None:
+        full = runner.init(torch.as_tensor(job["z0"], device=dev))
+    else:
+        full = _state_to_torch(job["state"], dev)
+    state = _node_partition(full, problem.graph.n, me.rank)
+    del full
+    hp_run = _dynamic_hp(spec, problem, job["hp"], runner.data.val.dtype, dev)
+    idx_t = torch.as_tensor(np.asarray(job["idx"])[:, None], dtype=torch.long, device=dev)
+    zs, counted = [], []
+    t0 = time.perf_counter()
+    prev = 0
+    for mk in job["marks"]:
+        state = _advance(state, runner.step, comm, idx_t, prev, mk, hp_run)
+        prev = mk
+        zs.append(runner.z_read(state, hp_run).cpu().numpy())
+        counted.append(comm.bytes)
+    loop_s = time.perf_counter() - t0
+    return {
+        "z": zs,
+        "bytes": counted,
+        "count": comm.count,
+        "state": _state_to_numpy(state),
+        "loop_s": loop_s,
+        "exchange_s": comm.exchange_s,
+        "staging_s": comm.staging_s,
+        "sent_bytes": comm.sent_bytes,
+        "launches": {
+            "sparse_dot": sparse_saga.sparse_dot.launches - launches0[0],
+            "sparse_axpy": sparse_saga.sparse_axpy.launches - launches0[1],
+        },
+        "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
+    }
+
+
+@dataclasses.dataclass
+class _ShardedPhase:
+    """What one static phase on a mesh returned to the parent."""
+
+    zs: list  # (N, D) iterates at each mark
+    counted: list  # cumulative counted collective bytes a device at each mark
+    costs: dict  # the reference's per-iteration collectives record
+    state: Any  # the (N, ...) final state on the parent's device
+    ranks: list  # per rank: loop_s, exchange_s, staging_s, sent_bytes, launches, peak_bytes
+
+
+def _run_sharded(spec, problem, hp, mesh, dev, idx, marks, link_mask, state0, z0
+                 ) -> _ShardedPhase:
+    """Run one static phase of ``len(idx)`` steps on ``mesh``.
+
+    ``idx`` is the phase's (steps, N) sample stream (rank r gets column r),
+    ``marks`` the phase-local step counts to gather the iterates at (the
+    last is the phase's end), ``link_mask`` the phase's (steps, N, N)
+    delivery mask or None (rank r gets its rows), ``state0`` the carried
+    state on the parent (None: the method's init at ``z0``).
+    """
+    seg = len(idx)
+    token = _get_sharded_runner(spec, problem, hp, mesh, faulty=link_mask is not None)
+    # a clean problem: no cached root, schedule or churn children to ship
+    clean = Problem(spec=problem.spec, data=problem.data, graph=problem.graph,
+                    w=problem.w, lam=problem.lam)
+    common = {
+        "token": token, "method": spec.name, "problem": clean, "hp": dict(hp),
+        "marks": list(marks),
+        "state": None if state0 is None else _state_to_numpy(state0),
+        "z0": None if state0 is not None else np.asarray(z0),
+    }
+    jobs = [
+        dict(common, idx=np.ascontiguousarray(idx[:, r]),
+             link=None if link_mask is None else np.ascontiguousarray(link_mask[:, r, :]))
+        for r in range(mesh.n)
+    ]
+    res = mesh.run(_rank_job, jobs)
+    total, count = res[0]["bytes"][-1], res[0]["count"]
+    bytes_per_iter, count_per_iter = total / seg, count / seg
+    costs = {
+        "bytes_per_iter": bytes_per_iter,
+        "count_per_iter": count_per_iter,
+        "bytes_by_op": {PERMUTE: bytes_per_iter} if count else {},
+        "count_by_op": {PERMUTE: count_per_iter} if count else {},
+    }
+    return _ShardedPhase(
+        zs=[np.concatenate([r["z"][k] for r in res], axis=0) for k in range(len(marks))],
+        counted=list(res[0]["bytes"]),
+        costs=costs,
+        state=_state_to_torch(_join_parts([r["state"] for r in res]), dev),
+        ranks=[{k: r[k] for k in ("loop_s", "exchange_s", "staging_s", "sent_bytes",
+                                  "launches", "peak_bytes")} for r in res],
+    )
+
+
+def _sharded_device(device, mesh) -> torch.device:
+    """The parent's device of a sharded run: the mesh's, unless the caller
+    names another (an error), or the card/``device`` with no mesh given."""
+    if mesh is None:
+        return resolve_device(device)
+    if device is not None and torch.device(device).type != mesh.device.type:
+        raise ValueError(
+            f"comm_options mesh runs on {mesh.device.type}, but device={device!r}"
+        )
+    return mesh.device
+
+
+def _phase_mesh(mesh_opt, n: int, dev):
+    """The given mesh when its size is the phase's N, else the registry's."""
+    if mesh_opt is not None and mesh_opt.n == n:
+        return mesh_opt
+    from repro_torch.launch.mesh import make_node_mesh
+
+    return make_node_mesh(n, dev)
+
+
 def runner_cache_stats() -> dict[str, dict[str, int]]:
     """{cache name: {hits, misses, traces, evictions, size}} per runner cache."""
     return runner_cache.stats()
@@ -681,7 +941,15 @@ class SolveResult:
     the final solver state (``None`` for sparse runs); ``extras`` carries
     the sparse backend's ``z_trace`` and ``recon_max_err``, a dynamic
     run's per-phase ``schedule`` (and ``churn_rows``, the accounting rows
-    when membership changed) and a fault plan's ``faults`` record.
+    when membership changed), a fault plan's ``faults`` record and the
+    sharded backend's ``collectives``, ``mesh_devices`` and ``ranks`` (each
+    rank's loop, exchange and host-staging times, sent bytes, kernel
+    launches and peak device memory).
+
+    ``measured_collective_bytes`` is set by ``comm="sharded"`` only: the
+    cumulative collective bytes a device at each record point, counted
+    where each exchange is made by the reference's rule (one exchange a
+    colour charges its block's bytes on every rank).
     """
 
     method: str
@@ -696,6 +964,7 @@ class SolveResult:
     state: Any  # final solver state (None for sparse runs)
     zs: np.ndarray | None = None  # (R, N, D) snapshots if requested
     extras: dict = dataclasses.field(default_factory=dict)
+    measured_collective_bytes: np.ndarray | None = None  # (R,) a device
 
 
 def _cumulative_rounds(spec: SolverSpec, hp: Mapping, iters) -> np.ndarray:
@@ -1010,10 +1279,10 @@ def _static_fault_masks(plan, graph, steps: int, start: int = 0):
 def _advance(state, step_fn, comm, idx_t, lo: int, hi: int, hp_run):
     """Steps ``lo..hi-1`` of a phase (``idx_t`` rows and mask rows are the
     phase's own)."""
-    faulty = isinstance(comm, FaultyDenseComm)
+    begin = getattr(comm, "begin_step", None)  # the fault-injecting comms
     for t in range(lo, hi):
-        if faulty:
-            comm.begin_step(t)
+        if begin is not None:
+            begin(t)
         state = step_fn(state, idx_t[t], hp_run)
     return state
 
@@ -1228,8 +1497,9 @@ def solve(
         )
     hp.update(hyperparams)
     if comm == "sharded":
-        raise NotImplementedError(_NOT_PORTED["sharded"])
-    dev = resolve_device(device)
+        dev = _sharded_device(device, opts.get("mesh"))
+    else:
+        dev = resolve_device(device)
 
     data = problem.data
     n, D = data.n_nodes, problem.dim
@@ -1274,7 +1544,12 @@ def solve(
         )
     if phases is not None:
         return _solve_phased(
-            spec, method, phases, hp, steps, pts, rec, indices, z0,
+            spec, method, comm, phases, hp, steps, pts, rec, indices, z0,
+            opts, sched_x, plan, dev,
+        )
+    if comm == "sharded":
+        return _solve_sharded(
+            spec, method, problem, hp, steps, pts, rec, indices, z0, opts,
             sched_x, plan, dev,
         )
 
@@ -1413,9 +1688,55 @@ def _solve_sparse(spec, method, problem, hp, steps, pts, rec, indices, z0,
     )
 
 
-def _solve_phased(spec, method, phases, hp, steps, pts, rec, indices, z0,
-                  sched_x, plan, dev) -> SolveResult:
-    """Dense execution of a multi-phase (dynamic-network) run.
+def _solve_sharded(spec, method, problem, hp, steps, pts, rec, indices, z0,
+                   opts, sched_x, plan, dev) -> SolveResult:
+    """One static run on a node mesh (``comm="sharded"``).
+
+    The mesh is ``comm_options["mesh"]`` or the registry's of N ranks on
+    ``dev``. Link faults run the fault runner (every exchange still runs,
+    so the counted bytes equal the fault-free run's; the receivers drop
+    masked messages); the doubles are counted by the dense formula (the
+    delivered-only one under link faults), as the reference counts them.
+    """
+    t0 = time.perf_counter()
+    mesh = opts.get("mesh") or _phase_mesh(None, problem.graph.n, dev)
+    link_mask, _ = _static_fault_masks(plan, problem.graph, steps)
+    out = _run_sharded(spec, problem, hp, mesh, dev, indices[:steps], pts,
+                       link_mask, None, z0)
+    for pt, z in zip(pts, out.zs):
+        rec.push(pt, z)
+    wall = time.perf_counter() - t0
+    iters, dist2, cons, zs = rec.arrays()
+    extras = {"collectives": out.costs, "mesh_devices": mesh.n, "ranks": out.ranks}
+    if plan is not None and plan.link is not None:
+        # a p = 0 plan ran the plain step and still reports its record
+        doubles, extras["faults"] = _fault_accounting(
+            spec, hp, problem, link_mask, None, steps, iters)
+    else:
+        per_node = dense_doubles_per_iter(problem.graph, problem.dim)  # (N,)
+        doubles = _cumulative_rounds(spec, hp, iters)[:, None] * per_node[None, :]
+    if sched_x is not None:
+        extras["schedule"] = sched_x
+    return SolveResult(
+        method=method,
+        comm="sharded",
+        iters=iters,
+        dist2=dist2,
+        consensus=cons,
+        doubles_received=doubles,
+        ints_received=np.zeros_like(doubles),
+        wall_time=wall,
+        z=out.zs[-1],
+        state=out.state,
+        zs=zs,
+        extras=extras,
+        measured_collective_bytes=np.asarray(out.counted, dtype=np.float64),
+    )
+
+
+def _solve_phased(spec, method, comm, phases, hp, steps, pts, rec, indices,
+                  z0, opts, sched_x, plan, dev) -> SolveResult:
+    """Dense or sharded execution of a multi-phase (dynamic-network) run.
 
     Each phase runs through its own cached runner on its own W (and, after
     churn, its own data), carrying the state across boundaries: as-is for a W switch,
@@ -1426,14 +1747,25 @@ def _solve_phased(spec, method, phases, hp, steps, pts, rec, indices, z0,
     per-phase increments into global per-row cumulative counts: rows are
     the N0 original nodes plus one row per joined node
     (``extras["churn_rows"]`` when membership changed).
+
+    Sharded phases run on the given mesh when its size is the phase's N,
+    else on the registry's mesh of that size; each re-derives its edge
+    colouring. The collectives are counted per phase and the measured
+    bytes accumulate across phases; ``extras["collectives"]`` and
+    ``extras["mesh_devices"]`` are the first phase's.
     """
     t0 = time.perf_counter()
+    sharded = comm == "sharded"
     base = phases[0].problem
     D = base.dim
     total_rows = max(int(ph.row_map.max()) for ph in phases) + 1
     record_set = set(pts)
     cum = np.zeros(total_rows)
     doubles_rows: list[np.ndarray] = []
+    measured: list[float] = []
+    measured_base = 0.0
+    costs0 = mesh_devices = None
+    rank_stats: list = []
     state = None
     z_final = None
     n_prev = base.graph.n
@@ -1447,12 +1779,6 @@ def _solve_phased(spec, method, phases, hp, steps, pts, rec, indices, z0,
         if state is not None:
             state = _elastic_remap(state, ph, n_prev, spec)
         link_mask, strag_mask = _static_fault_masks(plan, p.graph, seg, start=ph.start)
-        runner = _phase_runner(spec, p, hp, dev, link_mask, strag_mask)
-        hp_run = _dynamic_hp(spec, p, hp, runner.data.val.dtype, dev)
-        if state is None:
-            state = runner.init(torch.as_tensor(np.asarray(z0), device=dev))
-        idx_t = torch.as_tensor(indices[ph.start:ph.end][:, ph.cols],
-                                dtype=torch.long, device=dev)
         rdiff_ph = np.diff(
             _cumulative_rounds(spec, hp, np.arange(ph.start, ph.end + 1))
         )
@@ -1462,18 +1788,42 @@ def _solve_phased(spec, method, phases, hp, steps, pts, rec, indices, z0,
         injected_tot += int(rdiff_ph.sum() * deg_ph.sum())
         delivered_tot += int((rdiff_ph * d_in_ph.sum(axis=1)).sum())
         marks = sorted({pt for pt in pts if ph.start < pt <= ph.end} | {ph.end})
+        idx_ph = indices[ph.start:ph.end][:, ph.cols]
+        if sharded:
+            mesh = _phase_mesh(opts.get("mesh"), p.graph.n, dev)
+            out = _run_sharded(spec, p, hp, mesh, dev, idx_ph,
+                               [mk - ph.start for mk in marks], link_mask, state, z0)
+            state = out.state
+            z_at = dict(zip(marks, out.zs))
+            counted_at = dict(zip(marks, out.counted))
+            if costs0 is None:
+                costs0, mesh_devices = out.costs, mesh.n
+            rank_stats.append(out.ranks)
+        else:
+            runner = _phase_runner(spec, p, hp, dev, link_mask, strag_mask)
+            hp_run = _dynamic_hp(spec, p, hp, runner.data.val.dtype, dev)
+            if state is None:
+                state = runner.init(torch.as_tensor(np.asarray(z0), device=dev))
+            idx_t = torch.as_tensor(idx_ph, dtype=torch.long, device=dev)
         prev = ph.start
         for mk in marks:
-            state = _advance(state, runner.step, runner.comm, idx_t,
-                             prev - ph.start, mk - ph.start, hp_run)
+            if not sharded:
+                state = _advance(state, runner.step, runner.comm, idx_t,
+                                 prev - ph.start, mk - ph.start, hp_run)
             prev = mk
             if mk in record_set:
-                z_final = runner.z_read(state, hp_run).cpu().numpy()
+                if sharded:
+                    z_final = z_at[mk]
+                    measured.append(measured_base + counted_at[mk])
+                else:
+                    z_final = runner.z_read(state, hp_run).cpu().numpy()
                 rec.push(mk, z_final, z_star=p.z_star)
                 snap = cum.copy()
                 snap[ph.row_map] += cum_ph[mk - ph.start - 1]
                 doubles_rows.append(snap)
         cum[ph.row_map] += cum_ph[-1]
+        if sharded:
+            measured_base += out.counted[-1]
         n_prev = p.graph.n
     wall = time.perf_counter() - t0
     iters, dist2, cons, zs = rec.arrays()
@@ -1491,9 +1841,11 @@ def _solve_phased(spec, method, phases, hp, steps, pts, rec, indices, z0,
                 0.0 if injected_tot == 0 else 1.0 - delivered_tot / injected_tot
             ),
         }
+    if sharded:
+        extras.update(collectives=costs0, mesh_devices=mesh_devices, ranks=rank_stats)
     return SolveResult(
         method=method,
-        comm="dense",
+        comm=comm,
         iters=iters,
         dist2=dist2,
         consensus=cons,
@@ -1504,6 +1856,7 @@ def _solve_phased(spec, method, phases, hp, steps, pts, rec, indices, z0,
         state=state,
         zs=zs,
         extras=extras,
+        measured_collective_bytes=np.asarray(measured) if sharded else None,
     )
 
 
@@ -1697,6 +2050,7 @@ def solve_many(
 
     - ``comm="sparse"`` with ``engine="reference"`` (the per-observer
       oracle loop) or a method without a batched sparse backend;
+    - ``comm="sharded"``: one mesh run advances one run;
     - a grid entry overrides a ``static_hp`` (structural);
     - a schedule or a fault plan (the batched paths assume one static,
       fault-free graph for the whole run).
@@ -1762,7 +2116,14 @@ def solve_many(
     n, q = data.n_nodes, data.q
     idx_b = _sweep_indices(indices, n_runs, steps, n, q, seeds_list)
     if comm == "sharded":
-        raise NotImplementedError(_NOT_PORTED["sharded"])
+        # one mesh run advances one run: the entries go one after another
+        # through the warm runner, as in the reference
+        return _solve_many_sequential(
+            problem, method, comm, steps=steps, record_every=record_every,
+            z0=z0, keep_snapshots=keep_snapshots, comm_options=comm_options,
+            merged=merged, entries=entries, seeds=seeds_list, idx_b=idx_b,
+            dev=_sharded_device(device, (comm_options or {}).get("mesh")),
+        )
     dev = resolve_device(device)
 
     ragged = any(k in spec.static_hp for e in entries for k in e)
@@ -2064,7 +2425,9 @@ def _full_operator(spec: OperatorSpec, feats, labels):
 
     ``lam`` is a call argument (``personal`` passes 0.0 and adds its
     per-node term itself). The contractions keep the JAX package's order;
-    a (B, N, D) batch reads the features once for all B runs.
+    a (B, N, D) batch reads the features once for all B runs. The steps
+    pass their nodes' rows (``comm.local``), so on a rank of the sharded
+    backend the operator is the rank's node's alone.
     """
     t = spec.tail_dim
     d = feats.shape[-1]
@@ -2095,7 +2458,7 @@ def _extra_init(problem, hp, data, z0):
 def _extra_step(problem, hp, data, comm):
     """EXTRA (Shi et al. 2015a), eq. (47) form with first-step special case."""
     feats, labels = _dense_setup(problem, data)
-    G = _full_operator(problem.spec, feats, labels)
+    G = _full_operator(problem.spec, comm.local(feats), comm.local(labels))
     w_mix = comm.matvec(problem.w, feats.dtype)
     wt_mix = comm.matvec(w_tilde(problem.w), feats.dtype)
 
@@ -2124,11 +2487,11 @@ def _dlm_init(problem, hp, data, z0):
 def _dlm_step(problem, hp, data, comm):
     """DLM (Ling et al. 2015): linearized decentralized ADMM."""
     feats, labels = _dense_setup(problem, data)
-    G = _full_operator(problem.spec, feats, labels)
+    G = _full_operator(problem.spec, comm.local(feats), comm.local(labels))
     lap_mix = comm.matvec(problem.graph.laplacian, feats.dtype)
-    deg = torch.as_tensor(
+    deg = comm.local(torch.as_tensor(
         problem.graph.degrees, dtype=feats.dtype, device=feats.device
-    )[:, None]
+    )[:, None])
 
     def step(carry, i_t, hp_run):
         z, lam_dual = carry
@@ -2153,7 +2516,10 @@ def _ssda_conj_grad(problem: Problem, data, inner_newton: int):
     steps from 0 with the closed-form Jacobian
     ``A^T diag(g'(u)) A / q + lam I`` (the JAX package's ``jacfwd`` of the
     same map). The step and the read-out share the factorization; lam is
-    baked (SSDA's ``bake_lam``: the runner key holds it).
+    baked (SSDA's ``bake_lam``: the runner key holds it). The closure is
+    ``conj_grad(S, local)``: it reads its per-node constants (factors,
+    features) through ``local``, the comm backend's node block (the
+    identity on one device, the rank's row under the sharded backend).
     """
     spec, lam = problem.spec, float(problem.lam)
     key = ("ssda", inner_newton, lam)
@@ -2171,31 +2537,33 @@ def _ssda_conj_grad(problem: Problem, data, inner_newton: int):
                                      + q * lam * eye(q)[None])
         rhs0 = torch.einsum("nqd,nq->nd", feats, labels) / q
 
-        def conj_grad(S):
-            v = S + rhs0
-            w = torch.cholesky_solve(torch.einsum("nqd,...nd->...nq", feats, v)[..., None],
-                                     chol)[..., 0]
-            return (v - torch.einsum("nqd,...nq->...nd", feats, w)) / lam
+        def conj_grad(S, local):
+            fe = local(feats)
+            v = S + local(rhs0)
+            w = torch.cholesky_solve(torch.einsum("nqd,...nd->...nq", fe, v)[..., None],
+                                     local(chol))[..., 0]
+            return (v - torch.einsum("nqd,...nq->...nd", fe, w)) / lam
 
     elif spec.kind == "ridge":
         gram = torch.einsum("nqd,nqe->nde", feats, feats) / q
         chol = torch.linalg.cholesky(gram + lam * eye(d)[None])
         rhs0 = torch.einsum("nqd,nq->nd", feats, labels) / q
 
-        def conj_grad(S):
-            return torch.cholesky_solve((S + rhs0)[..., None], chol)[..., 0]
+        def conj_grad(S, local):
+            return torch.cholesky_solve((S + local(rhs0))[..., None], local(chol))[..., 0]
 
     else:
-        no_tail = feats.new_zeros((n, q, 0))
 
-        def conj_grad(S):
+        def conj_grad(S, local):
+            fe, la = local(feats), local(labels)
+            no_tail = fe.new_zeros(fe.shape[:2] + (0,))
             x = torch.zeros_like(S)
             for _ in range(inner_newton):
-                u = torch.einsum("nqd,...nd->...nq", feats, x)
-                g, _ = spec.coeff_and_tail(u, labels, no_tail)
-                gn = torch.einsum("nqd,...nq->...nd", feats, g) / q + lam * x
-                gp = logistic_coeff_prime(u, labels)
-                jac = torch.einsum("nqd,...nq,nqe->...nde", feats, gp, feats) / q
+                u = torch.einsum("nqd,...nd->...nq", fe, x)
+                g, _ = spec.coeff_and_tail(u, la, no_tail)
+                gn = torch.einsum("nqd,...nq->...nd", fe, g) / q + lam * x
+                gp = logistic_coeff_prime(u, la)
+                jac = torch.einsum("nqd,...nq,nqe->...nde", fe, gp, fe) / q
                 # solve_ex: no host sync on the card (the systems are
                 # positive definite)
                 x = x - torch.linalg.solve_ex(
@@ -2223,7 +2591,7 @@ def _ssda_step(problem, hp, data, comm):
         m, m_prev = carry
         eta, momentum = _bc(hp_run["eta"], m), _bc(hp_run["momentum"], m)
         v = m + momentum * (m - m_prev)
-        x = conj_grad(-v)  # primal: grad f*(-(U Lambda)_n)
+        x = conj_grad(-v, comm.local)  # primal: grad f*(-(U Lambda)_n)
         m1 = v + eta * imw_mix(x)
         return (m1, m)
 
@@ -2233,7 +2601,7 @@ def _ssda_step(problem, hp, data, comm):
 def _ssda_z_of(problem, hp, data, comm):
     """Primal read-out grad f*(-m): a real computation, not a field access."""
     conj_grad = _ssda_conj_grad(problem, data, int(hp["inner_newton"]))
-    return lambda state, hp_run: conj_grad(-state[0])
+    return lambda state, hp_run: conj_grad(-state[0], comm.local)
 
 
 register_solver(
@@ -2334,7 +2702,7 @@ def _mudag_step(problem, hp, data, comm):
     host number (``host_hp``): it sets the loop's trip count.
     """
     feats, labels = _dense_setup(problem, data)
-    G = _full_operator(problem.spec, feats, labels)
+    G = _full_operator(problem.spec, comm.local(feats), comm.local(labels))
     fastmix = _make_fastmix(comm, problem.w, feats.dtype, feats.device)
 
     def step(carry, i_t, hp_run):
@@ -2369,7 +2737,7 @@ def _sliding_step(problem, hp, data, comm):
     the runs that are.
     """
     feats, labels = _dense_setup(problem, data)
-    G = _full_operator(problem.spec, feats, labels)
+    G = _full_operator(problem.spec, comm.local(feats), comm.local(labels))
     w_mix = comm.matvec(problem.w, feats.dtype)
     mask = _run_masks(feats.device)
 
@@ -2491,7 +2859,7 @@ def _dsgda_step(problem, hp, data, comm):
     n, q, d = feats.shape
     w_mix = comm.matvec(problem.w, feats.dtype)
     head_mask = torch.cat([feats.new_ones((d,)), feats.new_zeros((t,))])
-    node = torch.arange(n, device=feats.device)
+    node = comm.local(torch.arange(n, device=feats.device))  # this caller's nodes
     memo = {}
 
     def scale_of(hp_run):

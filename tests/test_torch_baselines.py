@@ -314,13 +314,19 @@ def test_per_node_lam_on_unsupporting_method_raises():
 
 
 def test_personal_under_sharded_is_a_capability_error():
-    """The reference's record says personal has no sharded step; any other
-    method's sharded run is not ported yet (item 10)."""
+    """The reference's record says personal has no sharded step; another
+    method's sharded run matches its dense run."""
+    from repro_torch.launch.mesh import close_all
+
     problem = _matrix_problem("ridge")
     with pytest.raises(TS.CapabilityError, match="sharded backend"):
         TS.solve(problem, "personal", "sharded", steps=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TS.solve(problem, "extra", "sharded", steps=2, device="cpu")
+    try:
+        res = TS.solve(problem, "extra", "sharded", steps=2, device="cpu")
+    finally:
+        close_all()
+    dense = TS.solve(problem, "extra", steps=2, device="cpu")
+    np.testing.assert_allclose(res.z, dense.z, rtol=0, atol=TOL)
 
 
 # ---------------------------------------------------------------------------
