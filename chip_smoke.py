@@ -120,7 +120,8 @@ printed with its seconds:
    with attention_kernel "on" against "off": loss within 1e-3 relative,
    every gradient leaf within the bf16 gradient bar (5e-2) in relative
    Frobenius norm, reported layer by layer.
-12. gossip -- the train state is freed; gemma2-2b at full width (d 2304,
+12. gossip -- in the ``--gossip-ranks`` process (phase 28), as the reference
+   of the rank run: gemma2-2b at full width (d 2304,
    8/4 heads, head_dim 256, d_ff 9216, vocab 256,000, tied embedding,
    softcaps 50/30, window 4096 on the local layer) cut 26 -> 2 layers (the
    gossip state is 8 float32 copies a pod: 2 pods x 8 x 2.98 GB = 47.7 GB
@@ -137,17 +138,18 @@ printed with its seconds:
    ``chip_smoke.py --gossip-profile`` runs this phase alone and then
    block_topk on the embedding leaf's rows of the next exchange: bit for
    bit, its time, and the shares of rows split in one pass and of rows
-   whose boundary bin overflows the candidate lists.
+   whose boundary bin overflows the candidate lists. In phase 28 the same
+   setup's first 2 steps with compression "none" follow (their consensus
+   distance reported, not gated; their params' digests kept).
 13. launcher -- ``python -m repro_torch.launch.train --reduced`` on the
    card in a subprocess: 6 steps with --ckpt-every 3; the final checkpoint
    is dropped (a crash after step 3's) and a second run resumes from it; its
-   final train state must be bit-equal to the uninterrupted run's.
+   final train state must be bit-equal to the uninterrupted run's. It
+   runs side by side with 14 (two resume checks that time nothing).
 14. gossip example -- ``python -m repro_torch.examples.train_lm_gossip``
    (tiny, 4 pods, topk, a pod killed at step 5, 12 steps, checkpoints every
    4) on the card: the pods shrink to 3, the loss is finite, and a run
    resumed from step 8's checkpoint ends bit-equal.
-   The gossip phase also runs the same 6 steps with compression "none"
-   and logs their consensus distance (reported, not gated).
 15. ssd -- ssd_chunk forward and backward against their plain versions in
    float64 on the same float32 inputs (registry bars 2e-5; 2e-4 elementwise
    and in relative norm), at the score (1, 8, 256, 64, 64, 128), train
@@ -369,6 +371,28 @@ printed with its seconds:
    outlived it; then asks gloo to send a CUDA tensor on a mesh of 2 ranks
    of its own and logs what happens. The launches, summed over the ranks,
    join the kernels line.
+28. gossip ranks -- in a fresh process (``chip_smoke.py --gossip-ranks``;
+   it runs alone too): phase 12's 6 steps over 2 ranks of
+   ``launch.mesh.make_node_mesh`` sharing the card (one process a pod,
+   ``core/gossip.py``'s ``ppermute`` backend: gloo send/recv staged
+   through pinned host buffers), then, the ranks closed, phase 12 itself
+   (its local 6 steps with every check, and 2 uncompressed steps) as the
+   reference (the ranks run first: their two peaks take 75.5 of the card's
+   85 GB). Step 0 holds each
+   rank's block_topk calls bit for bit and its flash forward and backward
+   calls within their bars to the plain versions, and checks (CRC-32) that
+   every stream a rank received is the one its peer sent. Every step: 0
+   launches in the parent, 11 block_topk, 4 flash forward and 4 flash
+   backward a rank; finite loss, grad norm and consensus distance (over an
+   ``all_reduce``); the bytes each rank sent equal to 2 x the closed form
+   (2 x 58.2 MB). Then 2 steps with compression "none" over the ranks
+   (2 x 2.98 GB a rank). Against the local runs: every step's loss and grad
+   norm within GOSSIP_METRIC_RTOL, the final params bit for bit (each
+   rank's and each local pod's SHA-256 of every leaf, ``pod_digests``: a
+   2.98 GB leaf set through the mesh's pipe did not arrive in 10 minutes
+   on the card's host). It logs each rank's step wall, exchange and
+   staging seconds and peak memory, and the card's memory in use. Its
+   launches (the local run's and the ranks') join the kernels line.
 Before phase 9, flash_attention_bwd is held to its plain version at the
 train shape and at ragged small shapes (every head dim, GQA, MQA, window,
 softcap), bf16 and f32 (bars 5e-2, 2e-4); its times come from the
@@ -380,6 +404,7 @@ own failure.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -420,7 +445,7 @@ from repro_torch.ckpt.checkpoint import committed_steps, load_checkpoint  # noqa
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.sharded_loader import LoaderConfig, batch_at  # noqa: E402
 from repro_torch.core.gossip import (  # noqa: E402
-    GossipConfig, consensus_distance, init_gossip_state, make_gossip_train_step,
+    GossipConfig, consensus_distance, init_gossip_state, make_gossip_train_step, pod_digests,
     wire_bytes_per_pod,
 )
 from repro_torch.examples import (  # noqa: E402
@@ -1900,7 +1925,8 @@ def profile_ranges(fn):
     return sum(t for t, _ in kern.values()), kern, ranges, by_range
 
 
-def gossip_phase(device, topk_rows: bool = False) -> tuple[dict, dict]:
+def gossip_phase(device, topk_rows: bool = False, digests: bool = False
+                 ) -> tuple[dict, dict, list | None]:
     """GOSSIP_STEPS dsba steps of gemma2-2b at full width on 2 pods.
 
     Step 0 holds every block_topk (bit for bit), flash forward and flash
@@ -1908,7 +1934,8 @@ def gossip_phase(device, topk_rows: bool = False) -> tuple[dict, dict]:
     profiled. Every step: launches per kernel as predicted, finite loss,
     grad norm and consensus distance, wire bytes equal to the closed form.
     `topk_rows` (``--gossip-profile``) adds ``gossip_topk_rows``.
-    Returns (summary, launches over every step)."""
+    Returns (summary, launches over every step, the final params' per-pod
+    ``pod_digests`` if `digests`, else None)."""
     cfg, tc, gcfg = gossip_setup()
     full = get_config("gemma2-2b")
     n = tree_num_params(T.model_defs(cfg))
@@ -1935,9 +1962,7 @@ def gossip_phase(device, topk_rows: bool = False) -> tuple[dict, dict]:
     def one_step(i):
         nonlocal state
         before = launches()
-        b = {k: np.asarray(v).reshape(gcfg.n_pods, 1, GOSSIP_S)
-             for k, v in batch_at(ld, i).items()}
-        state, m = step_fn(state, b)
+        state, m = step_fn(state, gossip_batch(ld, gcfg.n_pods, GOSSIP_S, i))
         got = {k: c - before[k] for k, c in launches().items()}
         if got != want:
             raise AssertionError(f"gossip step {i}: launches {got} != {want}")
@@ -2017,11 +2042,11 @@ def gossip_phase(device, topk_rows: bool = False) -> tuple[dict, dict]:
     if topk_rows:
         summary["block_topk_rows"] = gossip_topk_rows(state, gcfg)
     log("gossip", json.dumps(summary))
+    final = pod_digests(state) if digests else None
     del state
     gc.collect()
     torch.cuda.empty_cache()
-    summary["reported_consensus_without_compression"] = uncompressed_consensus(device, ld)
-    return summary, total
+    return summary, total, final
 
 
 def gossip_topk_rows(state, gcfg) -> dict:
@@ -2064,27 +2089,36 @@ def gossip_topk_rows(state, gcfg) -> dict:
     return out
 
 
-def uncompressed_consensus(device, ld) -> list[float]:
-    """The consensus distance of the same GOSSIP_STEPS steps with
-    compression "none" (reported, not gated): the compressed run's growth
-    comes from its cold CHOCO reconstructions, which start at zero while
-    the params sit at a nonzero consensus (the reference's init, kept for
-    parity), not from replicas drifting on their own data."""
-    cfg, tc, gcfg = gossip_setup()
-    gcfg = dataclasses.replace(gcfg, compression="none")
+def gossip_batch(ld, n_pods, s, i) -> dict:
+    """Step i's batch of the gossip phases: (pods, 1, s) token arrays."""
+    return {k: np.asarray(v).reshape(n_pods, 1, s) for k, v in batch_at(ld, i).items()}
+
+
+def gossip_trajectory(device, setup, steps, keep_at, s=GOSSIP_S) -> tuple[list[dict], list]:
+    """`steps` local steps of a gossip setup from seed 0: each step's loss,
+    grad norm and consensus distance, and the params' ``pod_digests``
+    after `keep_at` steps. With compression "none" the consensus distance is reported,
+    not gated: the compressed run's growth comes from its cold CHOCO
+    reconstructions, which start at zero while the params sit at a nonzero
+    consensus (the reference's init, kept for parity), not from replicas
+    drifting on their own data."""
+    cfg, tc, gcfg = setup
+    ld = LoaderConfig(cfg.vocab_size, gcfg.n_pods, s, n_shards=gcfg.n_pods)
     state = init_gossip_state(cfg, tc, gcfg, 0, device)
     step_fn = make_gossip_train_step(None, cfg, tc, gcfg)
-    dist = []
-    for i in range(GOSSIP_STEPS):
-        b = {k: np.asarray(v).reshape(gcfg.n_pods, 1, GOSSIP_S)
-             for k, v in batch_at(ld, i).items()}
-        state, _ = step_fn(state, b)
-        dist.append(float(consensus_distance(state["params"])))
-    log("gossip", f"compression none, reported: consensus distance {dist}")
+    rows, kept = [], None
+    for i in range(steps):
+        state, m = step_fn(state, gossip_batch(ld, gcfg.n_pods, s, i))
+        rows.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                     "consensus_distance": float(consensus_distance(state["params"]))})
+        if i + 1 == keep_at:
+            kept = pod_digests(state)
+    log("gossip", f"local, compression {gcfg.compression}: {json.dumps(rows)}")
     del state
     gc.collect()
-    torch.cuda.empty_cache()
-    return dist
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return rows, kept
 
 
 def gossip_launcher_phase() -> dict:
@@ -5265,6 +5299,229 @@ def sharded_run(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the gossip step over ranks, one process a pod (--gossip-ranks)
+# ---------------------------------------------------------------------------
+
+GOSSIP_DENSE_STEPS = 2
+# a rank's loss and grad norm against the local run's: the same per-pod bits,
+# combined in another order (the mean of the pods' losses on the host; the
+# grad norm from each pod's sum of squares, where the local run takes each
+# leaf's norm over both pods at once): float32 summation order, ~1e-7 a sum
+GOSSIP_METRIC_RTOL = 1e-5
+
+
+def _card_memory() -> dict:
+    """The card's memory in use and its processes (``nvidia-smi``)."""
+    used = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used,memory.total", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    apps = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip().splitlines()
+    return {"memory_used_total": used, "compute_apps": apps}
+
+
+def gossip_rank_steps(mesh, setup, steps, s, checked=True) -> tuple:
+    """`steps` gossip steps of `setup` over the ranks of `mesh` from seed 0,
+    each checked: no launch in the parent, each rank's launches as
+    predicted on the card, finite metrics, the bytes each rank sent equal
+    to 2 x the closed form a shift (with compression; else 2 x the model a
+    shift). A `checked` run also holds step 0's kernel calls on the ranks
+    to their plain versions, checks every stream received against the one
+    sent, and takes the consensus distance (an ``all_reduce`` of the model
+    a rank) after every step. Returns (rows, launches summed over the ranks, the final params'
+    ``pod_digests``)."""
+    cfg, tc, gcfg = setup
+    dev = mesh.device
+    ld = LoaderConfig(cfg.vocab_size, gcfg.n_pods, s, n_shards=gcfg.n_pods)
+    shapes = [d.shape for d in tree_leaves(T.model_defs(cfg))]
+    n_shifts = len(gcfg.shifts_and_weights()[0])
+    per_rank = 2 * n_shifts * (wire_bytes_per_pod(shapes, gcfg) if gcfg.compression != "none"
+                               else 4 * tree_num_params(T.model_defs(cfg)))
+    want = (expected_gossip_launches(cfg, dataclasses.replace(gcfg, n_pods=1))
+            if dev.type == "cuda" else dict.fromkeys(WRAPPERS, 0))
+    if gcfg.compression == "none":
+        want["block_topk"] = 0
+    want = {k: want[k] for k in ("block_topk", "flash_attention", "flash_attention_bwd")}
+    t0 = time.perf_counter()
+    handle = init_gossip_state(cfg, tc, gcfg, 0, dev, mesh=mesh)
+    step_fn = make_gossip_train_step(mesh, cfg, tc, gcfg)
+    log("gossip-ranks", f"compression {gcfg.compression}: the ranks drew their states in "
+        f"{time.perf_counter() - t0:.1f} s")
+    total: dict[str, int] = {}
+    rows = []
+    for i in range(steps):
+        check = checked and i == 0
+        reset_launches()
+        t0 = time.perf_counter()
+        handle, m = step_fn(handle, gossip_batch(ld, gcfg.n_pods, s, i), check=check)
+        wall = time.perf_counter() - t0
+        if launches() != dict.fromkeys(WRAPPERS, 0):
+            raise AssertionError(f"gossip ranks step {i}: the parent launched {launches()}")
+        for r, rk in enumerate(m["ranks"]):
+            if rk["launches"] != want:
+                raise AssertionError(f"gossip ranks step {i}: rank {r} launched "
+                                     f"{rk['launches']} != {want}")
+            for k, c in rk["launches"].items():
+                total[k] = total.get(k, 0) + c
+        row = {"step": i, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "sent_bytes": m["sent_bytes"], "wall_s": wall,
+               "rank_wall_s": [rk["wall_s"] for rk in m["ranks"]],
+               "exchange_s": [rk["exchange_s"] for rk in m["ranks"]],
+               "staging_s": [rk["staging_s"] for rk in m["ranks"]],
+               "peak_gb": [None if rk["peak_bytes"] is None else rk["peak_bytes"] / 1e9
+                           for rk in m["ranks"]]}
+        if checked:
+            t0 = time.perf_counter()
+            row["consensus_distance"] = float(consensus_distance(handle))
+            row["consensus_s"] = time.perf_counter() - t0
+        if check:
+            row["streams_checked"] = m["streams_checked"]
+            row["held"] = [{k: {"calls": len(h["max_abs"]),
+                                "max_abs": max(h["max_abs"], default=0.0),
+                                "rel": max(h["rel"], default=0.0), "exact": all(h["exact"])}
+                            for k, h in (rk["held"] or {}).items()} for rk in m["ranks"]]
+            if dev.type == "cuda":
+                for r, hd in enumerate(row["held"]):
+                    calls = {k: hd[k]["calls"] for k in hd}
+                    if calls != {"block_topk": want["block_topk"],
+                                 "flash_attention": want["flash_attention"],
+                                 "flash_attention_bwd": want["flash_attention_bwd"] // 2}:
+                        raise AssertionError(f"gossip ranks: rank {r} held {calls}")
+                    if not hd["block_topk"]["exact"]:
+                        raise AssertionError(f"gossip ranks: rank {r}'s block_topk calls are "
+                                             "not bit-equal to the plain version")
+        log("gossip-ranks", json.dumps(row))
+        if not all(math.isfinite(v) for k, v in row.items()
+                   if k in ("loss", "grad_norm", "consensus_distance")):
+            raise AssertionError(f"gossip ranks step {i}: not finite {row}")
+        if m["sent_bytes"] != [per_rank] * gcfg.n_pods:
+            raise AssertionError(f"gossip ranks step {i}: sent {m['sent_bytes']} bytes a rank "
+                                 f"!= {per_rank}")
+        rows.append(row)
+    if dev.type == "cuda":
+        card = _card_memory()
+        log("gossip-ranks", f"the card while the ranks hold the state: {json.dumps(card)}")
+        rows[-1]["card"] = card
+    t0 = time.perf_counter()
+    digests = pod_digests(handle)
+    handle.close()
+    log("gossip-ranks", f"params hashed on the ranks and the states freed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return rows, total, digests
+
+
+def gossip_ranks_checks(device, setup, steps=GOSSIP_STEPS, dense_steps=GOSSIP_DENSE_STEPS,
+                        s=GOSSIP_S) -> dict:
+    """The gossip step of `setup` over ``n_pods`` ranks sharing `device`
+    (``make_node_mesh``): `steps` steps with the setup's compression, then
+    `dense_steps` with compression "none", each from seed 0 (rows, launches
+    summed over the ranks, and the final params' ``pod_digests``). Closes
+    the mesh and checks that no worker outlived it."""
+    from repro_torch.launch.mesh import make_node_mesh
+
+    cfg, tc, gcfg = setup
+    t0 = time.perf_counter()
+    mesh = make_node_mesh(gcfg.n_pods, device)
+    out = {"mesh_s": time.perf_counter() - t0}
+    log("gossip-ranks", f"{gcfg.n_pods} ranks on {device.type} up in {out['mesh_s']:.1f} s")
+    t0 = time.perf_counter()
+    out["rows"], total, out["params"] = gossip_rank_steps(mesh, setup, steps, s)
+    out["compressed_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dense = (cfg, tc, dataclasses.replace(gcfg, compression="none"))
+    out["dense_rows"], dense_total, out["dense_params"] = gossip_rank_steps(
+        mesh, dense, dense_steps, s, checked=False)
+    out["dense_s"] = time.perf_counter() - t0
+    for k, c in dense_total.items():
+        total[k] = total.get(k, 0) + c
+    sent = out["rows"][-1]["sent_bytes"][0]
+    dense_sent = out["dense_rows"][-1]["sent_bytes"][0]
+    out["bytes_a_rank"] = {"compressed": sent, "dense": dense_sent,
+                           "dense_over_compressed": dense_sent / sent}
+    log("gossip-ranks", f"bytes a rank a step: {json.dumps(out['bytes_a_rank'])}")
+    pids = mesh.pids()
+    mesh.close()
+    alive = [p for p in pids if _pid_alive(p)]
+    if alive:
+        raise AssertionError(f"gossip ranks: workers {alive} outlived close()")
+    out["launches"] = total
+    return out
+
+
+def _hold_params(tag, got, want) -> dict:
+    """Each rank's final params against its pod's in the local run, by
+    ``pod_digests``: bit-equal, or the leaves that differ with their
+    float64 norms' relative difference."""
+    out = {"leaves": 0, "bit_equal": True}
+    for p, (g, w) in enumerate(zip(got, want, strict=True)):
+        for path, (sha, norm) in w.items():
+            out["leaves"] += 1
+            if g[path][0] != sha:
+                out["bit_equal"] = False
+                out.setdefault("differ", {})[f"pod {p}: {path}"] = (
+                    abs(g[path][1] - norm) / norm if norm else g[path][1])
+    log("gossip-ranks", f"{tag}: final params vs the local run: {json.dumps(out)}")
+    if not out["bit_equal"]:
+        raise AssertionError(f"{tag}: the ranks' params are not the local run's: {out}")
+    return out
+
+
+def hold_ranks_to_local(out, ref, dense_ref) -> dict:
+    """The rank runs of ``gossip_ranks_checks`` against the local runs
+    (rows with loss and grad norm, params on the host): every step's loss
+    and grad norm within GOSSIP_METRIC_RTOL, the final params bit for bit
+    (equal SHA-256 digests, leaf by leaf and pod by pod)."""
+    for tag, rows, (ref_rows, _) in (("compressed", out["rows"], ref),
+                                      ("none", out["dense_rows"], dense_ref)):
+        for row, want in zip(rows, ref_rows):
+            for k in ("loss", "grad_norm"):
+                if abs(row[k] - want[k]) > GOSSIP_METRIC_RTOL * abs(want[k]):
+                    raise AssertionError(f"gossip ranks, {tag}, step {row['step']}: {k} "
+                                         f"{row[k]} against the local run's {want[k]}")
+    return {"params": _hold_params("compressed", out["params"], ref[1]),
+            "dense_params": _hold_params("none", out["dense_params"], dense_ref[1])}
+
+
+def gossip_ranks_run(device) -> dict:
+    """``chip_smoke.py --gossip-ranks`` (a fresh process): the gossip steps
+    over 2 ranks sharing the card, then, with the ranks closed, phase 12's
+    local gossip run (all its checks) and its uncompressed run as the
+    reference, held against them. The ranks run first: their two peaks
+    (37.75 GB each) take 75.5 of the card's 85 GB, so nothing else may hold
+    memory on the card then. The launches of the ranks and of the local
+    run join the kernels line."""
+    t_all = time.perf_counter()
+    log("gossip-ranks", subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    built = _build.build_all()  # nothing when the full run built them first
+    log("gossip-ranks", f"{sorted(built)} built in {time.perf_counter() - t_all:.1f} s")
+    setup = gossip_setup()
+    cfg, tc, gcfg = setup
+    out = gossip_ranks_checks(device, setup)
+    t0 = time.perf_counter()
+    summary, local_launches, digests = gossip_phase(device, digests=True)
+    ref = ([{"loss": r["loss"], "grad_norm": r["grad_norm"]} for r in summary["steps"]], digests)
+    dense = (cfg, tc, dataclasses.replace(gcfg, compression="none"))
+    dense_ref = gossip_trajectory(device, dense, GOSSIP_DENSE_STEPS, GOSSIP_DENSE_STEPS)
+    out["local_s"] = time.perf_counter() - t0
+    log("gossip-ranks", f"local runs done in {out['local_s']:.1f} s; the parent holds "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved; the card: "
+        f"{json.dumps(_card_memory())}")
+    held = hold_ranks_to_local(out, ref, dense_ref)
+    out["held_to_local"] = held
+    out["local"] = summary
+    out["local_consensus_without_compression"] = [r["consensus_distance"] for r in dense_ref[0]]
+    for k, c in local_launches.items():
+        out["launches"][k] = out["launches"].get(k, 0) + c
+    out["seconds"] = time.perf_counter() - t_all
+    log("gossip-ranks", f"launches {out['launches']}; all done in {out['seconds']:.1f} s")
+    return out
+
+
 def profile_subprocess(flag: str, *args: str, timeout: float = 900) -> dict:
     """``chip_smoke.py <flag> [args]`` in a fresh process on the same card;
     its JSON result (the last line of its output)."""
@@ -5393,20 +5650,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("train", f"on vs off done in {time.perf_counter() - t0:.1f} s")
 
-    log("gossip", f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before the gossip "
-        "state")
     t0 = time.perf_counter()
-    _, gossip_launches = gossip_phase(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
-    log("gossip", f"launches {gossip_launches}; done in {time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
-    launcher_phase()
-    log("launcher", f"done in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    gossip_launcher_phase()
-    log("gossip-example", f"done in {time.perf_counter() - t0:.1f} s")
+    # two resume checks that time nothing: their child processes run side by side
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for done in [pool.submit(launcher_phase), pool.submit(gossip_launcher_phase)]:
+            done.result()
+    log("launcher", f"with the gossip example, done in {time.perf_counter() - t0:.1f} s")
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -5466,16 +5715,19 @@ def main() -> int:
     t0 = time.perf_counter()
     sharded = profile_subprocess("--sharded")
     log("sharded", f"done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log("gossip-ranks", f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated in this "
+        "process before the gossip states")
+    gossip = profile_subprocess("--gossip-ranks")
+    log("gossip-ranks", f"done in {time.perf_counter() - t0:.1f} s")
 
     total["decode_attention"] = serve_launches["decode_attention"]
-    # flash_attention runs on three main paths: the score phase, the train
-    # steps and the gossip steps; its backward on the last two
+    # flash_attention runs on two main paths here: the score phase and the
+    # train steps; its backward on the last; the gossip steps (local and over
+    # ranks) in --gossip-ranks below
     total["flash_attention"] = (score_launches["flash_attention"]
-                                + train_launches["flash_attention"]
-                                + gossip_launches["flash_attention"])
-    total["flash_attention_bwd"] = (train_launches["flash_attention_bwd"]
-                                    + gossip_launches["flash_attention_bwd"])
-    total["block_topk"] = gossip_launches["block_topk"]
+                                + train_launches["flash_attention"])
+    total["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
     # ssd_chunk runs on three main paths: the ssm serve prefills, the ssm
     # score phase and the ssm train steps; its backward on the last
     total["ssd_chunk"] = (ssm_serve_launches["ssd_chunk"] + ssm_score_launches["ssd_chunk"]
@@ -5487,11 +5739,14 @@ def main() -> int:
     # minitron-8b's blockwise prefill (--options), the fault, schedule,
     # churn and resume paths (--faults), the batched sweeps at B*N rows
     # (--sweep), the examples and the dry run's fitting cell on the card
-    # (--launch), and the ranks of the sharded backend (--sharded)
+    # (--launch), the ranks of the sharded backend (--sharded), and the
+    # gossip steps, local and over 2 ranks (--gossip-ranks: block_topk's
+    # only path)
     for name, n in (*hybrid["launches"].items(), *moe["launches"].items(),
                     *encdec["launches"].items(), *options["launches"].items(),
                     *faults["launches"].items(), *sweep["launches"].items(),
-                    *launch["launches"].items(), *sharded["launches"].items()):
+                    *launch["launches"].items(), *sharded["launches"].items(),
+                    *gossip["launches"].items()):
         total[name] += n
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -5514,6 +5769,7 @@ if __name__ == "__main__":
                 "--options": options_run,
                 "--solvers": solvers_run, "--faults": faults_run,
                 "--sweep": sweep_run, "--launch": launch_run, "--sharded": sharded_run,
+                "--gossip-ranks": gossip_ranks_run,
                 "--topk-profile": topk_profile,
                 "--gossip-profile": lambda dev: gossip_phase(dev, topk_rows=True)[0],
                 "--decode-profile": lambda dev, *a: decode_profile(dev, *map(json.loads, a))}

@@ -1,7 +1,9 @@
 """The node mesh of the sharded solver backend (port of ``repro.launch.mesh``).
 
 ``make_node_mesh(n)`` is the substrate of ``comm="sharded"``
-(``core.comm.ShardedComm``): one graph node per rank. The JAX call hands
+(``core.comm.ShardedComm``): one graph node per rank, and of the gossip
+train step's ``ppermute`` backend (``core.gossip.PodExchange``): one pod
+per rank. The JAX call hands
 back a mesh of N devices that one controller drives; the port keeps that
 API and returns a ``NodeMesh`` that owns N worker processes, started with
 the ``spawn`` context of ``torch.multiprocessing``. Rank r is graph node
@@ -27,9 +29,9 @@ A mesh is built once and reused: ``make_node_mesh`` keeps a registry keyed
 by ``(n, device)``. ``close()`` (also a context manager's exit, and an
 ``atexit`` hook for every mesh still open) stops and joins the workers.
 
-The production and test meshes of the model half (``make_production_mesh``
-and ``make_test_mesh``: the FSDP x TP layouts of the gossip train step)
-are not ported yet (ROADMAP Queue 1 item 10).
+The production and test meshes of the within-pod half
+(``make_production_mesh`` and ``make_test_mesh``: the FSDP x TP layouts
+inside a pod) are not ported yet (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 

@@ -69,10 +69,16 @@ def adam_init(cfg: AdamConfig, params) -> dict:
     return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params)}
 
 
+def sum_of_squares(tree) -> torch.Tensor:
+    """The sum of squares over every leaf, in float32 (a 0-d tensor): the
+    squared leaf norms summed, ``global_norm`` before its root."""
+    norms = [torch.linalg.vector_norm(g, dtype=torch.float32) for g in tree_leaves(tree)]
+    return torch.stack(norms).square().sum()
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt(sum of squares) over every leaf, in float32 (a 0-d tensor)."""
-    norms = [torch.linalg.vector_norm(g, dtype=torch.float32) for g in tree_leaves(tree)]
-    return torch.stack(norms).square().sum().sqrt()
+    return sum_of_squares(tree).sqrt()
 
 
 def _flat(t: torch.Tensor, what: str) -> torch.Tensor:

@@ -43,6 +43,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import jax
@@ -217,15 +218,26 @@ def test_exchange_goes_through_the_registry():
 
 
 def test_mesh_and_unported_pieces_raise():
+    """The pod mesh runs (tests/test_torch_gossip_ranks.py); what is still
+    unported raises: the within-pod sharded train step and the launcher's
+    --mesh. A mesh whose size is not n_pods is refused before any rank runs."""
+    from repro_torch.launch import train as launcher
+    from repro_torch.train import step as train_step
+
+    with pytest.raises(NotImplementedError, match="Queue 1 items 10 and 14"):
+        train_step.make_jitted_train_step()
+    with pytest.raises(NotImplementedError, match="Queue 1 items 10 and 14"):
+        launcher.run(launcher.parse_args(["--reduced", "--device", "cpu", "--mesh", "single"]))
     gc = G.GossipConfig()
-    for make in (G.make_dense_mix, G.make_topk_exchange):
-        with pytest.raises(NotImplementedError, match="Queue 1 items 10 and 14"):
-            make(object(), gc)
     cfg = C.get_reduced("gemma2-2b")
-    with pytest.raises(NotImplementedError, match="Queue 1 items 10 and 14"):
-        G.make_gossip_train_step(object(), cfg, TrainConfig(), gc)
-    with pytest.raises(NotImplementedError, match="Queue 1 items 10 and 14"):
-        G.gossip_batch_specs(cfg)
+    wrong = types.SimpleNamespace(n=3, device=torch.device("cpu"))
+    for make in (G.make_dense_mix, G.make_topk_exchange):
+        with pytest.raises(ValueError, match="n_pods is 2 but the 'pod' mesh has 3 ranks"):
+            make(wrong, gc)
+    with pytest.raises(ValueError, match="n_pods is 2 but the 'pod' mesh has 3 ranks"):
+        G.make_gossip_train_step(wrong, cfg, TrainConfig(), gc)
+    with pytest.raises(ValueError, match="n_pods is 2 but the 'pod' mesh has 3 ranks"):
+        G.init_gossip_state(cfg, TrainConfig(), gc, 0, "cpu", mesh=wrong)
     with pytest.raises(ValueError, match="kernel_mode"):
         G.GossipConfig(kernel_mode="interpret")
     from repro_torch.ft import faults
@@ -275,6 +287,12 @@ def test_trajectory_matches_jax(which, mode, compression):
         if i == 0:
             np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]),
                                        rtol=GRAD_TOL)
+    _hold_to_jax(mode, compression, lr, gc, state, jstate, m, start)
+
+
+def _hold_to_jax(mode, compression, lr, gc, state, jstate, m, start):
+    """A port gossip state after STEPS steps against the JAX one, at the
+    trajectory bars of the module docstring."""
     assert int(state["step"]) == int(jstate["step"]) == STEPS
     assert set(state) == set(jstate)
 
