@@ -39,7 +39,7 @@ printed with its seconds:
 4. slice   -- the main path: ``solve()`` on the paper's Section-7 setup
    (rcv1 preset, N=10, q=100, Erdos-Renyi(0.4) seed 0, Laplacian W,
    lam = 1/(10 Q)) for dsba and dsa on ridge, logistic and AUC:
-   dense for 200 steps on the card, held to the same port run on the CPU
+   dense for 100 steps on the card, held to the same port run on the CPU
    with the plain kernels (<= 1e-10: cuBLAS sums the 10x10 mixing product
    in another order than the CPU); sparse relay (verify=True) for 100
    steps on the card, held to the dense run (<= 1e-12) and to the
@@ -53,7 +53,7 @@ printed with its seconds:
 7. serve   -- minitron-8b at full width (random bf16 weights from a seeded
    torch.Generator on the card) behind ``serve.Scheduler``:
    PoolConfig(max_batch=8, block_size=16, max_len=1024, prompt_pad=256,
-   n_blocks=513), 24 requests with prompts of 16-256 tokens and 16-64 new
+   n_blocks=513), 12 requests with prompts of 16-256 tokens and 16-64 new
    tokens (numpy seed 0). Checks: every request finishes with its token
    count; decode_attention launches = decode steps x 32 layers; the pool
    is never reallocated (data_ptr); in the first 4 decode steps every
@@ -160,7 +160,7 @@ printed with its seconds:
 16. ssm serve -- mamba2-1.3b at full width and depth (48 layers, d 2048,
    d_inner 4096, 64 heads of 64, state 128, vocab 50,280; random bf16
    weights from seed 0) behind ``serve.Scheduler`` with the serve phase's
-   pool and 24 requests. Checks: token counts; no page ever allocated; the
+   pool and 12 requests. Checks: token counts; no page ever allocated; the
    state pool never reallocated; ssd_chunk launches = prefills x 48 and none
    in decode; every ssd call of the first step's prefills held to the plain
    version; a padded prefill's state equals a prefill of exactly valid_len
@@ -190,7 +190,7 @@ printed with its seconds:
    B=1, S=2048 and the backward at B=4, S=2048 (D=64, 32/32, causal; SDPA
    beside them computes the same function), the SSD pair at state 64 at
    the train, score and prefill shapes. Serve: the serve phase's pool and
-   24 requests; token counts, decode_attention launches = decode steps x 6,
+   12 requests; token counts, decode_attention launches = decode steps x 6,
    ssd_chunk = prefills x 38, no flash launch, the pools never
    reallocated, every decode_attention call (D=64, group 1) of the first 4
    decode steps and every ssd call of the first step's prefills held to the
@@ -218,7 +218,7 @@ printed with its seconds:
    5632, capacity factor 1.25, vocab 151,936; random bf16 weights from seed
    0, 29.25 GB). First the flash kernels at its shapes (D=128, 16/16,
    causal: forward B=1, S=2048, backward B=2, S=2048, beside SDPA). Serve:
-   the serve phase's pool and 24 requests at all 24 layers; token counts,
+   the serve phase's pool and 12 requests at all 24 layers; token counts,
    decode_attention launches = decode steps x 24, no flash launch, the pool
    never reallocated, every decode_attention call (D=128, group 1) of the
    first 4 decode steps held; decode timed at the busiest step's snapshot;
@@ -236,7 +236,7 @@ printed with its seconds:
    (1,500 = 23 x 64 + 28: the kernel masks the keys past Sk and the
    backward the query rows past S) forward at B=1 and B=8 and backward at
    B=8, the decoder's causal S=448 forward and backward at B=8, beside SDPA
-   (the bound counts S x Sk pairs non-causal). Serve: 24 requests, each
+   (the bound counts S x Sk pairs non-causal). Serve: 12 requests, each
    with seeded (1500, 768) frames; the encoder runs at admission (12
    non-causal flash launches a request, those of the first step's 8
    admissions held), decode_attention = decode steps x 12, each call of the
@@ -336,9 +336,9 @@ printed with its seconds:
    too): the examples, the registry's public entry points, the dry run and
    the build cache. The examples' ``main()`` on the card with every kernel
    call held to its plain version and their launches counted: quickstart
-   (500 steps), decentralized_ridge at rcv1's published width (--dataset
+   (200 steps), decentralized_ridge at rcv1's published width (--dataset
    rcv1 --d 47236, k = 74, 2 passes; SSDA through its q x q Woodbury
-   factor), auc_maximization (10 passes), serve_decode for mamba2-1.3b
+   factor), auc_maximization (4 passes), serve_decode for mamba2-1.3b
    (reduced; ssd_chunk in its prefill). The six entry points
    (``flash_attention``, ``decode_attention``, ``saga_sparse_dot``,
    ``saga_sparse_axpy``, ``topk_blocks``, ``ssd_chunk``) with mode "on"
@@ -357,10 +357,10 @@ printed with its seconds:
 27. sharded -- in a fresh process (``chip_smoke.py --sharded``; it runs
    alone too): ``solve(comm="sharded")`` with N = 10 ranks (worker
    processes of ``launch.mesh.make_node_mesh``, one gloo group) sharing
-   the card at the rcv1 Section-7 setup (ridge): DSBA and DSA 100 steps,
+   the card at the rcv1 Section-7 setup (ridge): DSBA and DSA 50 steps,
    twice each (the ranks bind their runner in the first), held to the
    dense run on the card (1e-12) and to the CPU (1e-10), DOUBLEs equal;
-   a DSBA link-fault run (p = 0.2, 30 steps) held to the dense fault run
+   a DSBA link-fault run (p = 0.2, 20 steps) held to the dense fault run
    (1e-12, the faults record equal, the counted exchanges the fault-free
    run's). Every rank launches ``expected_launches`` (init included) and
    the parent none. It logs the edge colouring, the collectives record,
@@ -383,16 +383,45 @@ printed with its seconds:
    calls within their bars to the plain versions, and checks (CRC-32) that
    every stream a rank received is the one its peer sent. Every step: 0
    launches in the parent, 11 block_topk, 4 flash forward and 4 flash
-   backward a rank; finite loss, grad norm and consensus distance (over an
-   ``all_reduce``); the bytes each rank sent equal to 2 x the closed form
-   (2 x 58.2 MB). Then 2 steps with compression "none" over the ranks
-   (2 x 2.98 GB a rank). Against the local runs: every step's loss and grad
-   norm within GOSSIP_METRIC_RTOL, the final params bit for bit (each
-   rank's and each local pod's SHA-256 of every leaf, ``pod_digests``: a
-   2.98 GB leaf set through the mesh's pipe did not arrive in 10 minutes
-   on the card's host). It logs each rank's step wall, exchange and
-   staging seconds and peak memory, and the card's memory in use. Its
-   launches (the local run's and the ranks') join the kernels line.
+   backward a rank; finite loss and grad norm; the bytes each rank sent
+   equal to 2 x the closed form (2 x 58.2 MB); after the last step the
+   consensus distance (over an ``all_reduce``) and the params of both
+   ranks gathered to the host through the mesh's pipes (2 x 2.98 GB, in
+   pieces). Then 1 step with compression "none" over the ranks (2 x 2.98
+   GB a rank). Against the local runs: every step's loss and grad norm
+   within GOSSIP_METRIC_RTOL, the final params bit for bit (the gathered
+   ones leaf by leaf; the uncompressed run's by each rank's and each
+   local pod's SHA-256 of every leaf, ``pod_digests``). It logs each
+   rank's step wall, exchange and staging seconds and peak memory, and
+   the card's memory in use. Its launches (the local run's and the
+   ranks') join the kernels line.
+29. fsdp -- in a fresh process (``chip_smoke.py --fsdp``; it runs alone
+   too): the within-pod FSDP x TP train step (``train.sharded``) of
+   gemma2-2b at full width cut to 2 layers, B=2, S=2048, 3 steps of the
+   default AdamW, on a 2 x 2 ("data", "model") mesh of four ranks sharing
+   the card (gloo through pinned host buffers). First, in this process,
+   the unsharded ``train_step`` on the same seed and batches (its losses,
+   grad norms and the params before and after, one ``.npy`` a leaf on the
+   host; the card freed), and as a control the same at 2 microbatches
+   (another summation order of the same function). Then the ranks: their
+   initial blocks bit-equal to the unsharded init; every step 0 launches
+   in the parent, 4 flash forward and 4 flash backward a rank (step 0's
+   held to the plain versions), each rank's sent bytes equal to the
+   closed form from the pspecs, loss within 1e-3 and grad norm within
+   5e-2 of the unsharded step's; after the steps each rank's blocks
+   against the same blocks of the unsharded params (read with mmap): each
+   leaf's change within 5e-2 relative norm, every element within
+   2 x 3 x lr. It logs each rank's step wall and its collective seconds
+   by kind (gather, reduce-scatter, TP all-reduce) beside the unsharded
+   step's wall, its peak memory and bytes sent. Its launches (the
+   reference's and the ranks') join the kernels line.
+The full run starts phases 20 and 21 (``--moe``, ``--encdec``), 23 and 24
+(``--solvers``, ``--faults``), and 25 and 27 (``--sweep``, ``--sharded``)
+two at a time (``side_by_side``): their checks time nothing that the
+kernels line reports, and each pair's memory fits on the card together
+(``--launch`` runs alone: its fitting cell takes 61 GB, and an rcv1-width
+z* solve 17.8 GB); their own step times are then taken beside each
+other's (run a flag alone to time it).
 Before phase 9, flash_attention_bwd is held to its plain version at the
 train shape and at ragged small shapes (every head dim, GQA, MQA, window,
 softcap), bf16 and f32 (bars 5e-2, 2e-4); its times come from the
@@ -416,6 +445,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -445,8 +475,8 @@ from repro_torch.ckpt.checkpoint import committed_steps, load_checkpoint  # noqa
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.sharded_loader import LoaderConfig, batch_at  # noqa: E402
 from repro_torch.core.gossip import (  # noqa: E402
-    GossipConfig, consensus_distance, init_gossip_state, make_gossip_train_step, pod_digests,
-    wire_bytes_per_pod,
+    GossipConfig, consensus_distance, gather_gossip_state, init_gossip_state,
+    make_gossip_train_step, pod_digests, wire_bytes_per_pod,
 )
 from repro_torch.examples import (  # noqa: E402
     auc_maximization, decentralized_ridge, quickstart, serve_decode,
@@ -898,7 +928,7 @@ def counted_solve(problem, method, comm, device, steps, total, **kw):
     return res
 
 
-def slice_runs(device, d, k, n_nodes=10, q=100, dense_steps=200,
+def slice_runs(device, d, k, n_nodes=10, q=100, dense_steps=100,
                sparse_steps=100, record_every=50) -> tuple[dict, list]:
     """The main path: dense and sparse solve() for dsba/dsa x 3 families.
 
@@ -1374,7 +1404,10 @@ def decode_profile(device, lengths=None) -> dict:
     return out
 
 
-def serve_requests(cfg, n=24, seed=0) -> list[Request]:
+SERVE_REQUESTS = 12  # 1.5 x the pool's slots: admissions wait for a slot
+
+
+def serve_requests(cfg, n=SERVE_REQUESTS, seed=0) -> list[Request]:
     """`n` requests: prompts of 16-256 tokens, 16-64 new tokens."""
     rng = np.random.default_rng(seed)
     return [Request(i, rng.integers(0, cfg.vocab_size, int(rng.integers(16, 257))),
@@ -1925,8 +1958,8 @@ def profile_ranges(fn):
     return sum(t for t, _ in kern.values()), kern, ranges, by_range
 
 
-def gossip_phase(device, topk_rows: bool = False, digests: bool = False
-                 ) -> tuple[dict, dict, list | None]:
+def gossip_phase(device, topk_rows: bool = False, host_params: bool = False
+                 ) -> tuple[dict, dict, dict | None]:
     """GOSSIP_STEPS dsba steps of gemma2-2b at full width on 2 pods.
 
     Step 0 holds every block_topk (bit for bit), flash forward and flash
@@ -1934,8 +1967,8 @@ def gossip_phase(device, topk_rows: bool = False, digests: bool = False
     profiled. Every step: launches per kernel as predicted, finite loss,
     grad norm and consensus distance, wire bytes equal to the closed form.
     `topk_rows` (``--gossip-profile``) adds ``gossip_topk_rows``.
-    Returns (summary, launches over every step, the final params' per-pod
-    ``pod_digests`` if `digests`, else None)."""
+    Returns (summary, launches over every step, the final params copied to
+    the host if `host_params`, else None)."""
     cfg, tc, gcfg = gossip_setup()
     full = get_config("gemma2-2b")
     n = tree_num_params(T.model_defs(cfg))
@@ -2042,7 +2075,7 @@ def gossip_phase(device, topk_rows: bool = False, digests: bool = False
     if topk_rows:
         summary["block_topk_rows"] = gossip_topk_rows(state, gcfg)
     log("gossip", json.dumps(summary))
-    final = pod_digests(state) if digests else None
+    final = tree_map(lambda _, t: t.detach().cpu(), state["params"]) if host_params else None
     del state
     gc.collect()
     torch.cuda.empty_cache()
@@ -2094,10 +2127,12 @@ def gossip_batch(ld, n_pods, s, i) -> dict:
     return {k: np.asarray(v).reshape(n_pods, 1, s) for k, v in batch_at(ld, i).items()}
 
 
-def gossip_trajectory(device, setup, steps, keep_at, s=GOSSIP_S) -> tuple[list[dict], list]:
+def gossip_trajectory(device, setup, steps, keep_at, s=GOSSIP_S, host_params=False
+                      ) -> tuple[list[dict], list]:
     """`steps` local steps of a gossip setup from seed 0: each step's loss,
-    grad norm and consensus distance, and the params' ``pod_digests``
-    after `keep_at` steps. With compression "none" the consensus distance is reported,
+    grad norm and consensus distance, and the params' ``pod_digests`` (or,
+    with `host_params`, their host copies) after `keep_at` steps. With
+    compression "none" the consensus distance is reported,
     not gated: the compressed run's growth comes from its cold CHOCO
     reconstructions, which start at zero while the params sit at a nonzero
     consensus (the reference's init, kept for parity), not from replicas
@@ -2112,7 +2147,8 @@ def gossip_trajectory(device, setup, steps, keep_at, s=GOSSIP_S) -> tuple[list[d
         rows.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                      "consensus_distance": float(consensus_distance(state["params"]))})
         if i + 1 == keep_at:
-            kept = pod_digests(state)
+            kept = (tree_map(lambda _, t: t.detach().cpu(), state["params"]) if host_params
+                    else pod_digests(state))
     log("gossip", f"local, compression {gcfg.compression}: {json.dumps(rows)}")
     del state
     gc.collect()
@@ -2672,7 +2708,7 @@ def n_shared(cfg) -> int:
 
 def hybrid_serve_phase(device, cfg, params) -> tuple[dict, dict, tuple]:
     """The Scheduler at full width and depth with zamba2-1.2b's random init,
-    the serve phase's pool and 24 requests.
+    the serve phase's pool and 12 requests.
 
     Hard checks: every request ends with its token count; decode_attention
     launches = decode steps x 6 (one a use of the shared block), ssd_chunk
@@ -3418,7 +3454,7 @@ def moe_run(device) -> dict:
     width. First the flash kernels at its shapes (MHA 16/16, D=128, causal:
     the forward at the score shape, B=1, S=2048; the backward at the train
     shape, B=2, S=2048; SDPA beside them computes the same function); then,
-    on random bf16 weights from seed 0 (29.25 GB), serve (24 requests, all
+    on random bf16 weights from seed 0 (29.25 GB), serve (12 requests, all
     24 layers; decode timed at the busiest step's snapshot, D=128 group 1)
     and score (B=1, S=2048), with every kernel call held and the routes'
     drops and on-vs-off flips reported; then train at full width cut to
@@ -3460,7 +3496,7 @@ def frames(cfg, b, device, seed) -> torch.Tensor:
     return torch.randn(b, cfg.encoder_len, cfg.d_model, generator=g, device=device)
 
 
-def encdec_requests(cfg, n=24, seed=0) -> list[Request]:
+def encdec_requests(cfg, n=SERVE_REQUESTS, seed=0) -> list[Request]:
     """``serve_requests`` with a seeded (encoder_len, d_model) float32
     ``enc_embeds`` each."""
     rng = np.random.default_rng(seed + 1)
@@ -3583,7 +3619,7 @@ def encdec_run(device) -> dict:
     frames (forward at B=1, the serve admission, and B=ENC_B; backward at
     B=ENC_B), the decoder's causal S=DEC_S (forward and backward at
     B=ENC_B), beside SDPA; then, on random bf16 weights from seed 0, serve
-    (24 requests, each with seeded (1500, 768) frames; the encoder runs at
+    (12 requests, each with seeded (1500, 768) frames; the encoder runs at
     admission; decode timed at the busiest step's snapshot, D=64 group 1),
     score (B=ENC_B, S=DEC_S over 1,500 frames), the conditioned end-to-end
     checks, one reported backward at the reference's init
@@ -4736,9 +4772,9 @@ SOLVER_KERNELS = ("sparse_dot", "sparse_axpy")
 # decentralized_ridge 40 passes, auc_maximization 30): every held
 # sparse_axpy call runs the plain version's k-column scatter beside the
 # kernel (8,000 held quickstart steps took 60 s)
-QUICKSTART_STEPS = 500
+QUICKSTART_STEPS = 200
 RIDGE_PASSES = 2
-AUC_PASSES = 10
+AUC_PASSES = 4
 
 
 def held_run(names, fn):
@@ -5115,8 +5151,8 @@ def attention_profile(device) -> dict:
 # phase 27: comm="sharded", one rank a graph node on the card (--sharded)
 # ---------------------------------------------------------------------------
 
-SHARDED_STEPS = 100
-SHARDED_LINK_STEPS = 30
+SHARDED_STEPS = 50
+SHARDED_LINK_STEPS = 20
 SHARDED_TOL = 1e-12  # sharded vs dense on one device: the reference's bar
 
 
@@ -5303,7 +5339,7 @@ def sharded_run(device) -> dict:
 # phase 28: the gossip step over ranks, one process a pod (--gossip-ranks)
 # ---------------------------------------------------------------------------
 
-GOSSIP_DENSE_STEPS = 2
+GOSSIP_DENSE_STEPS = 1
 # a rank's loss and grad norm against the local run's: the same per-pod bits,
 # combined in another order (the mean of the pods' losses on the host; the
 # grad norm from each pod's sum of squares, where the local run takes each
@@ -5329,9 +5365,12 @@ def gossip_rank_steps(mesh, setup, steps, s, checked=True) -> tuple:
     to 2 x the closed form a shift (with compression; else 2 x the model a
     shift). A `checked` run also holds step 0's kernel calls on the ranks
     to their plain versions, checks every stream received against the one
-    sent, and takes the consensus distance (an ``all_reduce`` of the model
-    a rank) after every step. Returns (rows, launches summed over the ranks, the final params'
-    ``pod_digests``)."""
+    sent, takes the consensus distance (an ``all_reduce`` of the model a
+    rank) after its last step and gathers the final params to the host
+    through the mesh's pipes (``gather_gossip_state``: a full-width model a
+    rank, in pieces). Returns (rows, launches summed over the ranks, the
+    final params: the gathered pod-stacked host tree of a `checked` run,
+    else their ``pod_digests``)."""
     cfg, tc, gcfg = setup
     dev = mesh.device
     ld = LoaderConfig(cfg.vocab_size, gcfg.n_pods, s, n_shards=gcfg.n_pods)
@@ -5372,7 +5411,7 @@ def gossip_rank_steps(mesh, setup, steps, s, checked=True) -> tuple:
                "staging_s": [rk["staging_s"] for rk in m["ranks"]],
                "peak_gb": [None if rk["peak_bytes"] is None else rk["peak_bytes"] / 1e9
                            for rk in m["ranks"]]}
-        if checked:
+        if checked and i == steps - 1:
             t0 = time.perf_counter()
             row["consensus_distance"] = float(consensus_distance(handle))
             row["consensus_s"] = time.perf_counter() - t0
@@ -5405,11 +5444,17 @@ def gossip_rank_steps(mesh, setup, steps, s, checked=True) -> tuple:
         log("gossip-ranks", f"the card while the ranks hold the state: {json.dumps(card)}")
         rows[-1]["card"] = card
     t0 = time.perf_counter()
-    digests = pod_digests(handle)
+    if checked:
+        final = gather_gossip_state(handle, "cpu", keys=("params",))["params"]
+        nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(final))
+        rows[-1]["gather"] = {"bytes": nbytes, "s": time.perf_counter() - t0}
+        log("gossip-ranks", f"params gathered through the pipes: {nbytes / 1e9:.2f} GB in "
+            f"{rows[-1]['gather']['s']:.1f} s")
+    else:
+        final = pod_digests(handle)
+        log("gossip-ranks", f"params hashed on the ranks in {time.perf_counter() - t0:.1f} s")
     handle.close()
-    log("gossip-ranks", f"params hashed on the ranks and the states freed in "
-        f"{time.perf_counter() - t0:.1f} s")
-    return rows, total, digests
+    return rows, total, final
 
 
 def gossip_ranks_checks(device, setup, steps=GOSSIP_STEPS, dense_steps=GOSSIP_DENSE_STEPS,
@@ -5468,11 +5513,25 @@ def _hold_params(tag, got, want) -> dict:
     return out
 
 
+def _hold_gathered(tag, got, want) -> dict:
+    """The params gathered from the ranks against the local run's (both
+    pod-stacked host trees), leaf by leaf, bit for bit."""
+    differ = []
+    tree_map(lambda path, a, b: torch.equal(a, b) or differ.append("/".join(path)), got, want)
+    out = {"leaves": len(tree_leaves(want)), "bit_equal": not differ,
+           "bytes": sum(t.numel() * t.element_size() for t in tree_leaves(got))}
+    log("gossip-ranks", f"{tag}: gathered params vs the local run: {json.dumps(out)}")
+    if differ:
+        raise AssertionError(f"{tag}: the gathered params are not the local run's: {differ}")
+    return out
+
+
 def hold_ranks_to_local(out, ref, dense_ref) -> dict:
     """The rank runs of ``gossip_ranks_checks`` against the local runs
     (rows with loss and grad norm, params on the host): every step's loss
     and grad norm within GOSSIP_METRIC_RTOL, the final params bit for bit
-    (equal SHA-256 digests, leaf by leaf and pod by pod)."""
+    (the compressed run's gathered through the pipes, the dense run's by
+    equal SHA-256 digests, leaf by leaf and pod by pod)."""
     for tag, rows, (ref_rows, _) in (("compressed", out["rows"], ref),
                                       ("none", out["dense_rows"], dense_ref)):
         for row, want in zip(rows, ref_rows):
@@ -5480,7 +5539,7 @@ def hold_ranks_to_local(out, ref, dense_ref) -> dict:
                 if abs(row[k] - want[k]) > GOSSIP_METRIC_RTOL * abs(want[k]):
                     raise AssertionError(f"gossip ranks, {tag}, step {row['step']}: {k} "
                                          f"{row[k]} against the local run's {want[k]}")
-    return {"params": _hold_params("compressed", out["params"], ref[1]),
+    return {"params": _hold_gathered("compressed", out["params"], ref[1]),
             "dense_params": _hold_params("none", out["dense_params"], dense_ref[1])}
 
 
@@ -5502,8 +5561,8 @@ def gossip_ranks_run(device) -> dict:
     cfg, tc, gcfg = setup
     out = gossip_ranks_checks(device, setup)
     t0 = time.perf_counter()
-    summary, local_launches, digests = gossip_phase(device, digests=True)
-    ref = ([{"loss": r["loss"], "grad_norm": r["grad_norm"]} for r in summary["steps"]], digests)
+    summary, local_launches, params = gossip_phase(device, host_params=True)
+    ref = ([{"loss": r["loss"], "grad_norm": r["grad_norm"]} for r in summary["steps"]], params)
     dense = (cfg, tc, dataclasses.replace(gcfg, compression="none"))
     dense_ref = gossip_trajectory(device, dense, GOSSIP_DENSE_STEPS, GOSSIP_DENSE_STEPS)
     out["local_s"] = time.perf_counter() - t0
@@ -5512,6 +5571,8 @@ def gossip_ranks_run(device) -> dict:
         f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved; the card: "
         f"{json.dumps(_card_memory())}")
     held = hold_ranks_to_local(out, ref, dense_ref)
+    del params, ref
+    out.pop("params")
     out["held_to_local"] = held
     out["local"] = summary
     out["local_consensus_without_compression"] = [r["consensus_distance"] for r in dense_ref[0]]
@@ -5519,6 +5580,319 @@ def gossip_ranks_run(device) -> dict:
         out["launches"][k] = out["launches"].get(k, 0) + c
     out["seconds"] = time.perf_counter() - t_all
     log("gossip-ranks", f"launches {out['launches']}; all done in {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 29: the within-pod FSDP x TP train step, a (data, model) mesh of
+# ranks on the card (--fsdp)
+# ---------------------------------------------------------------------------
+
+FSDP_LAYERS, FSDP_B, FSDP_S, FSDP_STEPS, FSDP_MESH = 2, 2, 2048, 3, (2, 2)
+# PERF.md's "on vs off" bars at bf16 compute: the sharded step against the
+# unsharded one is the same function in another summation order
+FSDP_LOSS_RTOL = 1e-3
+FSDP_GNORM_RTOL = 5e-2
+FSDP_CHANGE_REL = 5e-2  # each leaf's change p_3 - p_0, relative norm
+
+
+def fsdp_setup(layers=FSDP_LAYERS):
+    """(model config, TrainConfig) of the within-pod phase: gemma2-2b at
+    full width cut to `layers` layers (one local/global pair), flash
+    attention through the kernel, the default AdamW."""
+    cfg = dataclasses.replace(get_config("gemma2-2b"), n_layers=layers, attention_kernel="on")
+    return cfg, TrainConfig()
+
+
+def fsdp_reference(device, setup, batches, out_dir) -> dict:
+    """The unsharded port ``train_step`` on the same seed and batches: each
+    step's loss, grad norm and wall, the peak, and the parameters before
+    and after as one ``.npy`` a leaf under `out_dir` (the ranks read their
+    blocks of them); the card is freed before it returns."""
+    cfg, tc = setup
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, tc, 0, device)
+    files = {"p0": {}, "p3": {}}
+    reset_launches()
+
+    def save(tag):
+        def one(path, t):
+            f = os.path.join(out_dir, f"{tag}_{'_'.join(path)}.npy")
+            np.save(f, t.detach().cpu().numpy())
+            files[tag]["/".join(path)] = f
+        tree_map(one, state["params"])
+
+    t0 = time.perf_counter()
+    save("p0")
+    rows = []
+    for i, batch in enumerate(batches):
+        if cuda:
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = train_step(cfg, tc, state, batch)
+        if cuda:
+            torch.cuda.synchronize()
+        rows.append({"step": i, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                     "lr": m["lr"], "wall_s": time.perf_counter() - t1})
+    save("p3")
+    got = {k: c for k, c in launches().items() if c}
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    del state
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    out = {"rows": rows, "files": files, "peak_gb": peak, "launches": got,
+           "seconds": time.perf_counter() - t0}
+    log("fsdp", f"unsharded reference: {json.dumps(rows)}; peak {peak} GB")
+    return out
+
+
+def fsdp_control(device, setup, batches, ref) -> dict:
+    """The unsharded step again with 2 microbatches: the same function in
+    another summation order (float32 accumulation of two half-batch
+    gradients), held to the reference by the same measures as the ranks
+    (loss and grad norm a step, each leaf's change): the spread the
+    rounding alone gives at this depth and dtype."""
+    cfg, tc = setup
+    tc2 = dataclasses.replace(tc, microbatches=2)
+    state = init_train_state(cfg, tc2, 0, device)
+    rows = []
+    for i, batch in enumerate(batches):
+        state, m = train_step(cfg, tc2, state, batch)
+        r = ref["rows"][i]
+        rows.append({"step": i, "loss_rel": abs(float(m["loss"]) - r["loss"]) / abs(r["loss"]),
+                     "grad_norm_rel": abs(float(m["grad_norm"]) - r["grad_norm"])
+                     / r["grad_norm"]})
+    change = {}
+
+    def one(path, t):
+        name = "/".join(path)
+        p3 = torch.from_numpy(np.load(ref["files"]["p3"][name])).to(t.device, torch.float64)
+        p0 = torch.from_numpy(np.load(ref["files"]["p0"][name])).to(t.device, torch.float64)
+        change[name] = float(torch.linalg.vector_norm(t.double() - p3)
+                             / torch.linalg.vector_norm(p3 - p0))
+    with torch.no_grad():
+        tree_map(one, state["params"])
+    del state
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out = {"rows": rows, "change_rel": change, "worst_change_rel": max(change.values())}
+    log("fsdp", f"control, the unsharded step at 2 microbatches: {json.dumps(out)}")
+    return out
+
+
+def expected_fsdp_launches(cfg) -> dict[str, int]:
+    """A rank's flash launches a step: the forward twice a layer (forward
+    and remat recompute), the backward's two kernels once a layer."""
+    per = 2 * cfg.n_layers if cfg.remat != "none" else cfg.n_layers
+    return {"flash_attention": per, "flash_attention_bwd": 2 * cfg.n_layers}
+
+
+def fsdp_checks(device, setup, ref, batches, shape=FSDP_MESH) -> dict:
+    """The sharded step of `setup` on a `shape` ("data", "model") mesh of
+    ranks sharing `device`, from seed 0, held to the unsharded reference
+    `ref` (``fsdp_reference``): each rank's initial blocks bit-equal to the
+    reference's p_0; every step 0 launches in the parent and the predicted
+    flash launches a rank (step 0's held to their plain versions), every
+    rank's sent bytes equal to the closed form from the pspecs
+    (``expected_sent_bytes``), loss within FSDP_LOSS_RTOL and grad norm
+    within FSDP_GNORM_RTOL; after the steps each parameter leaf's change
+    within FSDP_CHANGE_REL (relative norm) of the unsharded change and
+    every element within 2 x steps x the largest lr; then the planted
+    fault (``fsdp_fault``) past the change bar. Closes the mesh and checks
+    that no worker outlived it."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.train.sharded import expected_sent_bytes, shard_diffs
+
+    cfg, tc = setup
+    cuda = device.type == "cuda"
+    t0 = time.perf_counter()
+    mesh = make_test_mesh(shape, device=device)
+    out = {"mesh": mesh.mesh_shape, "mesh_s": time.perf_counter() - t0}
+    log("fsdp", f"{mesh.n} ranks on {device.type} up in {out['mesh_s']:.1f} s")
+    t0 = time.perf_counter()
+    handle = init_train_state(cfg, tc, 0, mesh=mesh)
+    init = shard_diffs(handle, ref["files"]["p0"])
+    bad = {f"rank {r}: {k}": v["max_abs"] for r, d in enumerate(init) for k, v in d.items()
+           if v["max_abs"] != 0.0}
+    if bad:
+        raise AssertionError(f"fsdp: initial blocks differ from the unsharded init: {bad}")
+    out["init_s"] = time.perf_counter() - t0
+    log("fsdp", f"the ranks drew their blocks in {out['init_s']:.1f} s, bit-equal to the "
+        "unsharded init")
+    step_fn = train_mod.make_jitted_train_step(mesh, cfg, tc)
+    n_rows, seq = batches[0]["tokens"].shape
+    closed = expected_sent_bytes(cfg, tc, mesh.mesh_shape, n_rows, seq)
+    want = expected_fsdp_launches(cfg) if cuda else dict.fromkeys(
+        ("flash_attention", "flash_attention_bwd"), 0)
+    rows, total = [], dict.fromkeys(want, 0)
+    for i, batch in enumerate(batches):
+        reset_launches()
+        t0 = time.perf_counter()
+        handle, m = step_fn(handle, batch, check=i == 0)
+        wall = time.perf_counter() - t0
+        if launches() != dict.fromkeys(WRAPPERS, 0):
+            raise AssertionError(f"fsdp step {i}: the parent launched {launches()}")
+        r_ref = ref["rows"][i]
+        row = {"step": i, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "ref_loss": r_ref["loss"], "ref_grad_norm": r_ref["grad_norm"],
+               "wall_s": wall, "ref_wall_s": r_ref["wall_s"], "closed_form_bytes": closed,
+               "ranks": []}
+        for r, rk in enumerate(m["ranks"]):
+            if rk["launches"] != want:
+                raise AssertionError(f"fsdp step {i}: rank {r} launched {rk['launches']} != {want}")
+            for k, c in rk["launches"].items():
+                total[k] += c
+            coll = {ax: {k: round(v["seconds"], 4) for k, v in kinds.items()}
+                    for ax, kinds in rk["collectives"].items()}
+            row["ranks"].append({
+                "coords": rk["coords"], "wall_s": rk["wall_s"],
+                "collective_s": rk["collective_s"],
+                "collective_share": rk["collective_s"] / rk["wall_s"],
+                "gather_s": sum(v["gather"] for v in coll.values()),
+                "reduce_scatter_s": sum(v["reduce_scatter"] for v in coll.values()),
+                "tp_all_reduce_s": coll["model"]["all_reduce"],
+                "data_all_reduce_s": coll["data"]["all_reduce"],
+                "sent_bytes": rk["sent_bytes"],
+                "peak_gb": None if rk["peak_bytes"] is None else rk["peak_bytes"] / 1e9})
+            if i == 0 and cuda:
+                held = rk["held"]
+                calls = {k: len(h["max_abs"]) for k, h in held.items()}
+                if calls != {"flash_attention": want["flash_attention"],
+                             "flash_attention_bwd": want["flash_attention_bwd"] // 2}:
+                    raise AssertionError(f"fsdp: rank {r} held {calls}")
+                row["ranks"][-1]["held"] = {k: {"calls": len(h["max_abs"]),
+                                                "max_abs": max(h["max_abs"], default=0.0),
+                                                "rel": max(h["rel"], default=0.0)}
+                                            for k, h in held.items()}
+        log("fsdp", json.dumps(row))
+        if not (math.isfinite(row["loss"]) and math.isfinite(row["grad_norm"])):
+            raise AssertionError(f"fsdp step {i}: not finite {row}")
+        if m["sent_bytes"] != [closed] * mesh.n:
+            raise AssertionError(f"fsdp step {i}: sent {m['sent_bytes']} bytes a rank != the "
+                                 f"closed form {closed}")
+        if abs(row["loss"] - r_ref["loss"]) > FSDP_LOSS_RTOL * abs(r_ref["loss"]):
+            raise AssertionError(f"fsdp step {i}: loss {row['loss']} against {r_ref['loss']}")
+        if abs(row["grad_norm"] - r_ref["grad_norm"]) > FSDP_GNORM_RTOL * r_ref["grad_norm"]:
+            raise AssertionError(f"fsdp step {i}: grad norm {row['grad_norm']} against "
+                                 f"{r_ref['grad_norm']}")
+        rows.append(row)
+    if cuda:
+        out["card"] = _card_memory()
+        log("fsdp", f"the card while the ranks hold the state: {json.dumps(out['card'])}")
+    t0 = time.perf_counter()
+    diffs = shard_diffs(handle, ref["files"]["p3"], ref["files"]["p0"])
+    elem_bar = 2 * len(batches) * max(r["lr"] for r in ref["rows"])
+    worst = {"change_rel": 0.0, "max_abs": 0.0}
+    by_leaf = {}
+    for d in diffs:
+        for k, v in d.items():
+            for key in worst:
+                worst[key] = max(worst[key], v[key])
+            by_leaf[k] = max(by_leaf.get(k, 0.0), v["change_rel"])
+    out["params_vs_unsharded"] = dict(worst, leaves=sum(len(d) for d in diffs),
+                                      elem_bar=elem_bar, change_rel_by_leaf=by_leaf,
+                                      seconds=time.perf_counter() - t0)
+    log("fsdp", f"final blocks vs the unsharded params: {json.dumps(out['params_vs_unsharded'])}")
+    for r, d in enumerate(diffs):
+        for k, v in d.items():
+            if v["change_rel"] > FSDP_CHANGE_REL or v["max_abs"] > elem_bar:
+                raise AssertionError(f"fsdp: rank {r}, {k}: change {v['change_rel']} "
+                                     f"(bar {FSDP_CHANGE_REL}), max abs {v['max_abs']} "
+                                     f"(bar {elem_bar})")
+    handle.close()
+    out["fault"] = fsdp_fault(mesh, setup, ref, batches, step_fn)
+    pids = mesh.pids()
+    mesh.close()
+    alive = [p for p in pids if _pid_alive(p)]
+    if alive:
+        raise AssertionError(f"fsdp: workers {alive} outlived close()")
+    out.update(rows=rows, launches=total)
+    return out
+
+
+def fsdp_fault(mesh, setup, ref, batches, step_fn) -> dict:
+    """A planted fault read by the sound run's measures: the sharded step
+    from seed 0 with data shard 1's rows replaced by shard 0's, as if one
+    data rank's rows were left out of the gradient and the other's counted
+    twice. The change bar must tell it from a sound step (its worst leaf
+    past FSDP_CHANGE_REL); the loss, grad-norm and element readings are
+    recorded beside the sound run's. Every element's bar, 2 x steps x lr,
+    is AdamW's own bound on two 3-step trajectories (each element moves
+    about lr a step), so it catches non-finite or mis-scaled updates only."""
+    from repro_torch.train.sharded import shard_diffs
+
+    cfg, tc = setup
+    t0 = time.perf_counter()
+    per = batches[0]["tokens"].shape[0] // mesh.mesh_shape["data"]
+
+    def planted(b):
+        return {k: np.concatenate([v[:per], v[:per], v[2 * per:]]) for k, v in b.items()}
+
+    handle = init_train_state(cfg, tc, 0, mesh=mesh)
+    rows = []
+    for i, batch in enumerate(batches):
+        handle, m = step_fn(handle, planted(batch))
+        r = ref["rows"][i]
+        rows.append({"step": i, "loss_rel": abs(float(m["loss"]) - r["loss"]) / abs(r["loss"]),
+                     "grad_norm_rel": abs(float(m["grad_norm"]) - r["grad_norm"])
+                     / r["grad_norm"]})
+    diffs = shard_diffs(handle, ref["files"]["p3"], ref["files"]["p0"])
+    handle.close()
+    by_leaf = {}
+    for d in diffs:
+        for k, v in d.items():
+            by_leaf[k] = max(by_leaf.get(k, 0.0), v["change_rel"])
+    out = {"rows": rows, "worst_change_rel": max(by_leaf.values()),
+           "least_change_rel": min(by_leaf.values()),
+           "max_abs": max(v["max_abs"] for d in diffs for v in d.values()),
+           "change_rel_by_leaf": by_leaf, "seconds": time.perf_counter() - t0}
+    log("fsdp", f"planted fault (data shard 1's rows = shard 0's): {json.dumps(out)}")
+    if out["worst_change_rel"] <= FSDP_CHANGE_REL:
+        raise AssertionError(f"fsdp: the change bar {FSDP_CHANGE_REL} does not catch the "
+                             f"planted fault ({out['worst_change_rel']})")
+    return out
+
+
+def fsdp_batches(cfg, b=FSDP_B, s=FSDP_S, steps=FSDP_STEPS) -> list[dict]:
+    """The steps' global batches (``batch_at``, one shard a data rank)."""
+    ld = LoaderConfig(cfg.vocab_size, b, s, n_shards=FSDP_MESH[0])
+    return [batch_at(ld, i) for i in range(steps)]
+
+
+def fsdp_run(device) -> dict:
+    """``chip_smoke.py --fsdp`` (a fresh process): gemma2-2b at full width
+    (2 layers), the unsharded reference in this process first (its files
+    on the host, the card freed), then the sharded step on a 2 x 2 mesh
+    of four ranks sharing the card, held to it (``fsdp_checks``)."""
+    t_all = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    log("fsdp", smi)
+    built = _build.build_all()
+    log("fsdp", f"{sorted(built)} built in {time.perf_counter() - t_all:.1f} s")
+    setup = fsdp_setup()
+    cfg, tc = setup
+    n = tree_num_params(T.model_defs(cfg))
+    log("fsdp", f"{cfg.name} x{cfg.n_layers}: {n} params, {4 * n / 1e9:.2f} GB float32; p, mu "
+        f"and nu a rank on {FSDP_MESH}: {12 * n / math.prod(FSDP_MESH) / 1e9:.2f} GB")
+    batches = fsdp_batches(cfg)
+    with tempfile.TemporaryDirectory() as d:
+        ref = fsdp_reference(device, setup, batches, d)
+        control = fsdp_control(device, setup, batches, ref)
+        log("fsdp", f"the parent holds {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+            f"before the ranks start")
+        out = fsdp_checks(device, setup, ref, batches)
+    out["reference"] = {k: ref[k] for k in ("rows", "peak_gb", "seconds", "launches")}
+    out["control"] = control
+    for k, c in ref["launches"].items():
+        out["launches"][k] = out["launches"].get(k, 0) + c
+    out["smi"] = smi
+    out["seconds"] = time.perf_counter() - t_all
+    log("fsdp", f"launches {out['launches']}; all done in {out['seconds']:.1f} s")
     return out
 
 
@@ -5535,6 +5909,36 @@ def profile_subprocess(flag: str, *args: str, timeout: float = 900) -> dict:
     if r.returncode != 0:
         raise AssertionError(f"{tag} failed:\n{r.stderr[-4000:]}")
     return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def side_by_side(tag: str, *flags: str) -> list[dict]:
+    """``profile_subprocess`` of each flag, all at once (their results in
+    order). For phases whose checks do not time the card and whose memory
+    fits together: their own step timings are then taken beside each
+    other's (run a flag alone to time it); the kernels line's times come
+    from phases run alone. Logs the card's peak memory in use (every
+    process on it, sampled every 0.5 s) while they run."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    peak, done = [0], threading.Event()
+
+    def sample():
+        while not done.wait(0.5):
+            free, total = torch.cuda.mem_get_info()
+            peak[0] = max(peak[0], total - free)
+
+    watcher = threading.Thread(target=sample, daemon=True)
+    watcher.start()
+    try:
+        with concurrent.futures.ThreadPoolExecutor(len(flags)) as pool:
+            out = [f.result() for f in [pool.submit(profile_subprocess, flag) for flag in flags]]
+    finally:
+        done.set()
+        watcher.join()
+    log(tag, f"{', '.join(flags)} side by side, done in {time.perf_counter() - t0:.1f} s; "
+        f"the card's peak in use {peak[0] / 1e9:.2f} GB")
+    return out
 
 
 def main() -> int:
@@ -5692,34 +6096,28 @@ def main() -> int:
     hybrid = profile_subprocess("--hybrid")
     log("hybrid", f"done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    moe = profile_subprocess("--moe")
-    log("moe", f"done in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    encdec = profile_subprocess("--encdec")
-    log("encdec", f"done in {time.perf_counter() - t0:.1f} s")
+    moe, encdec = side_by_side("moe-encdec", "--moe", "--encdec")
     t0 = time.perf_counter()
     options = profile_subprocess("--options")
     log("options", f"done in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    profile_subprocess("--solvers")  # launches no kernel of the line below
-    log("solvers", f"done in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    faults = profile_subprocess("--faults")
-    log("faults", f"done in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    sweep = profile_subprocess("--sweep")
-    log("sweep", f"done in {time.perf_counter() - t0:.1f} s")
+    # --solvers launches no kernel of the line below; each pair holds one
+    # rcv1-width Newton solve of z* (17.8 GB) at a time at most
+    _, faults = side_by_side("solvers-faults", "--solvers", "--faults")
+    sweep, sharded = side_by_side("sweep-sharded", "--sweep", "--sharded")
     t0 = time.perf_counter()
     launch = profile_subprocess("--launch")
     log("launch", f"done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    sharded = profile_subprocess("--sharded")
-    log("sharded", f"done in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    log("gossip-ranks", f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated in this "
-        "process before the gossip states")
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks' two peaks take 75.5 of the card's 85 GB
+    log("gossip-ranks", f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved in this process before the "
+        "gossip states")
     gossip = profile_subprocess("--gossip-ranks")
     log("gossip-ranks", f"done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fsdp = profile_subprocess("--fsdp")
+    log("fsdp", f"done in {time.perf_counter() - t0:.1f} s")
 
     total["decode_attention"] = serve_launches["decode_attention"]
     # flash_attention runs on two main paths here: the score phase and the
@@ -5739,14 +6137,15 @@ def main() -> int:
     # minitron-8b's blockwise prefill (--options), the fault, schedule,
     # churn and resume paths (--faults), the batched sweeps at B*N rows
     # (--sweep), the examples and the dry run's fitting cell on the card
-    # (--launch), the ranks of the sharded backend (--sharded), and the
+    # (--launch), the ranks of the sharded backend (--sharded), the
     # gossip steps, local and over 2 ranks (--gossip-ranks: block_topk's
-    # only path)
+    # only path), and the within-pod step on a 2 x 2 mesh of ranks with its
+    # unsharded reference (--fsdp)
     for name, n in (*hybrid["launches"].items(), *moe["launches"].items(),
                     *encdec["launches"].items(), *options["launches"].items(),
                     *faults["launches"].items(), *sweep["launches"].items(),
                     *launch["launches"].items(), *sharded["launches"].items(),
-                    *gossip["launches"].items()):
+                    *gossip["launches"].items(), *fsdp["launches"].items()):
         total[name] += n
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -5769,7 +6168,7 @@ if __name__ == "__main__":
                 "--options": options_run,
                 "--solvers": solvers_run, "--faults": faults_run,
                 "--sweep": sweep_run, "--launch": launch_run, "--sharded": sharded_run,
-                "--gossip-ranks": gossip_ranks_run,
+                "--gossip-ranks": gossip_ranks_run, "--fsdp": fsdp_run,
                 "--topk-profile": topk_profile,
                 "--gossip-profile": lambda dev: gossip_phase(dev, topk_rows=True)[0],
                 "--decode-profile": lambda dev, *a: decode_profile(dev, *map(json.loads, a))}

@@ -80,6 +80,9 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import MODES, topk_blocks
 from repro_torch.kernels.ref import block_topk_ref
+from repro_torch.launch import mesh as _mesh
+from repro_torch.launch.mesh import from_host as _from_host
+from repro_torch.launch.mesh import to_host as _to_host
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import tree_leaves, tree_map
@@ -238,9 +241,6 @@ class _LocalPods:
 
 
 _LOCAL = _LocalPods()
-# the largest message one send carries: a leaf's stream goes in pieces of at
-# most this many bytes (gemma2-2b's embedding is 2.36 GB, past int32 counts)
-_CHUNK = 1 << 30
 
 
 class PodExchange:
@@ -330,13 +330,13 @@ class PodExchange:
         sends = self._stage_in(xs)
         cuda = self.device.type == "cuda"
         recvs = self._views("recv", xs) if cuda else outs
-        ops_ = []
+        ops_, piece = [], _mesh.PIPE_PIECE_BYTES
         for a, b in zip(sends, recvs):
             a8, b8 = a.reshape(-1).view(torch.uint8), b.view(-1).view(torch.uint8)
-            for lo in range(0, a8.numel(), _CHUNK):
+            for lo in range(0, a8.numel(), piece):
                 tag = self._next_tag()
-                ops_.append(dist.P2POp(dist.isend, a8[lo:lo + _CHUNK], dst, tag=tag))
-                ops_.append(dist.P2POp(dist.irecv, b8[lo:lo + _CHUNK], src, tag=tag))
+                ops_.append(dist.P2POp(dist.isend, a8[lo:lo + piece], dst, tag=tag))
+                ops_.append(dist.P2POp(dist.irecv, b8[lo:lo + piece], src, tag=tag))
             self.sent_bytes += a8.numel()
         for work in dist.batch_isend_irecv(ops_):
             work.wait()
@@ -380,7 +380,7 @@ class PodExchange:
         if self.device.type != "cuda":
             host = host.clone()  # all_reduce works in place
         flat = host.view(-1)
-        step = max(1, _CHUNK // x.element_size())
+        step = max(1, _mesh.PIPE_PIECE_BYTES // x.element_size())
         for lo in range(0, flat.numel(), step):
             dist.all_reduce(flat[lo:lo + step])
         self.sent_bytes += host.numel() * host.element_size()
@@ -422,20 +422,6 @@ def _build_kernels(mesh) -> None:
 # ---------------------------------------------------------------------------
 # crossing processes: host rows of a pod-stacked tree
 # ---------------------------------------------------------------------------
-
-def _to_host(t: torch.Tensor):
-    """A host copy of `t` that pickles as numpy (bfloat16 as its int16 bits)."""
-    t = t.detach().to("cpu", copy=True)
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy(), True
-    return t.numpy(), False
-
-
-def _from_host(h, device) -> torch.Tensor:
-    arr, bf16 = h
-    t = torch.from_numpy(arr)
-    return (t.view(torch.bfloat16) if bf16 else t).to(device)
-
 
 def _rows(tree, r: int):
     """Pod r's host rows of a pod-stacked tree (leading dim kept, as 1);
@@ -970,12 +956,6 @@ def _exchange_for(me) -> PodExchange:
     return ex
 
 
-def _release(me) -> None:
-    """Hand this rank's cached device blocks back to the card at the end of
-    a job: the ranks of a mesh share one card, and a block one rank's
-    allocator keeps cached no other rank can use."""
-    if me.device.type == "cuda":
-        torch.cuda.empty_cache()
 
 
 def _costs(ex: PodExchange) -> dict:
@@ -986,7 +966,6 @@ def _costs(ex: PodExchange) -> dict:
 def _rank_init(me, job) -> None:
     _RANK_STATES[job["token"]] = _fresh_state(job["cfg"], job["tc"], job["gc"], job["seed"],
                                               me.device, 1)
-    _release(me)
 
 
 def _rank_put(me, job) -> None:
@@ -1007,7 +986,6 @@ def _rank_digests(me, job) -> dict:
 
 def _rank_free(me, token) -> None:
     _RANK_STATES.pop(token, None)
-    _release(me)
 
 
 def _rank_dense_mix(me, job) -> dict:
@@ -1016,7 +994,6 @@ def _rank_dense_mix(me, job) -> dict:
     tree = tree_map(lambda _, h: _from_host(h, me.device), job["tree"])
     with torch.no_grad():
         out = tree_map(lambda _, x: _to_host(_mix_leaf(x, scales, w_self, ex)), tree)
-    _release(me)
     return {"out": out, "costs": _costs(ex)}
 
 
@@ -1028,7 +1005,6 @@ def _rank_topk_exchange(me, job) -> dict:
     corr, rec = _topk_body(gc, _shift_scales(gc)[0], ex, src, rec)
     host = lambda tree: tree_map(lambda _, t: _to_host(t), tree)  # noqa: E731
     out = {"corr": host(corr), "recon": host(rec), "costs": _costs(ex)}
-    _release(me)
     return out
 
 
@@ -1069,7 +1045,6 @@ def _rank_step(me, job) -> dict:
     costs = dict(_costs(ex), wall_s=wall,
                  peak_bytes=torch.cuda.max_memory_allocated(dev) if cuda else None,
                  launches={n: c - before[n] for n, c in _launches().items()})
-    _release(me)
     return {
         "loss": float(parts["losses"][0]),
         "sq": None if parts["sq"] is None else float(parts["sq"]),
@@ -1090,5 +1065,4 @@ def _rank_consensus(me, token) -> list[float]:
         for p in tree_leaves(_RANK_STATES[token]["params"]):
             pb = ex.all_reduce_sum(p).div_(me.n)[0]
             terms.append(float(torch.sub(p[0], pb).float().square_().sum()))
-    _release(me)
     return terms

@@ -5,7 +5,23 @@ Every layer is ``(cfg, params, activations) -> out``, as in the JAX package:
 matrix products run in ``cfg.compute_dtype`` (each weight is cast to it at
 use, a no-op for serving weights stored in it, see
 ``transformer.storage_dtype``), norm statistics and softmax in float32.
-``shard_act`` has no counterpart: it is the identity on one card.
+
+Under ``use_constraint_mesh(grid)`` (a rank of the within-pod FSDP x TP
+step, ``train.sharded``; the JAX ``shard_act`` sites) the layers compute
+this rank's share: q, k and v project onto the rank's heads and the MLP's
+gate and up onto its hidden units (``col_parallel``: the rank's columns),
+the attention runs on those heads, and ``wo`` and the MLP's ``wd`` give
+partial sums over ``"model"`` (``row_parallel``). A product whose
+contraction is whole on the rank runs as the unsharded one does (a
+compute-dtype ``mm``); a sum split over ``"model"`` (a row-parallel
+output, a column-parallel input's gradient) is formed in float32, added
+over the line in rank order and rounded once, as the unsharded product
+accumulates in float32 and rounds once. Kv heads that ``shardable_pspecs``
+leaves whole (fewer than the model axis) are projected whole on every
+rank, and the rank's q heads read kv head ``q // group``; their gradient
+is all-reduced over ``"model"``, so every rank holds the whole
+``wk``/``wv`` gradient. With no grid set every path below is the
+single-device one.
 
 Attention routes as the JAX package routes it:
   * full-sequence self-attention (causal, or not: the enc-dec encoder)
@@ -49,6 +65,112 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef
 
 NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# the rank's grid (the JAX use_constraint_mesh / shard_act)
+# ---------------------------------------------------------------------------
+
+_GRID = None
+
+
+class use_constraint_mesh:
+    """Context: the layers compute the share of `grid` (a
+    ``train.collectives.Grid``) of every product they make; ``None`` (or
+    no context) is the single-device model."""
+
+    def __init__(self, grid):
+        self.grid = grid
+        self.prev = None
+
+    def __enter__(self):
+        global _GRID
+        self.prev = _GRID
+        _GRID = self.grid
+        return self.grid
+
+    def __exit__(self, *exc):
+        global _GRID
+        _GRID = self.prev
+        return False
+
+
+def current_grid():
+    """The grid set by ``use_constraint_mesh``, or None."""
+    return _GRID
+
+
+def col_parallel(grid, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``contract(x, w)`` on this rank's columns of w, x held whole by every
+    rank of the model line (q, k, v, the MLP's gate and up, the logits).
+    The contraction is whole here, so the forward and the weight's
+    gradient are the unsharded products (compute-dtype ``mm``); x's
+    gradient is a partial sum over the rank's columns, formed in float32,
+    summed over the line in rank order and rounded once, as the unsharded
+    product's is."""
+    if grid.model.size == 1:
+        return contract(x, w)
+    return _ColParallel.apply(x, w, grid.model)
+
+
+def row_parallel(grid, x: torch.Tensor, w: torch.Tensor, k: int = 1) -> torch.Tensor:
+    """``contract(x, w, k)`` with the contraction split over "model" (``wo``
+    and the MLP's ``wd``): this rank's partial product in float32 (of the
+    compute-dtype operands), summed over the line in rank order, rounded
+    once to x's dtype. The gradients contract whole dimensions: the
+    unsharded products' (compute-dtype ``mm``)."""
+    if grid.model.size == 1:
+        return contract(x, w, k)
+    return _RowParallel.apply(x, w, grid.model, k)
+
+
+def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b accumulated and returned in float32: on the card a
+    compute-dtype GEMM with a float32 output (the tensor cores' own
+    accumulation, as the unsharded product's), elsewhere a float32 ``mm``
+    of the upcast operands."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float().mm(b.float())
+
+
+class _ColParallel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, comm):
+        ctx.save_for_backward(x, w)
+        ctx.comm = comm
+        return contract(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        kdim = w.shape[0]
+        part = _mm32(g.reshape(-1, w.numel() // kdim), w.reshape(kdim, -1).t())
+        gx = ctx.comm.all_reduce(part).to(x.dtype).reshape(x.shape)
+        gw = x.reshape(-1, kdim).t().mm(g.reshape(-1, w.numel() // kdim)).reshape(w.shape)
+        return gx, gw, None
+
+
+class _RowParallel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, comm, k):
+        ctx.save_for_backward(x, w)
+        ctx.k = k
+        kdim = math.prod(w.shape[:k])
+        part = _mm32(x.reshape(-1, kdim), w.reshape(kdim, -1))
+        out = comm.all_reduce(part).to(x.dtype)
+        return out.reshape(*x.shape[:x.dim() - k], *w.shape[k:])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        kdim = math.prod(w.shape[:ctx.k])
+        g2 = g.contiguous().reshape(-1, w.numel() // kdim)
+        w2 = w.reshape(kdim, -1)
+        gx = g2.mm(w2.t()).reshape(x.shape)
+        gw = x.reshape(-1, kdim).t().mm(g2).reshape(w.shape)
+        return gx, gw, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -120,10 +242,14 @@ def contract(x: torch.Tensor, w: torch.Tensor, k: int = 1) -> torch.Tensor:
     return out.reshape(*x.shape[:x.dim() - k], *w.shape[k:])
 
 
-def _proj(cfg: ModelConfig, p: dict, x: torch.Tensor, w: str) -> torch.Tensor:
-    """x (B, S, d) through projection `w` (and its bias) in the compute dtype."""
+def _proj(cfg: ModelConfig, p: dict, x: torch.Tensor, w: str, grid=None) -> torch.Tensor:
+    """x (B, S, d) through projection `w` (and its bias) in the compute dtype
+    (column-parallel under a `grid`)."""
     dt = cfg.compute_dtype
-    out = contract(x.to(dt), p[w].to(dt))  # bsd,dhq->bshq
+    if grid is None:
+        out = contract(x.to(dt), p[w].to(dt))  # bsd,dhq->bshq
+    else:
+        out = col_parallel(grid, x.to(dt), p[w].to(dt))
     bias = "b" + w[1]
     return out + p[bias].to(dt) if bias in p else out
 
@@ -161,7 +287,16 @@ def multi_head_attention(
     B, S, _ = x.shape
     cross = kv_x is not None
     kv_pos = positions if kv_positions is None else kv_positions
-    if cross and cache is not None:
+    grid = _GRID
+    if grid is not None:
+        if cross or cache is not None:
+            raise NotImplementedError(
+                "under a grid only the training path's self-attention is sharded "
+                "(ROADMAP Queue 1 item 10)")
+        q, k, v = _grid_qkv(cfg, grid, p, x)
+        if use_rope:
+            k = rope(k, kv_pos, cfg.rope_theta)
+    elif cross and cache is not None:
         q, k, v = _proj(cfg, p, x, "wq"), cache["k"], cache["v"]
     else:
         q, k, v = _qkv(cfg, p, x, kv_x)
@@ -199,7 +334,8 @@ def multi_head_attention(
     else:
         q_pos, k_pos = positions[0], kv_pos[0]
 
-    G = cfg.n_heads // cfg.n_kv_heads
+    H, KV = q.shape[2], k.shape[2]  # cfg's, or this rank's under a grid
+    G = H // KV
     if (cache is None and not cross and cfg.attention_kernel != "jnp"
             and not cfg.blockwise_attention):
         o = KO.dispatch(
@@ -215,12 +351,12 @@ def multi_head_attention(
         # scalar is rounded to it first), then upcast inside
         scale = torch.tensor(cfg.head_dim ** -0.5, dtype=q.dtype, device=q.device)
         out = _blockwise_attention(
-            q.reshape(B, S, cfg.n_kv_heads, G, cfg.head_dim) * scale, k, v, q_pos, k_pos,
+            q.reshape(B, S, KV, G, cfg.head_dim) * scale, k, v, q_pos, k_pos,
             causal=causal and not cross, window=window, softcap_v=cfg.attn_softcap,
             block_k=cfg.attention_block_k, valid_len=valid_len,
-        ).to(dt).reshape(B, S, cfg.n_heads, cfg.head_dim)
+        ).to(dt).reshape(B, S, H, cfg.head_dim)
     else:
-        qg = q.reshape(B, S, cfg.n_kv_heads, G, cfg.head_dim)
+        qg = q.reshape(B, S, KV, G, cfg.head_dim)
         scores = torch.einsum("bskgh,btkh->bkgst", qg, k) * cfg.head_dim ** -0.5
         scores = softcap(scores.float(), cfg.attn_softcap)
         mask = torch.ones((S, k.shape[1]), dtype=torch.bool, device=x.device)
@@ -231,9 +367,38 @@ def multi_head_attention(
         scores = torch.where(mask, scores, NEG_INF)
         probs = torch.softmax(scores, dim=-1).to(dt)
         out = torch.einsum("bkgst,btkh->bskgh", probs, v)
-        out = out.reshape(B, S, cfg.n_heads, cfg.head_dim)
+        out = out.reshape(B, S, H, cfg.head_dim)
+    if grid is not None:
+        return row_parallel(grid, out, p["wo"].to(dt), 2), new_cache
     y = contract(out, p["wo"].to(dt), 2)  # bshq,hqd->bsd
     return y, new_cache
+
+
+def _grid_qkv(cfg: ModelConfig, grid, p: dict, x: torch.Tensor):
+    """q (B, S, H / M, Dh) on this rank's heads; k and v on its kv heads.
+    Kv heads left whole (their count does not split over the M model
+    ranks) are projected whole from x, their gradient summed over
+    ``"model"`` (every rank's q heads use a share of them), and each of the
+    rank's q heads reads kv head ``global_q // group``: the kv heads its
+    heads use, each repeated for its heads (the flash kernel's grouping)
+    when every used kv head serves the same number of the rank's heads,
+    else one kv head a q head."""
+    q = _proj(cfg, p, x, "wq", grid)
+    if p["wk"].shape[1] * grid.model.size == cfg.n_kv_heads or grid.model.size == 1:
+        return q, _proj(cfg, p, x, "wk", grid), _proj(cfg, p, x, "wv", grid)
+    h_loc = q.shape[2]
+    group = cfg.n_heads // cfg.n_kv_heads
+    want = [(grid.model.index * h_loc + j) // group for j in range(h_loc)]
+    used = sorted(set(want))
+    per = h_loc // len(used)
+    if want != [u for u in used for _ in range(per)]:
+        used = want  # an uneven share: one kv head a q head
+    idx = torch.tensor(used, device=x.device)
+    # whole kv projections; their gradients (each rank's heads' share)
+    # summed over the line in float32, rounded once
+    kv = [grid.model.copy_to(_proj(cfg, p, x, w).float()).to(cfg.compute_dtype)
+          .index_select(2, idx) for w in ("wk", "wv")]
+    return q, kv[0], kv[1]
 
 
 # ---------------------------------------------------------------------------
@@ -370,8 +535,13 @@ def mlp_defs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
 
 
 def mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """silu(x @ wg) * (x @ wu) @ wd in the compute dtype."""
+    """silu(x @ wg) * (x @ wu) @ wd in the compute dtype (under a grid: on
+    this rank's block of the hidden units, wd row-parallel)."""
     dt = cfg.compute_dtype
+    grid = _GRID
+    if grid is not None:
+        h = F.silu(col_parallel(grid, x, p["wg"].to(dt))) * col_parallel(grid, x, p["wu"].to(dt))
+        return row_parallel(grid, h, p["wd"].to(dt))
     h = F.silu(x @ p["wg"].to(dt)) * (x @ p["wu"].to(dt))
     return h @ p["wd"].to(dt)
 

@@ -3,9 +3,16 @@
 A model declares a nested dict of :class:`ParamDef` (shape, logical axes,
 initialiser). ``tree_materialize`` draws every leaf on the target device
 from one ``torch.Generator``, in chunks along its first axis, so a
-full-width model is never built on the host. The logical axes are kept as
-documentation of the JAX layout; the port runs on one card and shards
-nothing.
+full-width model is never built on the host.
+
+The logical axes map to mesh axes by ``LOGICAL_RULES`` (a copy of the JAX
+package's): FSDP over ``"data"``, TP over ``"model"``. ``ParamDef.pspec``
+and ``tree_pspecs`` give each leaf's layout as a ``PartitionSpec`` (a tuple
+of mesh axis names or None, one a dimension; the port imports no jax),
+``shardable_pspecs`` drops an axis that does not divide its dimension, as
+the JAX function does, and ``shard_index`` is a rank's slice of a leaf: the
+index JAX gives the device at those mesh coordinates. One card (no mesh)
+shards nothing.
 
 The draws are ``torch`` normals: the same seed gives other numbers than
 ``jax.random``. Tests that compare the two packages build the weights once
@@ -21,6 +28,40 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 _CHUNK_ELEMS = 1 << 27  # at most this many float32 draws in flight per leaf
+
+LOGICAL_RULES: dict[str | None, str | None] = {
+    "vocab": "model",
+    "embed": "data",
+    "heads": "model",
+    "kv_heads": "model",
+    "mlp": "model",
+    "expert": "model",
+    "ssm_inner": "model",
+    "layers": None,
+    None: None,
+}
+
+
+class PartitionSpec(tuple):
+    """A leaf's layout on a mesh: one entry a dimension, each a mesh axis
+    name, a tuple of them (split over their product, the first major) or
+    None (not split); the ``jax.sharding.PartitionSpec`` twin, equal to the
+    plain tuple of its entries. A tuple of one name is that name, as JAX
+    normalises it."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, (a[0] if isinstance(a, (tuple, list)) and len(a) == 1
+                                     else tuple(a) if isinstance(a, list) else a
+                                     for a in axes))
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+
+P = PartitionSpec
 
 
 class TensorSpec(NamedTuple):
@@ -42,6 +83,11 @@ class ParamDef:
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
             raise ValueError(f"shape {self.shape} and axes {self.axes} differ in rank")
+
+    def pspec(self, rules=None) -> PartitionSpec:
+        """The leaf's layout by `rules` (default ``LOGICAL_RULES``)."""
+        rules = rules or LOGICAL_RULES
+        return P(*(rules.get(a) for a in self.axes))
 
     @property
     def stddev(self) -> float:
@@ -108,3 +154,60 @@ def tree_materialize(defs, generator, dtype, device, storage_dtype=None):
 def tree_num_params(defs) -> int:
     """Total element count of a ParamDef tree."""
     return sum(math.prod(d.shape) for d in tree_leaves(defs))
+
+
+def tree_pspecs(defs, rules=None):
+    """The PartitionSpec of every ParamDef of `defs`."""
+    return tree_map(lambda _, d: d.pspec(rules), defs)
+
+
+def _axis_size(ax, mesh_shape) -> int:
+    """Ranks along mesh axis `ax` (a name or a tuple of names)."""
+    if isinstance(ax, (tuple, list)):
+        return math.prod(mesh_shape[a] for a in ax)
+    return mesh_shape[ax]
+
+
+def shardable_pspecs(spec_tree, spec_sds_tree, mesh_shape):
+    """Drop the mesh axes that do not evenly divide their dimension (the JAX
+    function: small models on wide meshes, whisper's vocab of 51,865, kv
+    heads on a wide model axis, leave those dimensions unsplit).
+
+    `spec_sds_tree` holds the leaves' shapes (``TensorSpec`` or anything
+    with ``.shape``); `mesh_shape` maps each axis name to its size (a mesh's
+    ``shape``)."""
+    def fix(_, spec, sds):
+        if spec is None:
+            return spec
+        entries = list(spec) + [None] * (len(sds.shape) - len(spec))
+        return P(*(ax if ax is not None and dim % _axis_size(ax, mesh_shape) == 0 else None
+                   for dim, ax in zip(sds.shape, entries)))
+
+    return tree_map(fix, spec_tree, spec_sds_tree)
+
+
+def shard_index(spec, shape, coords, mesh_shape) -> tuple[slice, ...]:
+    """The slice of a leaf of `shape` laid out by `spec` that the rank at
+    mesh `coords` ({axis: index}) holds: along a split dimension, block
+    ``i`` of ``n`` equal blocks (i and n over a tuple of axes: row-major in
+    its order); whole (``slice(None)``) elsewhere and over an axis of one
+    rank. ``addressable_shards[k].index`` of the device at those
+    coordinates in the JAX package."""
+    out = []
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    for dim, ax in zip(shape, entries):
+        if ax is None:
+            out.append(slice(None))
+            continue
+        names = ax if isinstance(ax, (tuple, list)) else (ax,)
+        i = 0
+        for a in names:
+            i = i * mesh_shape[a] + coords[a]
+        n = _axis_size(ax, mesh_shape)
+        if n == 1:  # an axis of one rank splits nothing
+            out.append(slice(None))
+            continue
+        if dim % n:
+            raise ValueError(f"dimension {dim} does not split over {ax} ({n} ranks)")
+        out.append(slice(i * (dim // n), (i + 1) * (dim // n)))
+    return tuple(out)

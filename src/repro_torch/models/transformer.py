@@ -65,6 +65,16 @@ the shared block too, where the JAX package wraps only the ssm layers
 checkpoints every encoder and decoder layer, as the JAX package's two
 scans do.
 
+Under ``layers.use_constraint_mesh(grid)`` (a rank of the within-pod FSDP
+x TP train step; the dense family) ``forward`` computes the rank's share:
+each layer gathers its leaves over ``"data"`` where it uses them
+(``Grid.gather_layer``; inside the checkpointed layer, so the recompute
+gathers again and no layer's whole weights outlive it), the embedding
+(and ``lm_head``) once a forward; the lookup is vocab-parallel (each rank
+looks up the tokens of its vocabulary block, zeros elsewhere, summed over
+``"model"``) and the logits are this rank's vocabulary block, the final
+softcap applied to it elementwise (``train.step.ce_loss`` reduces them).
+
 Caches are updated in place: the contiguous cache's K/V (or SSM state and
 conv) tensors and the paged pools are allocated once and written by
 indexed assignment, where the JAX package returns updated copies. The
@@ -225,16 +235,28 @@ def _layers(blocks: dict, n: int) -> list[dict]:
 
 
 def _embed(cfg: ModelConfig, params, tokens):
-    x = params["embed"][tokens]  # (B, S, d)
+    grid = L.current_grid()
+    if grid is None:
+        x = params["embed"][tokens]  # (B, S, d)
+    else:  # this rank's vocabulary block; the other rows are zeros here
+        table = params["embed"]
+        local = tokens - grid.vocab_offset(table.shape[0])
+        mine = (local >= 0) & (local < table.shape[0])
+        x = table[torch.where(mine, local, 0)] * mine[..., None].to(table.dtype)
+        x = grid.model.reduce_from(x)
     scale = torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
     return (x * scale).to(cfg.compute_dtype)
 
 
 def _unembed(cfg: ModelConfig, params, x):
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    grid = L.current_grid()
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = (x @ head.to(cfg.compute_dtype)).float()
-    return L.softcap(logits, cfg.final_softcap)
+    if grid is not None:  # the logits of this rank's vocabulary block
+        logits = L.col_parallel(grid, x, head.to(cfg.compute_dtype))
+    else:
+        logits = x @ head.to(cfg.compute_dtype)
+    return L.softcap(logits.float(), cfg.final_softcap)
 
 
 def _ffn(cfg: ModelConfig, p, x):
@@ -246,6 +268,9 @@ def _ffn(cfg: ModelConfig, p, x):
 
 
 def _dense_block(cfg: ModelConfig, p, x, positions, window, cache, causal=True):
+    grid = L.current_grid()
+    if grid is not None:  # FSDP: this layer's leaves, gathered where used
+        p = grid.gather_layer(p, grid.specs["blocks"])
     h, new_cache = L.multi_head_attention(
         cfg, p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), positions,
         causal=causal, window=window, cache=cache,
@@ -265,11 +290,28 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def check_grid_family(cfg: ModelConfig) -> None:
+    """Raise unless the within-pod layout covers `cfg`'s family (dense)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"the {cfg.family} family has no within-pod FSDP x TP layout yet (ROADMAP "
+            "Queue 1 item 10: the moe, ssm, hybrid and encdec layouts under a grid)")
+
+
 def _checkpoint(cfg: ModelConfig, fn, *args):
     """fn(*args) under activation checkpointing by ``cfg.remat``: "dots"
     saves the no-batch products (``_dots_policy``), any other value
     recomputes the whole of fn (JAX ``_remat``'s rule; "none" never reaches
-    here, see ``_remat_on``)."""
+    here, see ``_remat_on``). Under a grid the recompute runs the whole of
+    fn (no early stop), so it re-issues every collective of the forward,
+    the same ones on every rank."""
+    if L.current_grid() is not None:
+        with torch.utils.checkpoint.set_checkpoint_early_stop(False):
+            return _checkpoint_call(cfg, fn, *args)
+    return _checkpoint_call(cfg, fn, *args)
+
+
+def _checkpoint_call(cfg: ModelConfig, fn, *args):
     if cfg.remat == "dots":
         return torch.utils.checkpoint.checkpoint(
             fn, *args, use_reentrant=False,
@@ -369,9 +411,15 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     family needs `enc_embeds` (B, S_enc, d_model), the frames the decoder
     attends to."""
     _check_family(cfg)
+    grid = L.current_grid()
+    if grid is not None:
+        check_grid_family(cfg)
     if cfg.family == "encdec":
         return _forward_encdec(cfg, params, tokens, enc_embeds)
     B, S = tokens.shape
+    if grid is not None:
+        params = dict(params, **{k: grid.gather(params[k], grid.specs[k])
+                                 for k in ("embed", "lm_head") if k in params})
     x = _embed(cfg, params, tokens)
     if cfg.family == "ssm":
         x, _ = _run_ssm_stack(cfg, params["blocks"], x, None)

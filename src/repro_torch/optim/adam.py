@@ -22,6 +22,13 @@ arithmetic follows the JAX ``upd`` step by step, in float32:
 
 The new parameter is computed from the unrounded mu32 and nu32; only the
 stored moments are rounded to ``state_dtype``.
+
+On a rank of the within-pod sharded step the leaves are the rank's blocks
+and the clipping norm is the global one: ``shard_sum_of_squares`` sums the
+squares of the leaves this rank counts (a leaf replicated over a mesh axis
+is counted by the axis' rank 0 only, so every element counts once), the
+step sums that over the mesh and passes ``grad_norm`` in; the update stays
+elementwise on the blocks.
 """
 from __future__ import annotations
 
@@ -76,6 +83,17 @@ def sum_of_squares(tree) -> torch.Tensor:
     return torch.stack(norms).square().sum()
 
 
+def shard_sum_of_squares(tree, counted) -> torch.Tensor:
+    """The sum of squares, in float32, over the leaves of `tree` whose entry
+    in `counted` (a tree of bools) is true: a rank's share of the global
+    squared norm. A 0-d zero when it counts none."""
+    norms = [torch.linalg.vector_norm(g, dtype=torch.float32)
+             for g, c in zip(tree_leaves(tree), tree_leaves(counted)) if c]
+    if not norms:
+        return torch.zeros((), dtype=torch.float32, device=tree_leaves(tree)[0].device)
+    return torch.stack(norms).square().sum()
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt(sum of squares) over every leaf, in float32 (a 0-d tensor)."""
     return sum_of_squares(tree).sqrt()
@@ -121,14 +139,16 @@ def _update_chunk(cfg, p, g, mu, nu, scale, lr, bc1, bc2):
     _store(p, p32.sub_(delta, alpha=lr))
 
 
-def adam_update(cfg: AdamConfig, params, grads, opt_state, step):
+def adam_update(cfg: AdamConfig, params, grads, opt_state, step, grad_norm=None):
     """One optimizer step, written in place into `params` and `opt_state`.
 
-    `step` is the 0-based step count (an int or a 0-d tensor). Returns
-    (params, opt_state, metrics) as the JAX function does; the first two
-    are the objects passed in, updated.
+    `step` is the 0-based step count (an int or a 0-d tensor). `grad_norm`
+    (a 0-d float32 tensor) is the clipping norm when the leaves are blocks
+    of a sharded state; by default ``global_norm(grads)``. Returns (params,
+    opt_state, metrics) as the JAX function does; the first two are the
+    objects passed in, updated.
     """
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-12), max=1.0)
     lr = cfg.lr_at(step)
     t = int(step) + 1

@@ -18,10 +18,14 @@ microbatch the gradients come back in the parameters' dtype; with more
 they are accumulated in float32. The update computes in float32 either way
 and rounds each result to its leaf's dtype.
 
-The mesh tools of the JAX module (``make_train_state_defs``,
-``batch_specs``, ``make_jitted_train_step``: FSDP x TP over a device mesh)
-raise ``NotImplementedError``: the sharded step is ROADMAP Queue 1 items
-10 and 14.
+The within-pod sharded step, the JAX ``make_jitted_train_step`` (FSDP over
+"data" x TP over "model", the batch over "data"), runs over the ranks of a
+``launch.mesh.GridMesh`` (``train.sharded``): ``make_train_state_defs``
+and ``batch_specs`` give the layouts as ``models.params.PartitionSpec``s,
+``make_jitted_train_step(mesh, cfg, tc)`` the step over a
+``RankTrainState``, and ``init_train_state(..., mesh=)`` places a fresh
+state on the ranks. Under a rank's grid ``ce_loss`` is vocab-parallel and
+returns the rank's share of the global token mean.
 """
 from __future__ import annotations
 
@@ -29,20 +33,21 @@ import dataclasses
 
 import torch
 
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.params import P, TensorSpec, tree_leaves, tree_map, tree_pspecs
 from repro_torch.optim.adam import AdamConfig, adam_init, adam_update
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Optimizer and microbatches per step. The JAX ``batch_axes`` (the
-    batch's mesh axes) has no counterpart: the step shards nothing (ROADMAP
-    Queue 1 items 10 and 14)."""
+    """Optimizer, microbatches per step and the batch's mesh axes (the
+    sharded step splits the batch's rows over them)."""
 
     optimizer: AdamConfig = AdamConfig()
     microbatches: int = 1  # gradient accumulation steps per train_step
+    batch_axes: tuple[str, ...] = ("data",)  # ('pod','data') for sync multipod
 
 
 # ---------------------------------------------------------------------------
@@ -50,7 +55,17 @@ class TrainConfig:
 # ---------------------------------------------------------------------------
 
 def ce_loss(logits: torch.Tensor, targets: torch.Tensor, mask=None) -> torch.Tensor:
-    """Token-mean cross-entropy in float32. logits (B, S, V), targets (B, S)."""
+    """Token-mean cross-entropy in float32. logits (B, S, V), targets (B, S).
+
+    Under a grid (``layers.use_constraint_mesh``) `logits` are this rank's
+    vocabulary block and its rows the rank's data shard: the max and the
+    sum of exponentials are reduced over "model", the target's logit comes
+    from the rank whose block holds it, and the result is the rank's share
+    of the global mean: its tokens' sum over the global token count (the
+    mask's sum all-reduced over "data", never a mean of shard means)."""
+    grid = L.current_grid()
+    if grid is not None:
+        return _grid_ce_loss(grid, logits, targets, mask)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.take_along_dim(logits, targets.long()[..., None], dim=-1)[..., 0]
@@ -59,6 +74,22 @@ def ce_loss(logits: torch.Tensor, targets: torch.Tensor, mask=None) -> torch.Ten
         return nll.mean()
     mask = mask.float()
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _grid_ce_loss(grid, logits, targets, mask) -> torch.Tensor:
+    logits = logits.float()
+    v = logits.shape[-1]
+    m = grid.model.all_max(logits.detach().amax(-1))
+    lse = torch.log(grid.model.reduce_from(torch.exp(logits - m[..., None]).sum(-1))) + m
+    local = targets.long() - grid.vocab_offset(v)
+    mine = (local >= 0) & (local < v)
+    ll = torch.take_along_dim(logits, torch.where(mine, local, 0)[..., None], dim=-1)[..., 0]
+    nll = lse - grid.model.reduce_from(ll * mine)
+    if mask is None:
+        return nll.sum() / (nll.numel() * grid.data.size)
+    mask = mask.float()
+    count = grid.data.all_reduce(mask.sum().detach())
+    return (nll * mask).sum() / torch.clamp(count, min=1.0)
 
 
 def loss_fn(cfg: ModelConfig, params, batch) -> torch.Tensor:
@@ -110,28 +141,67 @@ def local_grads(cfg: ModelConfig, tc: TrainConfig, params, batch):
 # state + step
 # ---------------------------------------------------------------------------
 
-def _mesh_tool(name: str):
-    def raiser(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} is a mesh tool (FSDP x TP sharding of the train state); the "
-            "sharded step is not ported (ROADMAP Queue 1 items 10 and 14)"
-        )
+def make_train_state_defs(cfg: ModelConfig, tc: TrainConfig):
+    """(TensorSpec tree, PartitionSpec tree) of {'params', 'opt': {'mu'[,
+    'nu']}, 'step'}, the JAX function's: parameters in ``cfg.param_dtype``
+    laid out by ``LOGICAL_RULES``, moments in the optimizer's state dtype
+    laid out as the parameters, the step replicated."""
+    defs = T.model_defs(cfg)
+    p_sds = tree_map(lambda _, d: TensorSpec(d.shape, cfg.param_dtype), defs)
+    p_spec = tree_pspecs(defs)
+    st_dt = tc.optimizer.state_dtype
+    o_sds = {"mu": tree_map(lambda _, d: TensorSpec(d.shape, st_dt), defs)}
+    o_spec = {"mu": p_spec}
+    if tc.optimizer.kind != "sgdm":
+        o_sds["nu"] = tree_map(lambda _, d: TensorSpec(d.shape, st_dt), defs)
+        o_spec["nu"] = p_spec
+    sds = {"params": p_sds, "opt": o_sds, "step": TensorSpec((), torch.int32)}
+    spec = {"params": p_spec, "opt": o_spec, "step": P()}
+    return sds, spec
 
-    raiser.__name__ = name
-    raiser.__doc__ = f"Not ported: {name} shards the step over a mesh (Queue 1 items 10, 14)."
-    return raiser
+
+def batch_specs(cfg: ModelConfig, tc: TrainConfig) -> dict:
+    """The batch's layout: rows over ``tc.batch_axes``."""
+    b = P(tc.batch_axes)
+    spec = {"tokens": b, "targets": b}
+    if cfg.family == "encdec":
+        spec["enc_embeds"] = P(tc.batch_axes, None, None)
+    return spec
 
 
-make_train_state_defs = _mesh_tool("make_train_state_defs")
-batch_specs = _mesh_tool("batch_specs")
-make_jitted_train_step = _mesh_tool("make_jitted_train_step")
+def batch_sds(cfg: ModelConfig, batch: int, seq: int) -> dict:
+    """TensorSpecs of a (batch, seq) train batch (int32 tokens and targets;
+    the encdec family's frames in the compute dtype)."""
+    out = {"tokens": TensorSpec((batch, seq), torch.int32),
+           "targets": TensorSpec((batch, seq), torch.int32)}
+    if cfg.family == "encdec":
+        out["enc_embeds"] = TensorSpec((batch, cfg.encoder_len, cfg.d_model), cfg.compute_dtype)
+    return out
 
 
-def init_train_state(cfg: ModelConfig, tc: TrainConfig, seed: int = 0, device=None) -> dict:
+def make_jitted_train_step(mesh, cfg: ModelConfig, tc: TrainConfig):
+    """The sharded step on the ranks of `mesh` (a ``GridMesh`` with "data"
+    and "model" axes): ``step(handle, batch, check=False) -> (handle,
+    metrics)`` over a ``RankTrainState`` (``train.sharded``)."""
+    from repro_torch.train import sharded
+
+    return sharded.make_step(mesh, cfg, tc)
+
+
+def init_train_state(cfg: ModelConfig, tc: TrainConfig, seed: int = 0, device=None,
+                     mesh=None):
     """{'params', 'opt', 'step'}: parameters in ``cfg.param_dtype`` drawn
     from `seed` on `device` (the card unless told otherwise), zero moments in
     ``tc.optimizer.state_dtype``, and the step count as a 0-d int32 tensor
-    on the host."""
+    on the host.
+
+    With a `mesh` (a ``GridMesh``) each rank draws the whole parameters
+    from `seed` on its device, keeps its block of every leaf and frees the
+    rest; the caller gets a ``train.sharded.RankTrainState``."""
+    if mesh is not None:
+        from repro_torch.train import sharded
+
+        return sharded.init_state(mesh, cfg, tc, seed, device)
     params = T.init_train_params(cfg, seed, device)
     return {
         "params": params,

@@ -218,16 +218,23 @@ def test_exchange_goes_through_the_registry():
 
 
 def test_mesh_and_unported_pieces_raise():
-    """The pod mesh runs (tests/test_torch_gossip_ranks.py); what is still
-    unported raises: the within-pod sharded train step and the launcher's
-    --mesh. A mesh whose size is not n_pods is refused before any rank runs."""
+    """The pod mesh runs (tests/test_torch_gossip_ranks.py), and so does the
+    within-pod sharded step (tests/test_torch_fsdp.py); the production mesh
+    needs 256 devices and raises the JAX package's ValueError on one, from
+    the launcher's --mesh too, and the sharded step refuses a mesh that is
+    not a ("data", "model") grid. A mesh whose size is not n_pods is refused
+    before any rank runs."""
+    from repro_torch.launch import mesh as launch_mesh
     from repro_torch.launch import train as launcher
     from repro_torch.train import step as train_step
 
-    with pytest.raises(NotImplementedError, match="Queue 1 items 10 and 14"):
-        train_step.make_jitted_train_step()
-    with pytest.raises(NotImplementedError, match="Queue 1 items 10 and 14"):
+    with pytest.raises(ValueError, match="needs 256 devices, found 1"):
+        launch_mesh.make_production_mesh()
+    with pytest.raises(ValueError, match="needs 256 devices, found 1"):
         launcher.run(launcher.parse_args(["--reduced", "--device", "cpu", "--mesh", "single"]))
+    with pytest.raises(ValueError, match="needs a GridMesh"):
+        train_step.make_jitted_train_step(types.SimpleNamespace(n=2, device=torch.device("cpu")),
+                                          C.get_reduced("gemma2-2b"), TrainConfig())
     gc = G.GossipConfig()
     cfg = C.get_reduced("gemma2-2b")
     wrong = types.SimpleNamespace(n=3, device=torch.device("cpu"))

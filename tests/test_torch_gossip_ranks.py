@@ -286,7 +286,8 @@ def test_ranks_load_no_jax(meshes):
 
 def test_chip_smoke_gossip_ranks_phase_on_cpu(meshes):
     """chip_smoke's --gossip-ranks checks at a tiny size: reduced gemma2-2b,
-    2 ranks on the CPU, block_topk, 3 steps and 2 uncompressed."""
+    2 ranks on the CPU, block_topk, 3 steps (the params gathered through
+    the pipes) and 2 uncompressed (the params' digests)."""
     import chip_smoke
 
     cfg = C.get_reduced("gemma2-2b")
@@ -294,12 +295,17 @@ def test_chip_smoke_gossip_ranks_phase_on_cpu(meshes):
     setup = (cfg, tc, dataclasses.replace(gc, kernel_mode="auto"))
     dense = (cfg, tc, dataclasses.replace(setup[2], compression="none"))
     out = chip_smoke.gossip_ranks_checks(CPU, setup, steps=3, dense_steps=2, s=16)
-    ref = chip_smoke.gossip_trajectory(CPU, setup, 3, 3, s=16)
+    ref = chip_smoke.gossip_trajectory(CPU, setup, 3, 3, s=16, host_params=True)
     dense_ref = chip_smoke.gossip_trajectory(CPU, dense, 2, 2, s=16)
     held = chip_smoke.hold_ranks_to_local(out, ref, dense_ref)
     assert held["params"]["bit_equal"] and held["dense_params"]["bit_equal"]
-    # a leaf whose bits differ on one rank is caught
-    out["params"][1]["params/final_norm"] = ("0" * 64, 1.0)
+    # a leaf whose bits differ on one rank is caught: in the params gathered
+    # through the pipes, and in the dense run's digests
+    out["params"]["final_norm"][1, 0] += 1.0
+    with pytest.raises(AssertionError, match="not the local run's"):
+        chip_smoke.hold_ranks_to_local(out, ref, dense_ref)
+    out["params"]["final_norm"][1, 0] -= 1.0
+    out["dense_params"][1]["params/final_norm"] = ("0" * 64, 1.0)
     with pytest.raises(AssertionError, match="not the local run's"):
         chip_smoke.hold_ranks_to_local(out, ref, dense_ref)
     n_leaves = len(tree_leaves(T.model_defs(cfg)))

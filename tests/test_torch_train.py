@@ -335,13 +335,23 @@ def test_step_goes_through_the_flash_function_and_backward():
 
 
 def test_mesh_tools_raise():
-    """What the port leaves out raises, naming its ROADMAP item; blockwise
-    attention, once refused here too, now trains (its loss is the flash
-    route's; tests/test_torch_train_options.py holds it to the JAX package)."""
-    for fn in (S.make_train_state_defs, S.batch_specs, S.make_jitted_train_step):
-        with pytest.raises(NotImplementedError, match="Queue 1 items 10 and 14"):
-            fn(_cfg(), TrainConfig())
-    with pytest.raises(NotImplementedError, match="Queue 1 items 10 and 14"):
+    """The mesh tools run (the layouts here, the sharded step in
+    tests/test_torch_fsdp.py); what raises is the production mesh on one
+    device, with the JAX package's ValueError, from the launcher's --mesh
+    too. Blockwise attention, once refused here, trains (its loss is the
+    flash route's; tests/test_torch_train_options.py holds it to the JAX
+    package)."""
+    sds, spec = S.make_train_state_defs(_cfg(), TrainConfig())
+    assert spec["params"]["embed"] == ("model", "data") and spec["step"] == ()
+    assert sds["opt"]["nu"]["embed"].shape == (_cfg().vocab_size, _cfg().d_model)
+    assert S.batch_specs(_cfg(), TrainConfig()) == {"tokens": ("data",), "targets": ("data",)}
+    from repro_torch.launch.mesh import make_production_mesh
+
+    with pytest.raises(ValueError, match="needs 256 devices, found 1"):
+        make_production_mesh()
+    with pytest.raises(ValueError, match="needs 512 devices, found 1"):
+        make_production_mesh(multi_pod=True)
+    with pytest.raises(ValueError, match="needs 256 devices, found 1"):
         launcher.run(launcher.parse_args(["--reduced", "--device", "cpu", "--mesh", "single"]))
     spec = CheckpointSpec("/tmp", every=10)
     assert (spec.every, spec.keep_last) == (10, 3)
