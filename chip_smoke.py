@@ -411,17 +411,40 @@ printed with its seconds:
    5e-2 of the unsharded step's; after the steps each rank's blocks
    against the same blocks of the unsharded params (read with mmap): each
    leaf's change within 5e-2 relative norm, every element within
-   2 x 3 x lr. It logs each rank's step wall and its collective seconds
-   by kind (gather, reduce-scatter, TP all-reduce) beside the unsharded
-   step's wall, its peak memory and bytes sent. Its launches (the
-   reference's and the ranks') join the kernels line.
-The full run starts phases 20 and 21 (``--moe``, ``--encdec``), 23 and 24
-(``--solvers``, ``--faults``), and 25 and 27 (``--sweep``, ``--sharded``)
-two at a time (``side_by_side``): their checks time nothing that the
-kernels line reports, and each pair's memory fits on the card together
-(``--launch`` runs alone: its fitting cell takes 61 GB, and an rcv1-width
-z* solve 17.8 GB); their own step times are then taken beside each
-other's (run a flag alone to time it).
+   2 x 3 x lr; then a planted fault (data shard 1's rows replaced by
+   shard 0's) that the change bar must catch. It logs each rank's step
+   wall and its collective seconds by kind (gather, reduce-scatter, TP
+   all-reduce) beside the unsharded step's wall, its peak memory and bytes
+   sent. Its launches (the reference's and the ranks') join the kernels
+   line.
+30. fsdp families -- in a fresh process (``chip_smoke.py --fsdp-families``;
+   it runs alone too): phase 29's checks (``fsdp_run``, FSDP_FAMILIES), on
+   one 2 x 2 mesh of four ranks, for mamba2-1.3b x2 (32 ssm heads of 64 a
+   rank, state 128), zamba2-1.2b x12 (the shared block used twice: 16
+   heads of 64 a rank; 32 ssm heads, state 64; float32 compute,
+   ``FAMILY_CONFIG``) and qwen2-moe-a2.7b x1 (30 experts a rank, 8 heads
+   of 128, capacity factor 1.25), full width, B=2, S=2048, 2
+   AdamW steps. The moe's and the hybrid's attention is conditioned
+   (``fsdp_init``) in the reference and in the ranks. Every step 0 flash
+   and SSD call of a rank held to its plain version; each rank's sent
+   bytes equal to the family's closed form; the 2-microbatch control for
+   mamba2 and zamba2; planted faults on mamba2 (the rows of phase 29) and
+   on qwen2-moe (the capacity from one data rank's rows, ``plant_fault``:
+   at the phase's size no pair reaches the sound capacity, 384, but 256
+   drops some). Then zamba2 x12 in bf16 compute, one SGD step at
+   lr 1 (``fsdp_grad_check``): each leaf's gradient, sharded (its bf16
+   flash and SSD calls held), unsharded and the unsharded at 2
+   microbatches, against the float32 one. It logs each family's step
+   wall, collective share and peak a rank. Its launches join the kernels
+   line.
+The full run starts phases 20 and 21 (``--moe``, ``--encdec``), 23, 24
+and 30 (``--solvers``, ``--faults``, ``--fsdp-families``), and 25, 27 and
+29 (``--sweep``, ``--sharded``, ``--fsdp``) side by side
+(``side_by_side``): their checks time nothing that the kernels line
+reports, and each group's memory fits on the card together (``--launch``
+runs alone: its fitting cell takes 61 GB, and an rcv1-width z* solve
+17.8 GB); their own step times are then taken beside each other's (run a
+flag alone to time it).
 Before phase 9, flash_attention_bwd is held to its plain version at the
 train shape and at ragged small shapes (every head dim, GQA, MQA, window,
 softcap), bf16 and f32 (bars 5e-2, 2e-4); its times come from the
@@ -5584,27 +5607,101 @@ def gossip_ranks_run(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 29: the within-pod FSDP x TP train step, a (data, model) mesh of
-# ranks on the card (--fsdp)
+# phases 29 and 30: the within-pod FSDP x TP train step, a (data, model) mesh
+# of ranks on the card (--fsdp: the dense family; --fsdp-families: the moe,
+# ssm and hybrid families)
 # ---------------------------------------------------------------------------
 
-FSDP_LAYERS, FSDP_B, FSDP_S, FSDP_STEPS, FSDP_MESH = 2, 2, 2048, 3, (2, 2)
+FSDP_B, FSDP_S, FSDP_MESH = 2, 2048, (2, 2)
 # PERF.md's "on vs off" bars at bf16 compute: the sharded step against the
 # unsharded one is the same function in another summation order
 FSDP_LOSS_RTOL = 1e-3
 FSDP_GNORM_RTOL = 5e-2
-FSDP_CHANGE_REL = 5e-2  # each leaf's change p_3 - p_0, relative norm
+FSDP_CHANGE_REL = 5e-2  # each leaf's change over the steps, relative norm
+
+# arch -> (layers, AdamW steps, planted fault or None), each at full width
+# cut in depth: gemma2-2b to one local/global pair, 3 steps (its change bar
+# was set on 3; at 2 its sound step read 0.0587, PERF.md §6); mamba2 to 2
+# layers; zamba2 to 12 (the shared block used twice); qwen2-moe to 1 (its
+# own capacity factor 1.25: 384 slots an expert for 273 pairs on average at
+# B=2 x S=2048, so no pair drops; its fault, the capacity of one data rank's
+# rows, 256, drops those past it)
+FSDP_DENSE = {"gemma2-2b": (2, 3, "rows")}
+FSDP_FAMILIES = {"mamba2-1.3b": (2, 2, "rows"), "zamba2-1.2b": (12, 2, None),
+                 "qwen2-moe-a2.7b": (1, 2, "capacity")}
+# the planted faults (``fsdp_fault``; "dispatch_grad" is read by
+# ``tools/fsdp_control_probe.py --moe-faults``)
+FSDP_FAULTS = {"rows": "data shard 1's rows = shard 0's",
+               "capacity": "the MoE capacity from a rank's own rows",
+               "dispatch_grad": "the MoE dispatch's input gradient not summed over model"}
+# zamba2 x12 compares in float32 compute: in bf16 its sharded step reads
+# 0.065 on the change bar against a 2-microbatch control of 0.031, which
+# shares the unsharded forward's bits. Measured cause (``fsdp_grad_check``,
+# PERF.md §6): each leaf's bf16 gradient, sharded or not, lies 0.97-1.02
+# times as far from the float32 one (wB, wC, conv_B, conv_C and ln too),
+# the sharded 0.35-0.74 of that from the unsharded: the split sums round
+# the forward otherwise, and AdamW's sign-like first steps turn that into
+# change. Its bf16 gradient is held there
+FAMILY_CONFIG = {"zamba2-1.2b": {"compute_dtype": torch.float32}}
+# the archs whose one-step bf16 gradient is held to the float32 one
+FSDP_GRAD_CHECK = ("zamba2-1.2b",)
+# a leaf of the sharded bf16 gradient lies at most GRAD_FACTOR x the farther
+# of the unsharded bf16 step and its control from the float32 gradient, plus
+# GRAD_FLOOR (PERF.md §6)
+GRAD_FACTOR, GRAD_FLOOR = 2.0, 1e-3
 
 
-def fsdp_setup(layers=FSDP_LAYERS):
-    """(model config, TrainConfig) of the within-pod phase: gemma2-2b at
-    full width cut to `layers` layers (one local/global pair), flash
-    attention through the kernel, the default AdamW."""
-    cfg = dataclasses.replace(get_config("gemma2-2b"), n_layers=layers, attention_kernel="on")
+def fsdp_family_setup(arch, layers, **over):
+    """(model config, TrainConfig) of phases 29-30: `arch` at full width cut
+    to `layers` layers (compute dtype per FAMILY_CONFIG, fields of `over`
+    last), the flash and SSD kernels on, the default AdamW."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers, attention_kernel="on",
+                              ssm_kernel="on", **{**FAMILY_CONFIG.get(arch, {}), **over})
     return cfg, TrainConfig()
 
 
-def fsdp_reference(device, setup, batches, out_dir) -> dict:
+# the families whose attention phase 30 conditions (``condition_attention``)
+FAMILY_CONDITIONED = ("moe", "hybrid")
+
+
+def _attention_leaves(cfg, params) -> dict:
+    """The attention projections ``condition_attention`` rescales: the
+    hybrid's shared block's, else the stacked layers'."""
+    return params["shared_attn"]["attn"] if cfg.family == "hybrid" else params["blocks"]["attn"]
+
+
+def condition_rank_attention(me, token) -> None:
+    """A rank job: ``condition_attention`` on this rank's blocks of the
+    attention projections of the train state under `token` (each leaf's
+    scale is one scalar, so a block of the rescaled leaf is the rescaled
+    block)."""
+    from repro_torch.train import sharded
+
+    del me
+    rec = sharded._RANK_STATES[token]
+    condition_attention(rec["cfg"], _attention_leaves(rec["cfg"], rec["state"]["params"]))
+
+
+def fsdp_init(setup, device=None, mesh=None):
+    """``init_train_state`` of `setup` from seed 0, on `device` or on the
+    ranks of `mesh`; for the families of FAMILY_CONDITIONED with the
+    attention conditioned (``condition_attention``): with the reference's
+    init their softmax is near an argmax and a step is a chaotic function
+    of bf16 rounding (``tools/fsdp_control_probe.py``: zamba2's unsharded
+    step against itself at 2 microbatches moves its leaves 0.43-0.55 apart
+    in relative norm), which no comparison of two summation orders can
+    hold."""
+    cfg, tc = setup
+    state = init_train_state(cfg, tc, 0, device, mesh=mesh)
+    if cfg.family in FAMILY_CONDITIONED:
+        if mesh is None:
+            condition_attention(cfg, _attention_leaves(cfg, state["params"]))
+        else:
+            mesh.run(condition_rank_attention, [state.token] * mesh.n)
+    return state
+
+
+def fsdp_reference(device, setup, batches, out_dir, tag="fsdp") -> dict:
     """The unsharded port ``train_step`` on the same seed and batches: each
     step's loss, grad norm and wall, the peak, and the parameters before
     and after as one ``.npy`` a leaf under `out_dir` (the ranks read their
@@ -5613,15 +5710,15 @@ def fsdp_reference(device, setup, batches, out_dir) -> dict:
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    state = init_train_state(cfg, tc, 0, device)
-    files = {"p0": {}, "p3": {}}
+    state = fsdp_init(setup, device)
+    files = {"p0": {}, "final": {}}
     reset_launches()
 
-    def save(tag):
+    def save(key):
         def one(path, t):
-            f = os.path.join(out_dir, f"{tag}_{'_'.join(path)}.npy")
+            f = os.path.join(out_dir, f"{key}_{'_'.join(path)}.npy")
             np.save(f, t.detach().cpu().numpy())
-            files[tag]["/".join(path)] = f
+            files[key]["/".join(path)] = f
         tree_map(one, state["params"])
 
     t0 = time.perf_counter()
@@ -5636,7 +5733,7 @@ def fsdp_reference(device, setup, batches, out_dir) -> dict:
             torch.cuda.synchronize()
         rows.append({"step": i, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                      "lr": m["lr"], "wall_s": time.perf_counter() - t1})
-    save("p3")
+    save("final")
     got = {k: c for k, c in launches().items() if c}
     peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
     del state
@@ -5645,19 +5742,30 @@ def fsdp_reference(device, setup, batches, out_dir) -> dict:
         torch.cuda.empty_cache()
     out = {"rows": rows, "files": files, "peak_gb": peak, "launches": got,
            "seconds": time.perf_counter() - t0}
-    log("fsdp", f"unsharded reference: {json.dumps(rows)}; peak {peak} GB")
+    log(tag, f"unsharded reference: {json.dumps(rows)}; peak {peak} GB")
     return out
 
 
-def fsdp_control(device, setup, batches, ref) -> dict:
+def leaf_change_rel(name, t, files) -> float:
+    """|t - final| / |final - p0| of the leaf `name` (a "/"-joined path)
+    against `files` ({"p0", "final"}: path -> ``.npy``), in float64 on t's
+    device: the distance of two changes from p0, relative to the second."""
+    final = torch.from_numpy(np.load(files["final"][name])).to(t.device, torch.float64)
+    p0 = torch.from_numpy(np.load(files["p0"][name])).to(t.device, torch.float64)
+    return float(torch.linalg.vector_norm(t.double() - final)
+                 / torch.linalg.vector_norm(final - p0))
+
+
+def fsdp_control(device, setup, batches, ref, tag="fsdp", truth=None) -> dict:
     """The unsharded step again with 2 microbatches: the same function in
     another summation order (float32 accumulation of two half-batch
     gradients), held to the reference by the same measures as the ranks
     (loss and grad norm a step, each leaf's change): the spread the
-    rounding alone gives at this depth and dtype."""
+    rounding alone gives at this depth and dtype. With `truth` (files as
+    ``leaf_change_rel`` takes them) each leaf's change against it too."""
     cfg, tc = setup
     tc2 = dataclasses.replace(tc, microbatches=2)
-    state = init_train_state(cfg, tc2, 0, device)
+    state = fsdp_init((cfg, tc2), device)
     rows = []
     for i, batch in enumerate(batches):
         state, m = train_step(cfg, tc2, state, batch)
@@ -5665,14 +5773,13 @@ def fsdp_control(device, setup, batches, ref) -> dict:
         rows.append({"step": i, "loss_rel": abs(float(m["loss"]) - r["loss"]) / abs(r["loss"]),
                      "grad_norm_rel": abs(float(m["grad_norm"]) - r["grad_norm"])
                      / r["grad_norm"]})
-    change = {}
+    change, vs_truth = {}, {}
 
     def one(path, t):
         name = "/".join(path)
-        p3 = torch.from_numpy(np.load(ref["files"]["p3"][name])).to(t.device, torch.float64)
-        p0 = torch.from_numpy(np.load(ref["files"]["p0"][name])).to(t.device, torch.float64)
-        change[name] = float(torch.linalg.vector_norm(t.double() - p3)
-                             / torch.linalg.vector_norm(p3 - p0))
+        change[name] = leaf_change_rel(name, t, ref["files"])
+        if truth is not None:
+            vs_truth[name] = leaf_change_rel(name, t, truth)
     with torch.no_grad():
         tree_map(one, state["params"])
     del state
@@ -5680,54 +5787,75 @@ def fsdp_control(device, setup, batches, ref) -> dict:
     if device.type == "cuda":
         torch.cuda.empty_cache()
     out = {"rows": rows, "change_rel": change, "worst_change_rel": max(change.values())}
-    log("fsdp", f"control, the unsharded step at 2 microbatches: {json.dumps(out)}")
+    if truth is not None:
+        out["vs_truth"] = vs_truth
+    log(tag, f"control, the unsharded step at 2 microbatches: {json.dumps(out)}")
     return out
 
 
+# a rank's kernels of the within-pod step, and the launches a held call makes
+FSDP_KERNELS = {"flash_attention": 1, "flash_attention_bwd": 2, "ssd_chunk": 1,
+                "ssd_chunk_bwd": 3}
+
+
 def expected_fsdp_launches(cfg) -> dict[str, int]:
-    """A rank's flash launches a step: the forward twice a layer (forward
-    and remat recompute), the backward's two kernels once a layer."""
-    per = 2 * cfg.n_layers if cfg.remat != "none" else cfg.n_layers
-    return {"flash_attention": per, "flash_attention_bwd": 2 * cfg.n_layers}
+    """A rank's launches a step: a forward kernel twice a use with remat
+    (forward and recompute), once without; the backward's kernels once a
+    use (flash 2, SSD 3). The attention layers (dense, moe) or the shared
+    block's uses (hybrid) run flash; the ssm layers the SSD pair."""
+    fwd = 2 if cfg.remat != "none" else 1
+    attn = {"dense": cfg.n_layers, "moe": cfg.n_layers,
+            "hybrid": cfg.n_layers // cfg.hybrid_period}.get(cfg.family, 0)
+    ssm = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    return {"flash_attention": fwd * attn, "flash_attention_bwd": 2 * attn,
+            "ssd_chunk": fwd * ssm, "ssd_chunk_bwd": 3 * ssm}
 
 
-def fsdp_checks(device, setup, ref, batches, shape=FSDP_MESH) -> dict:
-    """The sharded step of `setup` on a `shape` ("data", "model") mesh of
-    ranks sharing `device`, from seed 0, held to the unsharded reference
+def _by_leaf(diffs, key="change_rel") -> dict:
+    """The largest `key` of each leaf over the ranks' ``shard_diffs``."""
+    out = {}
+    for d in diffs:
+        for k, v in d.items():
+            out[k] = max(out.get(k, 0.0), v[key])
+    return out
+
+
+def fsdp_checks(device, setup, ref, batches, mesh, tag="fsdp", fault=None, hold_change=True,
+                truth=None) -> dict:
+    """The sharded step of `setup` on `mesh` (a ("data", "model") mesh of
+    ranks sharing `device`), from seed 0, held to the unsharded reference
     `ref` (``fsdp_reference``): each rank's initial blocks bit-equal to the
     reference's p_0; every step 0 launches in the parent and the predicted
-    flash launches a rank (step 0's held to their plain versions), every
+    launches a rank (step 0's calls held to their plain versions), every
     rank's sent bytes equal to the closed form from the pspecs
     (``expected_sent_bytes``), loss within FSDP_LOSS_RTOL and grad norm
     within FSDP_GNORM_RTOL; after the steps each parameter leaf's change
-    within FSDP_CHANGE_REL (relative norm) of the unsharded change and
-    every element within 2 x steps x the largest lr; then the planted
-    fault (``fsdp_fault``) past the change bar. Closes the mesh and checks
-    that no worker outlived it."""
-    from repro_torch.launch.mesh import make_test_mesh
+    within FSDP_CHANGE_REL (relative norm; without `hold_change` logged
+    only) of the unsharded change and every element within 2 x steps x the
+    largest lr;
+    with `truth` (files as ``leaf_change_rel`` takes them) each leaf's
+    change against it too (``vs_truth``); then, with `fault`, that planted
+    fault (``fsdp_fault``) past the change bar. The caller closes the
+    mesh."""
     from repro_torch.train.sharded import expected_sent_bytes, shard_diffs
 
     cfg, tc = setup
     cuda = device.type == "cuda"
+    out = {"mesh": mesh.mesh_shape}
     t0 = time.perf_counter()
-    mesh = make_test_mesh(shape, device=device)
-    out = {"mesh": mesh.mesh_shape, "mesh_s": time.perf_counter() - t0}
-    log("fsdp", f"{mesh.n} ranks on {device.type} up in {out['mesh_s']:.1f} s")
-    t0 = time.perf_counter()
-    handle = init_train_state(cfg, tc, 0, mesh=mesh)
+    handle = fsdp_init(setup, mesh=mesh)
     init = shard_diffs(handle, ref["files"]["p0"])
     bad = {f"rank {r}: {k}": v["max_abs"] for r, d in enumerate(init) for k, v in d.items()
            if v["max_abs"] != 0.0}
     if bad:
-        raise AssertionError(f"fsdp: initial blocks differ from the unsharded init: {bad}")
+        raise AssertionError(f"{tag}: initial blocks differ from the unsharded init: {bad}")
     out["init_s"] = time.perf_counter() - t0
-    log("fsdp", f"the ranks drew their blocks in {out['init_s']:.1f} s, bit-equal to the "
+    log(tag, f"the ranks drew their blocks in {out['init_s']:.1f} s, bit-equal to the "
         "unsharded init")
     step_fn = train_mod.make_jitted_train_step(mesh, cfg, tc)
     n_rows, seq = batches[0]["tokens"].shape
     closed = expected_sent_bytes(cfg, tc, mesh.mesh_shape, n_rows, seq)
-    want = expected_fsdp_launches(cfg) if cuda else dict.fromkeys(
-        ("flash_attention", "flash_attention_bwd"), 0)
+    want = expected_fsdp_launches(cfg) if cuda else dict.fromkeys(FSDP_KERNELS, 0)
     rows, total = [], dict.fromkeys(want, 0)
     for i, batch in enumerate(batches):
         reset_launches()
@@ -5735,7 +5863,7 @@ def fsdp_checks(device, setup, ref, batches, shape=FSDP_MESH) -> dict:
         handle, m = step_fn(handle, batch, check=i == 0)
         wall = time.perf_counter() - t0
         if launches() != dict.fromkeys(WRAPPERS, 0):
-            raise AssertionError(f"fsdp step {i}: the parent launched {launches()}")
+            raise AssertionError(f"{tag} step {i}: the parent launched {launches()}")
         r_ref = ref["rows"][i]
         row = {"step": i, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                "ref_loss": r_ref["loss"], "ref_grad_norm": r_ref["grad_norm"],
@@ -5743,7 +5871,8 @@ def fsdp_checks(device, setup, ref, batches, shape=FSDP_MESH) -> dict:
                "ranks": []}
         for r, rk in enumerate(m["ranks"]):
             if rk["launches"] != want:
-                raise AssertionError(f"fsdp step {i}: rank {r} launched {rk['launches']} != {want}")
+                raise AssertionError(f"{tag} step {i}: rank {r} launched {rk['launches']} != "
+                                     f"{want}")
             for k, c in rk["launches"].items():
                 total[k] += c
             coll = {ax: {k: round(v["seconds"], 4) for k, v in kinds.items()}
@@ -5761,138 +5890,289 @@ def fsdp_checks(device, setup, ref, batches, shape=FSDP_MESH) -> dict:
             if i == 0 and cuda:
                 held = rk["held"]
                 calls = {k: len(h["max_abs"]) for k, h in held.items()}
-                if calls != {"flash_attention": want["flash_attention"],
-                             "flash_attention_bwd": want["flash_attention_bwd"] // 2}:
-                    raise AssertionError(f"fsdp: rank {r} held {calls}")
+                if calls != {k: want[k] // per for k, per in FSDP_KERNELS.items()}:
+                    raise AssertionError(f"{tag}: rank {r} held {calls}")
                 row["ranks"][-1]["held"] = {k: {"calls": len(h["max_abs"]),
                                                 "max_abs": max(h["max_abs"], default=0.0),
                                                 "rel": max(h["rel"], default=0.0)}
-                                            for k, h in held.items()}
-        log("fsdp", json.dumps(row))
+                                            for k, h in held.items() if h["max_abs"]}
+        log(tag, json.dumps(row))
         if not (math.isfinite(row["loss"]) and math.isfinite(row["grad_norm"])):
-            raise AssertionError(f"fsdp step {i}: not finite {row}")
+            raise AssertionError(f"{tag} step {i}: not finite {row}")
         if m["sent_bytes"] != [closed] * mesh.n:
-            raise AssertionError(f"fsdp step {i}: sent {m['sent_bytes']} bytes a rank != the "
+            raise AssertionError(f"{tag} step {i}: sent {m['sent_bytes']} bytes a rank != the "
                                  f"closed form {closed}")
         if abs(row["loss"] - r_ref["loss"]) > FSDP_LOSS_RTOL * abs(r_ref["loss"]):
-            raise AssertionError(f"fsdp step {i}: loss {row['loss']} against {r_ref['loss']}")
+            raise AssertionError(f"{tag} step {i}: loss {row['loss']} against {r_ref['loss']}")
         if abs(row["grad_norm"] - r_ref["grad_norm"]) > FSDP_GNORM_RTOL * r_ref["grad_norm"]:
-            raise AssertionError(f"fsdp step {i}: grad norm {row['grad_norm']} against "
+            raise AssertionError(f"{tag} step {i}: grad norm {row['grad_norm']} against "
                                  f"{r_ref['grad_norm']}")
         rows.append(row)
     if cuda:
         out["card"] = _card_memory()
-        log("fsdp", f"the card while the ranks hold the state: {json.dumps(out['card'])}")
+        log(tag, f"the card while the ranks hold the state: {json.dumps(out['card'])}")
     t0 = time.perf_counter()
-    diffs = shard_diffs(handle, ref["files"]["p3"], ref["files"]["p0"])
+    diffs = shard_diffs(handle, ref["files"]["final"], ref["files"]["p0"])
     elem_bar = 2 * len(batches) * max(r["lr"] for r in ref["rows"])
-    worst = {"change_rel": 0.0, "max_abs": 0.0}
-    by_leaf = {}
-    for d in diffs:
-        for k, v in d.items():
-            for key in worst:
-                worst[key] = max(worst[key], v[key])
-            by_leaf[k] = max(by_leaf.get(k, 0.0), v["change_rel"])
+    worst = {key: max(v[key] for d in diffs for v in d.values())
+             for key in ("change_rel", "max_abs")}
     out["params_vs_unsharded"] = dict(worst, leaves=sum(len(d) for d in diffs),
-                                      elem_bar=elem_bar, change_rel_by_leaf=by_leaf,
+                                      elem_bar=elem_bar, change_rel_by_leaf=_by_leaf(diffs),
                                       seconds=time.perf_counter() - t0)
-    log("fsdp", f"final blocks vs the unsharded params: {json.dumps(out['params_vs_unsharded'])}")
+    log(tag, f"final blocks vs the unsharded params: {json.dumps(out['params_vs_unsharded'])}")
+    if truth is not None:
+        out["vs_truth"] = _by_leaf(shard_diffs(handle, truth["final"], truth["p0"]))
     for r, d in enumerate(diffs):
         for k, v in d.items():
-            if v["change_rel"] > FSDP_CHANGE_REL or v["max_abs"] > elem_bar:
-                raise AssertionError(f"fsdp: rank {r}, {k}: change {v['change_rel']} "
+            if (hold_change and v["change_rel"] > FSDP_CHANGE_REL) or v["max_abs"] > elem_bar:
+                raise AssertionError(f"{tag}: rank {r}, {k}: change {v['change_rel']} "
                                      f"(bar {FSDP_CHANGE_REL}), max abs {v['max_abs']} "
                                      f"(bar {elem_bar})")
     handle.close()
-    out["fault"] = fsdp_fault(mesh, setup, ref, batches, step_fn)
-    pids = mesh.pids()
-    mesh.close()
-    alive = [p for p in pids if _pid_alive(p)]
-    if alive:
-        raise AssertionError(f"fsdp: workers {alive} outlived close()")
+    if fault:
+        out["fault"] = fsdp_fault(mesh, setup, ref, batches, step_fn, fault, tag)
     out.update(rows=rows, launches=total)
     return out
 
 
-def fsdp_fault(mesh, setup, ref, batches, step_fn) -> dict:
-    """A planted fault read by the sound run's measures: the sharded step
-    from seed 0 with data shard 1's rows replaced by shard 0's, as if one
-    data rank's rows were left out of the gradient and the other's counted
-    twice. The change bar must tell it from a sound step (its worst leaf
-    past FSDP_CHANGE_REL); the loss, grad-norm and element readings are
+def close_mesh(mesh, tag) -> None:
+    """Close `mesh` and check that none of its workers outlived it."""
+    pids = mesh.pids()
+    mesh.close()
+    alive = [p for p in pids if _pid_alive(p)]
+    if alive:
+        raise AssertionError(f"{tag}: workers {alive} outlived close()")
+
+
+class _NoDispatchSum:
+    """A grid whose "model" axis leaves x's gradient through the MoE
+    dispatch as each rank's share (``copy_to`` the identity both ways)."""
+
+    def __init__(self, grid):
+        self._grid = grid
+        self.model = _NoSum(grid.model)
+
+    def __getattr__(self, name):
+        return getattr(self._grid, name)
+
+
+class _NoSum:
+    """An axis' collectives with ``copy_to``'s backward sum left out."""
+
+    def __init__(self, comm):
+        self._comm = comm
+
+    def __getattr__(self, name):
+        return getattr(self._comm, name)
+
+    def copy_to(self, x):
+        return x
+
+
+_SOUND = {}
+
+
+def plant_fault(me, fault) -> None:
+    """A rank job: plant `fault` of FSDP_FAULTS in this rank's port; with
+    None, the sound functions back. "capacity": the MoE capacity from the
+    rank's own rows, not the data line's (positions stay global, so the
+    pairs past it drop); "dispatch_grad": x's gradient through the MoE
+    dispatch left as each model rank's share, not summed over "model"."""
+    from repro_torch.models import layers
+
+    del me
+    if fault is None:
+        for name, f in _SOUND.items():
+            setattr(layers, name, f)
+        _SOUND.clear()
+        return
+    if fault == "capacity":
+        sound = _SOUND["scatter_slots"] = layers.scatter_slots
+
+        def scatter_slots(cfg, p, x, grid=None):
+            xt, w, e, pos, keep, C = sound(cfg, p, x, grid)
+            if grid is not None:
+                C = max(1, int(x.shape[0] * x.shape[1] * cfg.experts_per_token / cfg.n_experts
+                               * cfg.capacity_factor))
+                C = -(-C // 128) * 128 if C > 128 else C
+            return xt, w, e, pos, pos < C, C
+
+        layers.scatter_slots = scatter_slots
+    else:
+        sound = _SOUND["_grid_moe_scatter"] = layers._grid_moe_scatter
+        layers._grid_moe_scatter = lambda cfg, grid, p, x: sound(cfg, _NoDispatchSum(grid), p, x)
+
+
+def fsdp_fault(mesh, setup, ref, batches, step_fn, fault, tag="fsdp") -> dict:
+    """A planted fault (FSDP_FAULTS) read by the sound run's measures, the
+    sharded step from seed 0: "rows", data shard 1's rows replaced by shard
+    0's, as if one data rank's rows were left out of the gradient and the
+    other's counted twice; any other, ``plant_fault`` in every rank.
+    The change bar must tell it from a sound step (its worst leaf past
+    FSDP_CHANGE_REL); the loss, grad-norm and element readings are
     recorded beside the sound run's. Every element's bar, 2 x steps x lr,
-    is AdamW's own bound on two 3-step trajectories (each element moves
-    about lr a step), so it catches non-finite or mis-scaled updates only."""
+    is AdamW's own bound on two trajectories of that many steps (each
+    element moves about lr a step), so it catches non-finite or mis-scaled
+    updates only."""
     from repro_torch.train.sharded import shard_diffs
 
-    cfg, tc = setup
     t0 = time.perf_counter()
     per = batches[0]["tokens"].shape[0] // mesh.mesh_shape["data"]
 
     def planted(b):
+        if fault != "rows":
+            return b
         return {k: np.concatenate([v[:per], v[:per], v[2 * per:]]) for k, v in b.items()}
 
-    handle = init_train_state(cfg, tc, 0, mesh=mesh)
+    handle = fsdp_init(setup, mesh=mesh)
+    if fault != "rows":
+        mesh.run(plant_fault, [fault] * mesh.n)
     rows = []
-    for i, batch in enumerate(batches):
-        handle, m = step_fn(handle, planted(batch))
-        r = ref["rows"][i]
-        rows.append({"step": i, "loss_rel": abs(float(m["loss"]) - r["loss"]) / abs(r["loss"]),
-                     "grad_norm_rel": abs(float(m["grad_norm"]) - r["grad_norm"])
-                     / r["grad_norm"]})
-    diffs = shard_diffs(handle, ref["files"]["p3"], ref["files"]["p0"])
+    try:
+        for i, batch in enumerate(batches):
+            handle, m = step_fn(handle, planted(batch))
+            r = ref["rows"][i]
+            rows.append({"step": i,
+                         "loss_rel": abs(float(m["loss"]) - r["loss"]) / abs(r["loss"]),
+                         "grad_norm_rel": abs(float(m["grad_norm"]) - r["grad_norm"])
+                         / r["grad_norm"]})
+    finally:
+        if fault != "rows":
+            mesh.run(plant_fault, [None] * mesh.n)
+    diffs = shard_diffs(handle, ref["files"]["final"], ref["files"]["p0"])
     handle.close()
-    by_leaf = {}
-    for d in diffs:
-        for k, v in d.items():
-            by_leaf[k] = max(by_leaf.get(k, 0.0), v["change_rel"])
-    out = {"rows": rows, "worst_change_rel": max(by_leaf.values()),
+    by_leaf = _by_leaf(diffs)
+    out = {"fault": fault, "rows": rows, "worst_change_rel": max(by_leaf.values()),
            "least_change_rel": min(by_leaf.values()),
            "max_abs": max(v["max_abs"] for d in diffs for v in d.values()),
            "change_rel_by_leaf": by_leaf, "seconds": time.perf_counter() - t0}
-    log("fsdp", f"planted fault (data shard 1's rows = shard 0's): {json.dumps(out)}")
+    log(tag, f"planted fault ({FSDP_FAULTS[fault]}): {json.dumps(out)}")
     if out["worst_change_rel"] <= FSDP_CHANGE_REL:
-        raise AssertionError(f"fsdp: the change bar {FSDP_CHANGE_REL} does not catch the "
-                             f"planted fault ({out['worst_change_rel']})")
+        raise AssertionError(f"{tag}: the change bar {FSDP_CHANGE_REL} does not catch the "
+                             f"planted fault {fault!r} ({out['worst_change_rel']})")
     return out
 
 
-def fsdp_batches(cfg, b=FSDP_B, s=FSDP_S, steps=FSDP_STEPS) -> list[dict]:
+def fsdp_grad_check(device, arch, layers, batch, mesh) -> dict:
+    """One step of SGD momentum at lr 1 (no warmup, decay or clipping) moves
+    each leaf by its gradient. For `arch` x `layers` in bf16 compute, from
+    the phase's init: each leaf's gradient against the float32-compute
+    gradient of the unsharded step (the truth), for the unsharded bf16
+    step, its 2-microbatch control and the sharded step on `mesh`
+    (``fsdp_checks``: step 0 held, bytes, loss and grad norm against the
+    unsharded bf16 step, the change logged only). Fails if a leaf of the
+    sharded gradient lies farther from the truth than GRAD_FACTOR x the
+    farther of the unsharded step and its control, plus GRAD_FLOOR: a
+    model-axis sum left out of a leaf that every model rank reads in part
+    puts it a fraction of its norm away."""
+    tag = f"fsdp-{arch} grad"
+    t0 = time.perf_counter()
+    sgd = TrainConfig(optimizer=AdamConfig(kind="sgdm", lr=1.0, warmup_steps=0,
+                                           weight_decay=0.0, grad_clip=1e9))
+    cfg = fsdp_family_setup(arch, layers, compute_dtype=torch.bfloat16)[0]
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    with tempfile.TemporaryDirectory() as d:
+        os.mkdir(os.path.join(d, "truth"))
+        os.mkdir(os.path.join(d, "bf16"))
+        truth = fsdp_reference(device, (f32, sgd), [batch], os.path.join(d, "truth"), tag)
+        ref = fsdp_reference(device, (cfg, sgd), [batch], os.path.join(d, "bf16"), tag)
+        unsharded = {}
+        for name, f in ref["files"]["final"].items():
+            unsharded[name] = leaf_change_rel(name, torch.from_numpy(np.load(f)).to(device),
+                                              truth["files"])
+        control = fsdp_control(device, (cfg, sgd), [batch], ref, tag, truth["files"])
+        res = fsdp_checks(device, (cfg, sgd), ref, [batch], mesh, tag, hold_change=False,
+                          truth=truth["files"])
+    sharded = res["vs_truth"]
+    bar = {k: GRAD_FACTOR * max(unsharded[k], control["vs_truth"][k]) + GRAD_FLOOR
+           for k in sharded}
+    out = {"vs_truth": {"unsharded": unsharded, "control": control["vs_truth"],
+                        "sharded": sharded},
+           "sharded_vs_unsharded": res["params_vs_unsharded"]["change_rel_by_leaf"],
+           "control_vs_unsharded": control["change_rel"],
+           "worst_share_of_bar": max(sharded[k] / bar[k] for k in sharded),
+           "launches": {k: res["launches"][k] + ref["launches"].get(k, 0)
+                        + truth["launches"].get(k, 0) for k in FSDP_KERNELS},
+           "rows": res["rows"], "seconds": time.perf_counter() - t0}
+    log(tag, f"one SGD step at lr 1, each leaf's gradient: {json.dumps(out)}")
+    bad = {k: (v, bar[k]) for k, v in sharded.items() if v > bar[k]}
+    if bad:
+        raise AssertionError(f"{tag}: sharded bf16 gradients farther from the float32 one than "
+                             f"the bar: {bad}")
+    return out
+
+
+def fsdp_batches(cfg, b=FSDP_B, s=FSDP_S, steps=2) -> list[dict]:
     """The steps' global batches (``batch_at``, one shard a data rank)."""
     ld = LoaderConfig(cfg.vocab_size, b, s, n_shards=FSDP_MESH[0])
     return [batch_at(ld, i) for i in range(steps)]
 
 
-def fsdp_run(device) -> dict:
-    """``chip_smoke.py --fsdp`` (a fresh process): gemma2-2b at full width
-    (2 layers), the unsharded reference in this process first (its files
-    on the host, the card freed), then the sharded step on a 2 x 2 mesh
-    of four ranks sharing the card, held to it (``fsdp_checks``)."""
+def fsdp_run(device, archs=None, b=FSDP_B, s=FSDP_S, tag="fsdp-families") -> dict:
+    """``chip_smoke.py --fsdp-families`` (FSDP_FAMILIES) and ``--fsdp``
+    (FSDP_DENSE), each in a fresh process: every arch of `archs` (name ->
+    (layers, steps, planted fault)) at full width, the unsharded reference
+    in this process (files on the host, the card freed), then
+    ``fsdp_checks`` on one 2 x 2 mesh of four ranks that serves them all
+    (started beside the first reference), with the arch's planted fault;
+    the 2-microbatch control (``fsdp_control``) but for the moe (its
+    capacity, and so its function, depends on the microbatch's tokens); for
+    the archs of FSDP_GRAD_CHECK, ``fsdp_grad_check``. The moe's and the
+    hybrid's attention is conditioned (``fsdp_init``). Every flash and SSD
+    call of a rank's step 0 is held to its plain version. Logs each arch's
+    step wall, collective share and peak a rank."""
+    from repro_torch.launch.mesh import make_test_mesh
+
+    archs = FSDP_FAMILIES if archs is None else archs
     t_all = time.perf_counter()
+    cuda = device.type == "cuda"
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    log("fsdp", smi)
-    built = _build.build_all()
-    log("fsdp", f"{sorted(built)} built in {time.perf_counter() - t_all:.1f} s")
-    setup = fsdp_setup()
-    cfg, tc = setup
-    n = tree_num_params(T.model_defs(cfg))
-    log("fsdp", f"{cfg.name} x{cfg.n_layers}: {n} params, {4 * n / 1e9:.2f} GB float32; p, mu "
-        f"and nu a rank on {FSDP_MESH}: {12 * n / math.prod(FSDP_MESH) / 1e9:.2f} GB")
-    batches = fsdp_batches(cfg)
-    with tempfile.TemporaryDirectory() as d:
-        ref = fsdp_reference(device, setup, batches, d)
-        control = fsdp_control(device, setup, batches, ref)
-        log("fsdp", f"the parent holds {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
-            f"before the ranks start")
-        out = fsdp_checks(device, setup, ref, batches)
-    out["reference"] = {k: ref[k] for k in ("rows", "peak_gb", "seconds", "launches")}
-    out["control"] = control
-    for k, c in ref["launches"].items():
-        out["launches"][k] = out["launches"].get(k, 0) + c
-    out["smi"] = smi
+                         capture_output=True, text=True, check=True).stdout.strip() if cuda else ""
+    log(tag, smi)
+    if cuda:
+        built = _build.build_all()
+        log(tag, f"{sorted(built)} built in {time.perf_counter() - t_all:.1f} s")
+    out = {"families": {}, "launches": dict.fromkeys(FSDP_KERNELS, 0), "smi": smi}
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        t0 = time.perf_counter()
+        pending = pool.submit(make_test_mesh, FSDP_MESH, device=device)
+        mesh = None
+        try:
+            for arch, (depth, steps, fault) in archs.items():
+                atag = f"fsdp-{arch}"
+                setup = fsdp_family_setup(arch, depth)
+                cfg = setup[0]
+                n = tree_num_params(T.model_defs(cfg))
+                log(atag, f"{cfg.name} x{cfg.n_layers}: {n} params, {4 * n / 1e9:.2f} GB "
+                    f"float32; p, mu and nu a rank on {FSDP_MESH}: "
+                    f"{12 * n / math.prod(FSDP_MESH) / 1e9:.2f} GB")
+                batches = fsdp_batches(cfg, b, s, steps)
+                t1 = time.perf_counter()
+                with tempfile.TemporaryDirectory() as d:
+                    ref = fsdp_reference(device, setup, batches, d, atag)
+                    control = (None if cfg.family == "moe"
+                               else fsdp_control(device, setup, batches, ref, atag))
+                    if mesh is None:
+                        mesh = pending.result()
+                        log(tag, f"{mesh.n} ranks on {device.type} up "
+                            f"{time.perf_counter() - t0:.1f} s after the phase started")
+                    res = fsdp_checks(device, setup, ref, batches, mesh, atag, fault=fault)
+                res["reference"] = {k: ref[k] for k in ("rows", "peak_gb", "seconds", "launches")}
+                res["control"] = control
+                for k in FSDP_KERNELS:
+                    out["launches"][k] += res["launches"][k] + ref["launches"].get(k, 0)
+                if arch in FSDP_GRAD_CHECK:
+                    res["grad_check"] = fsdp_grad_check(device, arch, depth, batches[0], mesh)
+                    for k, c in res["grad_check"]["launches"].items():
+                        out["launches"][k] += c
+                res["seconds"] = time.perf_counter() - t1
+                out["families"][arch] = res
+                log(atag, f"launches {res['launches']} a rank's steps summed over the ranks, "
+                    f"{ref['launches']} unsharded; done in {res['seconds']:.1f} s")
+        finally:
+            close_mesh(mesh or pending.result(), tag)
     out["seconds"] = time.perf_counter() - t_all
-    log("fsdp", f"launches {out['launches']}; all done in {out['seconds']:.1f} s")
+    log(tag, f"launches {out['launches']}; all done in {out['seconds']:.1f} s")
     return out
 
 
@@ -6102,8 +6382,13 @@ def main() -> int:
     log("options", f"done in {time.perf_counter() - t0:.1f} s")
     # --solvers launches no kernel of the line below; each pair holds one
     # rcv1-width Newton solve of z* (17.8 GB) at a time at most
-    _, faults = side_by_side("solvers-faults", "--solvers", "--faults")
-    sweep, sharded = side_by_side("sweep-sharded", "--sweep", "--sharded")
+    # with the within-pod step of the moe, ssm and hybrid families: the
+    # three together peak below 60 GB of the card
+    _, faults, fsdp_families = side_by_side("solvers-faults-families", "--solvers", "--faults",
+                                            "--fsdp-families")
+    # with the dense within-pod step: its reference peaks at 35.5 GB, the
+    # pair at 13.2 GB
+    sweep, sharded, fsdp = side_by_side("sweep-sharded-fsdp", "--sweep", "--sharded", "--fsdp")
     t0 = time.perf_counter()
     launch = profile_subprocess("--launch")
     log("launch", f"done in {time.perf_counter() - t0:.1f} s")
@@ -6115,9 +6400,6 @@ def main() -> int:
         "gossip states")
     gossip = profile_subprocess("--gossip-ranks")
     log("gossip-ranks", f"done in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    fsdp = profile_subprocess("--fsdp")
-    log("fsdp", f"done in {time.perf_counter() - t0:.1f} s")
 
     total["decode_attention"] = serve_launches["decode_attention"]
     # flash_attention runs on two main paths here: the score phase and the
@@ -6140,12 +6422,14 @@ def main() -> int:
     # (--launch), the ranks of the sharded backend (--sharded), the
     # gossip steps, local and over 2 ranks (--gossip-ranks: block_topk's
     # only path), and the within-pod step on a 2 x 2 mesh of ranks with its
-    # unsharded reference (--fsdp)
+    # unsharded reference: gemma2-2b (--fsdp), mamba2-1.3b, zamba2-1.2b and
+    # qwen2-moe-a2.7b (--fsdp-families)
     for name, n in (*hybrid["launches"].items(), *moe["launches"].items(),
                     *encdec["launches"].items(), *options["launches"].items(),
                     *faults["launches"].items(), *sweep["launches"].items(),
                     *launch["launches"].items(), *sharded["launches"].items(),
-                    *gossip["launches"].items(), *fsdp["launches"].items()):
+                    *gossip["launches"].items(), *fsdp["launches"].items(),
+                    *fsdp_families["launches"].items()):
         total[name] += n
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -6168,7 +6452,9 @@ if __name__ == "__main__":
                 "--options": options_run,
                 "--solvers": solvers_run, "--faults": faults_run,
                 "--sweep": sweep_run, "--launch": launch_run, "--sharded": sharded_run,
-                "--gossip-ranks": gossip_ranks_run, "--fsdp": fsdp_run,
+                "--gossip-ranks": gossip_ranks_run,
+                "--fsdp": lambda dev: fsdp_run(dev, FSDP_DENSE, tag="fsdp"),
+                "--fsdp-families": fsdp_run,
                 "--topk-profile": topk_profile,
                 "--gossip-profile": lambda dev: gossip_phase(dev, topk_rows=True)[0],
                 "--decode-profile": lambda dev, *a: decode_profile(dev, *map(json.loads, a))}

@@ -20,8 +20,12 @@ accumulates in float32 and rounds once. Kv heads that ``shardable_pspecs``
 leaves whole (fewer than the model axis) are projected whole on every
 rank, and the rank's q heads read kv head ``q // group``; their gradient
 is all-reduced over ``"model"``, so every rank holds the whole
-``wk``/``wv`` gradient. With no grid set every path below is the
-single-device one.
+``wk``/``wv`` gradient. The mixture of experts runs its experts in
+parallel over ``"model"`` (``_grid_moe_scatter``: rank m's block of the
+experts, the global capacity and token-major positions, the slot rows
+summed over the line), and ``rms_norm(over=)`` sums a split dimension's
+statistic over a line (the Mamba2 gated norm, ``models.ssm``). With no
+grid set every path below is the single-device one.
 
 Attention routes as the JAX package routes it:
   * full-sequence self-attention (causal, or not: the enc-dec encoder)
@@ -182,10 +186,16 @@ def rms_norm_def(d: int) -> ParamDef:
     return ParamDef((d,), (None,), init="ones")
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMS norm with float32 statistics, returned in x's dtype."""
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float, over=None) -> torch.Tensor:
+    """RMS norm with float32 statistics, returned in x's dtype. With `over`
+    (an ``AxisComm`` whose ranks hold the other blocks of x's last
+    dimension, `scale` this rank's block) the mean of squares is summed
+    over that line in rank order (``psum``) before the ``rsqrt``."""
     xf = x.float()
-    var = (xf * xf).mean(-1, keepdim=True)
+    if over is None or over.size == 1:
+        var = (xf * xf).mean(-1, keepdim=True)
+    else:
+        var = over.psum((xf * xf).sum(-1, keepdim=True)) / (x.shape[-1] * over.size)
     out = xf * torch.rsqrt(var + eps)
     return (out * scale.float()).to(x.dtype)
 
@@ -568,6 +578,10 @@ def moe(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     """x (B, S, d) -> (B, S, d): the grouped route with ``cfg.moe_groups``,
     else the scatter route."""
     if cfg.moe_groups > 0:
+        if _GRID is not None:
+            raise NotImplementedError(
+                "the grouped MoE route (moe_groups > 0) has no layout under a grid "
+                "(ROADMAP Queue 1 item 10)")
         return _moe_grouped_einsum(cfg, p, x)
     return _moe_scatter(cfg, p, x)
 
@@ -647,22 +661,35 @@ def _moe_grouped_einsum(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Ten
     return y.reshape(B, S, d)
 
 
-def scatter_slots(cfg: ModelConfig, p: dict, x: torch.Tensor):
+def scatter_slots(cfg: ModelConfig, p: dict, x: torch.Tensor, grid=None):
     """The scatter route's dispatch over the T*K flattened (token, slot)
     pairs: (xt (T, d), flat_w, flat_e, pos, keep, C). A pair's position in
     its expert counts token-major; it is kept below the capacity C
-    (128-aligned above 128)."""
+    (128-aligned above 128).
+
+    Under a `grid` x holds this data rank's rows, a contiguous block of the
+    global token order: T and C are the global ones (the data line's rows
+    together) and a position is the global cumsum, the rank's own plus the
+    pairs the data ranks before it route to the same expert."""
     B, S, d = x.shape
-    T = B * S
+    T = B * S * (1 if grid is None else grid.data.size)
     E, K = cfg.n_experts, cfg.experts_per_token
     C = max(1, int(T * K / E * cfg.capacity_factor))
     C = -(-C // 128) * 128 if C > 128 else C
-    xt = x.reshape(T, d)
+    xt = x.reshape(-1, d)
     top_p, top_i = _route(cfg, p, xt)  # (T, K)
     flat_e = top_i.reshape(-1)
     onehot = F.one_hot(flat_e, E)  # (T*K, E)
     pos = (torch.cumsum(onehot, dim=0) * onehot).sum(-1) - 1
+    if grid is not None and grid.data.size > 1:
+        pos = pos + _routed_before(grid, onehot.sum(0))[flat_e]
     return xt, top_p.reshape(-1).to(cfg.compute_dtype), flat_e, pos, pos < C, C
+
+
+def _routed_before(grid, counts: torch.Tensor) -> torch.Tensor:
+    """(E,) the pairs the data ranks before this one route to each expert:
+    every rank's `counts` gathered over ``"data"``, the earlier ones summed."""
+    return grid.data.all_gather(counts[None], 0)[:grid.data.index].sum(0)
 
 
 def _moe_scatter(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -670,6 +697,8 @@ def _moe_scatter(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     (E, C, d) expert buffers. A dropped pair adds zeros at its expert's
     position 0 (``index_put_`` accumulating, as the JAX ``.at[].add``), so
     no kept token's bits change and no host sync is needed."""
+    if _GRID is not None:
+        return _grid_moe_scatter(cfg, _GRID, p, x)
     dt = cfg.compute_dtype
     B, S, d = x.shape
     K = cfg.experts_per_token
@@ -683,4 +712,37 @@ def _moe_scatter(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     y = gathered.reshape(-1, K, d).sum(1)
     if cfg.shared_expert_d_ff:
         y = y + mlp(cfg, p["shared"], xt.reshape(B, S, d)).reshape(-1, d)
+    return y.reshape(B, S, d)
+
+
+def _grid_moe_scatter(cfg: ModelConfig, grid, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """``_moe_scatter`` on a rank of the grid (expert parallelism over
+    "model"): model rank m holds experts [m E/M, (m + 1) E/M) (`p`'s
+    expert leaves are its block). The routing (router gathered whole,
+    top-k, renormalisation, global positions) is computed alike on every
+    rank of the model line, so they agree on the kept pairs. The rank fills
+    (E/M, C, d) buffers with its own kept pairs of its experts, at their
+    global positions, runs its experts, writes their outputs into the
+    (T*K, d) slot rows and zeros elsewhere, and sums the rows over "model"
+    (``reduce_from``): each slot has one contributor, so the sum is exact.
+    The weighting and the sum over the K slots then run on every rank as in
+    the unsharded layer. x's gradient through the dispatch is each rank's
+    share (its experts' pairs), formed in float32 and summed over "model"
+    (``copy_to``)."""
+    dt = cfg.compute_dtype
+    B, S, d = x.shape
+    K = cfg.experts_per_token
+    xt, flat_w, flat_e, pos, keep, C = scatter_slots(cfg, p, x, grid)
+    n_loc = p["wg"].shape[0]
+    local = flat_e - grid.model.index * n_loc
+    mine = keep & (local >= 0) & (local < n_loc)
+    safe_pos, safe_e = torch.where(mine, pos, 0), torch.where(mine, local, 0)
+    xk = grid.model.copy_to(xt.float()).repeat_interleave(K, dim=0).to(dt)
+    buf = torch.zeros((n_loc, C, d), dtype=dt, device=x.device)
+    buf.index_put_((safe_e, safe_pos), torch.where(mine[:, None], xk, 0.0), accumulate=True)
+    out = torch.where(mine[:, None], _experts(cfg, p, buf)[safe_e, safe_pos], 0.0)
+    gathered = grid.model.reduce_from(out) * flat_w[:, None]  # (T*K, d)
+    y = gathered.reshape(-1, K, d).sum(1)
+    if cfg.shared_expert_d_ff:
+        y = y + mlp(cfg, p["shared"], x).reshape(-1, d)
     return y.reshape(B, S, d)

@@ -17,6 +17,20 @@ same term order; the SSD runs in float32 (float64 for float64 callers,
 which take the inline path: the kernels are float32 only, exactly the JAX
 package's routing); ``dt_bias``, ``A_log``, ``D`` and the norm scale are
 read as float32.
+
+Under ``layers.use_constraint_mesh(grid)`` (a rank of the within-pod FSDP x
+TP step, ``train.sharded``; the JAX layout splits ``ssm_inner`` over
+"model") the block computes model rank m's heads [m nh / M, (m + 1) nh /
+M): ``wz`` and ``wx`` project column-parallel onto its channels, the
+depthwise conv and the SSD run on its heads, the gated norm sums its mean
+of squares over "model" (``layers.rms_norm(over=)``) and ``wo`` is
+row-parallel. ``wB``, ``wC`` and ``wdt`` project whole on every rank, which
+uses all of B and C but only for its heads, and only its heads' columns of
+dt: their float32 gradients are each rank's share, summed over "model"
+(``copy_to``) before they reach the products and the B/C convolutions. The
+leaves of ``GRID_PARTIAL`` are held whole too and read in part (the rank's
+heads of ``dt_bias``, ``A_log`` and ``D``, its channels of ``norm``): their
+gradients are summed over "model" once a step (``train.sharded``).
 """
 from __future__ import annotations
 
@@ -26,8 +40,13 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as KO
 from repro_torch.kernels.ref import ssd_chunk_ref
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import rms_norm, rms_norm_def
+from repro_torch.models.layers import (
+    col_parallel, current_grid, rms_norm, rms_norm_def, row_parallel,
+)
 from repro_torch.models.params import ParamDef, TensorSpec
+
+# the leaves a grid's model ranks each hold whole but read in part
+GRID_PARTIAL = ("dt_bias", "A_log", "D", "norm")
 
 
 def ssm_defs(cfg: ModelConfig) -> dict:
@@ -142,6 +161,12 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
+def _whole_grad(grid, t: torch.Tensor) -> torch.Tensor:
+    """t in float32, its gradient (each model rank's share) summed over
+    "model"."""
+    return grid.model.copy_to(t.float())
+
+
 def ssm_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *, cache: dict | None = None,
               valid_len: torch.Tensor | None = None) -> tuple[torch.Tensor, dict | None]:
     """One Mamba2 mixer on x (B, S, d_model) -> (out (B, S, d_model), new cache).
@@ -152,16 +177,30 @@ def ssm_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *, cache: dict | None 
     right-padded rows: pad steps get dt = 0, exact identity updates, and
     each row's conv history is taken at its own valid_len), S = 1 the
     recurrent step. The new cache is returned as new tensors; the caller
-    writes them where it keeps the cache.
+    writes them where it keeps the cache. Under a grid (no cache) this
+    rank's heads (the module's docstring).
     """
     dt_c = cfg.compute_dtype
     B, S, _ = x.shape
     din, ds, nh, hd = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     W = cfg.ssm_conv_width
     xc = x.to(dt_c)
-
-    z = xc @ p["wz"].to(dt_c)  # gate
-    xi = xc @ p["wx"].to(dt_c)
+    grid = current_grid()
+    heads = chans = slice(None)
+    if grid is not None:
+        if cache is not None:
+            raise NotImplementedError(
+                "under a grid only the training path's ssm block is sharded "
+                "(ROADMAP Queue 1 item 10)")
+        m = grid.model.size
+        nh, din = nh // m, din // m
+        heads = slice(grid.model.index * nh, (grid.model.index + 1) * nh)
+        chans = slice(grid.model.index * din, (grid.model.index + 1) * din)
+        z = col_parallel(grid, xc, p["wz"].to(dt_c))
+        xi = col_parallel(grid, xc, p["wx"].to(dt_c))
+    else:
+        z = xc @ p["wz"].to(dt_c)  # gate
+        xi = xc @ p["wx"].to(dt_c)
     Bc = xc @ p["wB"].to(dt_c)
     Cc = xc @ p["wC"].to(dt_c)
     dt_raw = xc @ p["wdt"].to(dt_c)
@@ -186,15 +225,18 @@ def ssm_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *, cache: dict | None 
             new_conv = torch.take_along_dim(conv_full, rows[:, :, None], dim=1)
 
     xi, Bc, Cc = conv_out[..., :din], conv_out[..., din:din + ds], conv_out[..., din + ds:]
+    if grid is not None:
+        Bc, Cc = _whole_grad(grid, Bc), _whole_grad(grid, Cc)
+        dt_raw = _whole_grad(grid, dt_raw)[..., heads]
     xh = xi.reshape(B, S, nh, hd)
-    dt = _softplus(dt_raw.float() + p["dt_bias"].float())
+    dt = _softplus(dt_raw.float() + p["dt_bias"][heads].float())
     if valid_len is not None and cache is not None and S > 1:
         # pad steps become exact identity updates (decay exp(0) = 1,
         # contribution 0): the state equals processing valid_len tokens
         keep = torch.arange(S, device=x.device)[None, :] < torch.as_tensor(
             valid_len, device=x.device)[:, None]
         dt = torch.where(keep[..., None], dt, 0.0)
-    A = -torch.exp(p["A_log"].float())  # (nh,), negative
+    A = -torch.exp(p["A_log"][heads].float())  # (nh,), negative
     a_log = dt * A[None, None, :]
 
     if cache is None:
@@ -214,8 +256,11 @@ def ssm_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *, cache: dict | None 
                                   head_block=cfg.ssm_head_block, kernel=cfg.ssm_kernel)
         new_cache = {"state": h_final.float(), "conv": new_conv}
 
-    y = y + xh.float() * p["D"].float()[None, None, :, None]
+    y = y + xh.float() * p["D"][heads].float()[None, None, :, None]
     y = y.reshape(B, S, din).to(dt_c)
+    if grid is not None:
+        y = rms_norm(y * F.silu(z), p["norm"][chans], cfg.norm_eps, over=grid.model)
+        return row_parallel(grid, y, p["wo"].to(dt_c)), None
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)  # gated norm
     return y @ p["wo"].to(dt_c), new_cache
 

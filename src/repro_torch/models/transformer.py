@@ -66,14 +66,20 @@ checkpoints every encoder and decoder layer, as the JAX package's two
 scans do.
 
 Under ``layers.use_constraint_mesh(grid)`` (a rank of the within-pod FSDP
-x TP train step; the dense family) ``forward`` computes the rank's share:
-each layer gathers its leaves over ``"data"`` where it uses them
-(``Grid.gather_layer``; inside the checkpointed layer, so the recompute
-gathers again and no layer's whole weights outlive it), the embedding
-(and ``lm_head``) once a forward; the lookup is vocab-parallel (each rank
-looks up the tokens of its vocabulary block, zeros elsewhere, summed over
-``"model"``) and the logits are this rank's vocabulary block, the final
-softcap applied to it elementwise (``train.step.ce_loss`` reduces them).
+x TP train step: the dense, moe, ssm and hybrid families) ``forward``
+computes the rank's share: each layer gathers its leaves over ``"data"``
+where it uses them (``Grid.gather_layer``; inside the checkpointed layer,
+so the recompute gathers again and no layer's whole weights outlive it),
+the embedding (and ``lm_head``) once a forward, and so the hybrid's
+shared block: its leaves gathered once, outside its uses, so autograd sums
+its gradient over every use (and every recompute) before the one
+reduce-scatter; the lookup is vocab-parallel (each rank looks up the
+tokens of its vocabulary block, zeros elsewhere, summed over ``"model"``)
+and the logits are this rank's vocabulary block, the final softcap
+applied to it elementwise (``train.step.ce_loss`` reduces them). The
+layers' own shares: ``models.layers`` (attention heads, MLP units, the
+experts), ``models.ssm`` (the Mamba2 heads). The encdec family has no
+layout under a grid.
 
 Caches are updated in place: the contiguous cache's K/V (or SSM state and
 conv) tensors and the paged pools are allocated once and written by
@@ -267,9 +273,9 @@ def _ffn(cfg: ModelConfig, p, x):
     return x + L.mlp(cfg, p["mlp"], inner)
 
 
-def _dense_block(cfg: ModelConfig, p, x, positions, window, cache, causal=True):
+def _dense_block(cfg: ModelConfig, p, x, positions, window, cache, causal=True, gather=True):
     grid = L.current_grid()
-    if grid is not None:  # FSDP: this layer's leaves, gathered where used
+    if grid is not None and gather:  # FSDP: this layer's leaves, gathered where used
         p = grid.gather_layer(p, grid.specs["blocks"])
     h, new_cache = L.multi_head_attention(
         cfg, p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), positions,
@@ -290,12 +296,15 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
+GRID_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
 def check_grid_family(cfg: ModelConfig) -> None:
-    """Raise unless the within-pod layout covers `cfg`'s family (dense)."""
-    if cfg.family != "dense":
+    """Raise unless the within-pod layout covers `cfg`'s family."""
+    if cfg.family not in GRID_FAMILIES:
         raise NotImplementedError(
             f"the {cfg.family} family has no within-pod FSDP x TP layout yet (ROADMAP "
-            "Queue 1 item 10: the moe, ssm, hybrid and encdec layouts under a grid)")
+            "Queue 1 item 10: the encdec layout under a grid)")
 
 
 def _checkpoint(cfg: ModelConfig, fn, *args):
@@ -319,15 +328,18 @@ def _checkpoint_call(cfg: ModelConfig, fn, *args):
     return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
-def _remat_block(cfg, p, x, positions, window):
+def _remat_block(cfg, p, x, positions, window, gather=True):
     """One cache-free layer under activation checkpointing (``cfg.remat``)."""
     def fn(x_in):
-        return _dense_block(cfg, p, x_in, positions, window, None)[0]
+        return _dense_block(cfg, p, x_in, positions, window, None, gather=gather)[0]
 
     return _checkpoint(cfg, fn, x)
 
 
 def _ssm_layer(cfg: ModelConfig, p, x, cache, valid_len=None):
+    grid = L.current_grid()
+    if grid is not None:  # FSDP: this layer's leaves, gathered where used
+        p = grid.gather_layer(p, grid.specs["blocks"])
     h, new_cache = S.ssm_block(cfg, p["ssm"], L.rms_norm(x, p["ln"], cfg.norm_eps),
                                cache=cache, valid_len=valid_len)
     return x + h, new_cache
@@ -497,14 +509,20 @@ def _forward_encdec(cfg, params, tokens, enc_embeds):
 
 def _shared_full(cfg, params, positions):
     """The shared block over a full sequence (no cache), checkpointed as the
-    ssm layers are."""
+    ssm layers are. Under a grid its leaves are gathered over "data" once,
+    here: every use (and its recompute) reads the same gathered tensors, so
+    autograd sums the block's gradient over the uses before the one
+    reduce-scatter, as the reference's autograd sums it whole."""
     shared = params["shared_attn"]
+    grid = L.current_grid()
+    if grid is not None:
+        shared = grid.gather_layer(shared, grid.specs["shared_attn"], stacked=False)
     remat = _remat_on(cfg, None)
 
     def apply(ai, x):
         if remat:
-            return _remat_block(cfg, shared, x, positions, None)
-        return _dense_block(cfg, shared, x, positions, None, None)[0]
+            return _remat_block(cfg, shared, x, positions, None, gather=False)
+        return _dense_block(cfg, shared, x, positions, None, None, gather=False)[0]
 
     return apply
 

@@ -35,6 +35,10 @@ The autograd pairs (``Function``s):
     ``reduce_scatter`` of the gradient: a weight stored in blocks over the
     line is gathered where it is used, and each rank keeps the summed
     gradient of its own block.
+  * ``psum(x)`` (``jax.lax.psum``): the all-reduce both ways. It sums a
+    statistic of a dimension split over the line (the Mamba2 gated norm's
+    mean of squares): every rank uses the whole sum on its own block, so
+    each rank's gradient of it is a partial sum too.
 
 Counters (``reset``): ``sent_bytes`` (payload bytes this rank sent to its
 peers: (n - 1) x the operand for a gather or an all-reduce, (n - 1) / n of
@@ -189,6 +193,10 @@ class AxisComm:
         backward."""
         return x if self.size == 1 else _GatherFrom.apply(x, self, dim)
 
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """The all-reduce forward and backward."""
+        return x if self.size == 1 else _PSum.apply(x, self)
+
 
 class _CopyTo(torch.autograd.Function):
     @staticmethod
@@ -209,6 +217,17 @@ class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return comm.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce(g.contiguous()), None
 
 
 class _GatherFrom(torch.autograd.Function):
@@ -252,10 +271,12 @@ class Grid:
                 return self.data.gather_from(t, dim)
         return t
 
-    def gather_layer(self, p: dict, specs: dict) -> dict:
-        """A layer's leaves (views of the stacked blocks) gathered over
-        ``"data"``; `specs` are the stacked leaves' (the layer axis first)."""
-        return tree_map(lambda _, t, spec: self.gather(t, spec[1:]), p, specs)
+    def gather_layer(self, p: dict, specs: dict, stacked: bool = True) -> dict:
+        """A layer's leaves gathered over ``"data"``: views of the stacked
+        blocks, whose `specs` have the layer axis first, or (not `stacked`)
+        an unstacked block's (the hybrid's ``shared_attn``)."""
+        cut = 1 if stacked else 0
+        return tree_map(lambda _, t, spec: self.gather(t, spec[cut:]), p, specs)
 
     def vocab_offset(self, local_vocab: int) -> int:
         """The first vocabulary row of this rank's block over ``"model"``."""

@@ -13,9 +13,11 @@ and the order of the sums differ. On each rank, under
 ``layers.use_constraint_mesh``: the forward and backward of the model on
 the rank's rows and share (``models.layers``, ``models.transformer``: each
 layer's leaves gathered over "data" where used, their gradients
-reduce-scattered back; heads, MLP units and the vocabulary split over
-"model"), ``ce_loss``'s share of the global token mean, the gradients of
-leaves replicated over "data" (the norm scales) all-reduced over it, the
+reduce-scattered back; heads, MLP units, experts, Mamba2 heads and the
+vocabulary split over "model"), ``ce_loss``'s share of the global token
+mean, the gradients of leaves replicated over "data" (the norm scales)
+all-reduced over it, those of the leaves every model rank holds whole but
+reads in part (``models.ssm.GRID_PARTIAL``) summed over "model", the
 global gradient norm from the blocks (each element counted once,
 ``optim.adam.shard_sum_of_squares``), then AdamW on the blocks. Data shard
 i takes the contiguous rows [i B / D, (i + 1) B / D) (with microbatches,
@@ -23,9 +25,12 @@ block i of every microbatch: microbatch m is the global rows block m, as
 in the JAX ``local_grads``). Every collective reduces in rank order
 (``train.collectives``), so two runs give the same bits.
 
-Only the dense family has a layout here; heads, MLP units and the
+The dense, moe, ssm and hybrid families have a layout here; heads, MLP
+units, experts, the shared expert's units, Mamba2 heads and the
 vocabulary must split over "model" (kv heads may not: they stay whole).
-The rest raises ``NotImplementedError`` naming ROADMAP Queue 1 item 10.
+The rest (the encdec family, the grouped MoE route, a replicated layout of
+what does not split) raises ``NotImplementedError`` naming ROADMAP Queue 1
+item 10.
 
 Crossing the pipes (in pieces, ``launch.mesh``): ``shard_train_state`` and
 ``gather_train_state`` move a whole state; ``shard_diffs`` holds the ranks'
@@ -46,6 +51,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import from_host, to_host
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
 from repro_torch.models.params import shard_index, shardable_pspecs, tree_map
 from repro_torch.optim.adam import adam_init, adam_update, shard_sum_of_squares
@@ -76,13 +82,32 @@ def check_layout(cfg, tc, mesh_shape: dict) -> None:
         raise NotImplementedError(
             f"batch_axes {tc.batch_axes}: the within-pod step splits the batch over 'data' "
             "only (ROADMAP Queue 1 item 10)")
+    if cfg.family == "moe" and cfg.moe_groups > 0:
+        raise NotImplementedError(
+            f"moe_groups={cfg.moe_groups}: the grouped MoE route has no layout under a grid "
+            "(ROADMAP Queue 1 item 10)")
     m = mesh_shape["model"]
-    for what, n in (("heads", cfg.n_heads), ("MLP units", cfg.d_ff),
-                    ("vocabulary rows", cfg.vocab_size)):
+    split = [("vocabulary rows", cfg.vocab_size)]
+    if cfg.family in ("dense", "moe", "hybrid"):
+        split.append(("heads", cfg.n_heads))
+    if cfg.family in ("dense", "hybrid"):
+        split.append(("MLP units", cfg.d_ff))
+    if cfg.family == "moe":
+        split += [("experts", cfg.n_experts), ("shared expert units", cfg.shared_expert_d_ff)]
+    if cfg.family in ("ssm", "hybrid"):
+        split.append(("ssm heads", cfg.ssm_heads))
+    for what, n in split:
         if n % m:
             raise NotImplementedError(
                 f"{n} {what} do not split over {m} model ranks; a replicated layout of "
                 "them is not ported (ROADMAP Queue 1 item 10)")
+
+
+def _read_in_part(path) -> bool:
+    """Whether leaf `path` is one every model rank holds whole but reads in
+    part (``models.ssm.GRID_PARTIAL``): its gradient is summed over
+    "model"."""
+    return len(path) >= 2 and path[-2] == "ssm" and path[-1] in SSM.GRID_PARTIAL
 
 
 def _counted(spec, coord: dict) -> bool:
@@ -228,8 +253,8 @@ def shard_diffs(handle: RankTrainState, ref: dict, base: dict | None = None) -> 
 def make_step(mesh, cfg, tc):
     """``step(handle, batch, check=False) -> (handle, metrics)`` on the
     ranks of `mesh`. `batch` holds the global rows (numpy or host tensors);
-    each rank is sent its data shard's. `check` holds every flash kernel
-    call of the ranks' step to its plain version. Metrics: the global
+    each rank is sent its data shard's. `check` holds every flash and SSD
+    kernel call of the ranks' step to its plain version. Metrics: the global
     loss and gradient norm (every rank computes the same bits; the step
     checks it), the learning rate, and each rank's costs (``ranks``: wall,
     collective seconds and bytes by axis and kind, peak memory, kernel
@@ -265,43 +290,76 @@ def expected_sent_bytes(cfg, tc, mesh_shape: dict, n_rows: int, seq: int,
     """The payload bytes each rank sends in one step, from the layout. Per
     microbatch: every layer's FSDP gathers (twice with remat: the
     recompute gathers again) and its gradients' reduce-scatters, the
-    embedding's (and lm_head's) once; over "model", all in float32: the
-    attention and MLP outputs' partial sums (twice with remat), the input
-    gradients of each column-parallel product (q, k, v, gate, up), the kv
-    gradients when kv heads stay whole, the
-    head input's gradient and the loss's three (B, S) reductions, and the
-    vocab-parallel lookup (in the parameters' dtype); the mask's count. Once a step: the
-    data all-reduce of the replicated leaves' gradients, the loss's, and
-    the norm's over both axes. A gather or all-reduce sends (n - 1) x its
-    operand, a reduce-scatter (n - 1) / n of it."""
+    embedding's (and lm_head's, and the hybrid's shared block's) once; over
+    "model", in float32 but for the lookup and the MoE slot rows: each
+    layer's (``_tp_layer_bytes``), the head input's gradient and the loss's
+    three (B, S) reductions, and the vocab-parallel lookup (in the
+    parameters' dtype); the mask's count. Once a step: the data all-reduce
+    of the replicated leaves' gradients, the model all-reduce of the leaves
+    read in part, the loss's, and the norm's over both axes. A gather or
+    all-reduce sends (n - 1) x its operand, a reduce-scatter (n - 1) / n of
+    it."""
     _, spec = state_layout(cfg, tc, mesh_shape)
     dn, mn = mesh_shape["data"], mesh_shape["model"]
     mb = tc.microbatches
     pbytes = torch.empty((), dtype=cfg.param_dtype).element_size()
     gbytes = pbytes if mb <= 1 else 4  # a step's gradient (accumulated in float32)
     remat = 1 if cfg.remat == "none" else 2
-    fsdp = replicated = 0
+    fsdp = replicated = partial = 0
 
     def one(path, d, sp):
-        nonlocal fsdp, replicated
+        nonlocal fsdp, replicated, partial
         n = math.prod(d.shape) // math.prod(mesh_shape[a] for a in sp if a is not None)
         if "data" in sp:
             fsdp += (dn - 1) * n * pbytes * ((remat if path[0] == "blocks" else 1) + 1)
         else:
             replicated += n
+        if _read_in_part(path):
+            partial += n
 
     tree_map(one, T.model_defs(cfg), spec["params"])
     tokens = n_rows // (dn * max(mb, 1)) * seq
     act = tokens * cfg.d_model
-    # the outputs' partial sums; the input gradients of q, k, v (q only when
-    # kv heads stay whole: theirs are the kv gradients), gate and up
-    layer = 2 * remat * act * 4 + (5 if cfg.n_kv_heads % mn == 0 else 3) * act * 4
-    if cfg.n_kv_heads % mn:
-        layer += 2 * tokens * cfg.n_kv_heads * cfg.head_dim * 4
-    tp = (mn - 1) * (cfg.n_layers * layer + act * pbytes + act * 4 + 3 * tokens * 4)
+    tp = (mn - 1) * (_tp_layer_bytes(cfg, mesh_shape, tokens, remat)
+                     + act * pbytes + act * 4 + 3 * tokens * 4)
     per_mb = fsdp + tp + ((dn - 1) * 4 if mask else 0)
-    return (max(mb, 1) * per_mb + (dn - 1) * replicated * gbytes
+    if cfg.family == "moe":  # each layer's pair counts (int64), gathered over "data"
+        per_mb += (dn - 1) * remat * cfg.n_layers * cfg.n_experts * 8
+    return (max(mb, 1) * per_mb + (dn - 1) * replicated * gbytes + (mn - 1) * partial * gbytes
             + 2 * (dn - 1) * 4 + (mn - 1) * 4)
+
+
+def _tp_layer_bytes(cfg, mesh_shape: dict, tokens: int, remat: int) -> int:
+    """The operand bytes a rank's layers all-reduce over "model" in a
+    microbatch's forward, its recompute (x `remat`) and its backward;
+    float32 but where said.
+
+    Attention: the output's partial sums (forward), the input gradients of
+    q, k, v (q only when kv heads stay whole: theirs are the kv gradients).
+    MLP (and the shared expert): the output's partial sums, gate's and up's
+    input gradients. MoE: the (T K, d) slot rows in the compute dtype
+    (forward) and the dispatch input's gradient. Mamba2: ``wo``'s partial sums and the gated
+    norm's mean of squares (forward; the statistic again backward), the
+    input gradients of ``wz`` and ``wx``, and the gradients of B, C (the
+    state width each) and dt (one a head)."""
+    mn = mesh_shape["model"]
+    act = tokens * cfg.d_model
+    attn = remat * act * 4 + (3 if cfg.n_kv_heads % mn == 0 else 1) * act * 4
+    if cfg.n_kv_heads % mn:
+        attn += 2 * tokens * cfg.n_kv_heads * cfg.head_dim * 4
+    mlp = remat * act * 4 + 2 * act * 4
+    if cfg.family == "dense":
+        return cfg.n_layers * (attn + mlp)
+    if cfg.family == "moe":
+        cbytes = torch.empty((), dtype=cfg.compute_dtype).element_size()
+        k = cfg.experts_per_token
+        moe = remat * tokens * k * cfg.d_model * cbytes + act * 4
+        return cfg.n_layers * (attn + moe + (mlp if cfg.shared_expert_d_ff else 0))
+    ssm = (remat * (act * 4 + tokens * 4) + 2 * act * 4
+           + (2 * cfg.ssm_state + cfg.ssm_heads + 1) * tokens * 4)
+    if cfg.family == "ssm":
+        return cfg.n_layers * ssm
+    return cfg.n_layers * ssm + (cfg.n_layers // cfg.hybrid_period) * (attn + mlp)
 
 
 # ---------------------------------------------------------------------------
@@ -378,24 +436,29 @@ def _rank_diffs(me, job) -> dict:
     return out
 
 
-_STEP_KERNELS = ("flash_attention", "flash_attention_bwd")
+_STEP_KERNELS = ("flash_attention", "flash_attention_bwd", "ssd_chunk", "ssd_chunk_bwd")
 
 
 def _launches() -> dict[str, int]:
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SD
 
     return {"flash_attention": FA.flash_attention.launches,
-            "flash_attention_bwd": FA.flash_attention_bwd.launches}
+            "flash_attention_bwd": FA.flash_attention_bwd.launches,
+            "ssd_chunk": SD.ssd_chunk_fwd.launches, "ssd_chunk_bwd": SD.ssd_chunk_bwd.launches}
 
 
 def _grads(cfg, tc, grid, params, batch, spec):
     """(global loss, this rank's gradient blocks) of the rank's rows:
     ``step.local_grads`` under the rank's grid, then the gradients of
-    leaves replicated over "data" summed over it."""
+    leaves replicated over "data" summed over it, and those of the leaves
+    read in part summed over "model" (each element has one contributor)."""
     with L.use_constraint_mesh(grid):
         loss, grads = S.local_grads(cfg, tc, params, batch)
     grads = tree_map(lambda _, g, sp: g if "data" in sp else grid.data.all_reduce(g),
                      grads, spec)
+    grads = tree_map(lambda path, g: grid.model.all_reduce(g) if _read_in_part(path) else g,
+                     grads)
     return grid.data.all_reduce(loss), grads
 
 

@@ -313,7 +313,8 @@ def _jax_cfg(arch):
     return dataclasses.replace(jax_get_reduced(arch), compute_dtype=jnp.float32)
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "minitron-8b"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "minitron-8b", "qwen2-moe-a2.7b", "mamba2-1.3b",
+                                  "zamba2-1.2b"])
 def test_state_defs_and_batch_specs_match_jax(arch):
     """make_train_state_defs' pspec tree leaf for leaf, its shapes, and the
     batch's specs and TensorSpecs, against the JAX functions."""
@@ -523,14 +524,33 @@ def test_global_norm_counts_each_element_once():
 
 
 def test_non_dense_families_and_other_layouts_raise():
-    """What the within-pod step has no layout for raises, naming item 10."""
+    """What the within-pod step has no layout for raises, naming item 10:
+    the encdec family, the grouped MoE route, and heads, experts, ssm heads
+    or units that do not split over the model axis. The moe, ssm and hybrid
+    families have layouts (``test_torch_fsdp_families.py``)."""
     mesh = types.SimpleNamespace(mesh_shape={"data": 2, "model": 2}, device=CPU)
-    for arch in ("qwen2-moe-a2.7b", "mamba2-1.3b", "zamba2-1.2b", "whisper-small"):
-        cfg = get_reduced(arch)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            S.make_jitted_train_step(mesh, cfg, TrainConfig())
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            init_train_state(cfg, TrainConfig(), 0, mesh=mesh)
+    cfg = get_reduced("whisper-small")
+    with pytest.raises(NotImplementedError, match="encdec.*Queue 1 item 10"):
+        S.make_jitted_train_step(mesh, cfg, TrainConfig())
+    with pytest.raises(NotImplementedError, match="encdec.*Queue 1 item 10"):
+        init_train_state(cfg, TrainConfig(), 0, mesh=mesh)
+    for arch in ("qwen2-moe-a2.7b", "mamba2-1.3b", "zamba2-1.2b"):
+        SH.check_layout(get_reduced(arch), TrainConfig(), mesh.mesh_shape)
+    moe = get_reduced("qwen2-moe-a2.7b")  # 8 experts, 4 heads, 64 shared-expert units
+    hybrid = get_reduced("zamba2-1.2b")  # 4 heads, 8 ssm heads
+    m4, m8 = {"data": 1, "model": 4}, {"data": 1, "model": 8}
+    for cfg, shape, what in (
+            (dataclasses.replace(moe, moe_groups=2), mesh.mesh_shape, "grouped MoE route"),
+            (dataclasses.replace(moe, n_experts=6), {"data": 2, "model": 4}, "6 experts"),
+            (dataclasses.replace(moe, shared_expert_d_ff=66), m4, "66 shared expert units"),
+            # vocab 256 splits over 16
+            (get_reduced("mamba2-1.3b"), {"data": 1, "model": 16}, "8 ssm heads"),
+            (dataclasses.replace(hybrid, ssm_head_dim=32), m8, "4 heads"),
+            (dataclasses.replace(hybrid, n_heads=8, n_kv_heads=8, head_dim=8, d_ff=256,
+                                 ssm_head_dim=32), m8, "4 ssm heads")):
+        with pytest.raises(NotImplementedError, match=f"{what}.*Queue 1 item 10"):
+            S.make_jitted_train_step(types.SimpleNamespace(mesh_shape=shape, device=CPU), cfg,
+                                     TrainConfig())
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         S.make_jitted_train_step(mesh, _cfg(n_heads=3, n_kv_heads=1), TrainConfig())
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
